@@ -1,0 +1,128 @@
+// Factorization kernels of the batched MPC solve, one block per system.
+//
+// ns_inverse_scaled_kernel replaces the TPU kernel
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled (_kernel_scaled_il)
+// ns_inverse_scaled_build_kernel replaces
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled_build (_kernel_scaled_build_il)
+//
+// Both run the shared NS core (ns_core.cuh) at the 128 tile. The TPU kernels'
+// G = 8 grouping came from the TPU grid; here any batch size works. What bounds
+// them and what the design does about it: see ns_core.cuh.
+#include <cstdint>
+
+#include "ns_core.cuh"
+
+namespace qct {
+
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, float* dst) {
+  for (int idx = threadIdx.x; idx < NS_N * NS_N; idx += NS_THREADS) {
+    dst[(idx / NS_N) * NS_LD + idx % NS_N] = src[idx];
+  }
+}
+
+__device__ __forceinline__ void store_tile(const float* src, float* __restrict__ dst) {
+  for (int idx = threadIdx.x; idx < NS_N * NS_N; idx += NS_THREADS) {
+    dst[idx] = src[(idx / NS_N) * NS_LD + idx % NS_N];
+  }
+}
+
+// ks (B, 128, 128) Jacobi-scaled, identity on the pad -> inv (B, 128, 128).
+__global__ void __launch_bounds__(NS_THREADS)
+ns_inverse_scaled_kernel(const float* __restrict__ ks, float* __restrict__ inv, NsSchedule s) {
+  extern __shared__ float smem[];
+  float* K = smem;
+  float* X = K + NS_N * NS_LD;
+  float* T = X + NS_N * NS_LD;
+  const size_t base = static_cast<size_t>(blockIdx.x) * NS_N * NS_N;
+  load_tile(ks + base, K);
+  __syncthreads();
+  ns_schedule(K, X, T, s);
+  store_tile(X, inv + base);
+}
+
+// K = hp + blockdiag3(g9), d = rsqrt(max(diag K, 1e-30)), ks = D K D, then the
+// schedule on ks. hp (B, 128, 128) is hess_n + sigma I with identity on the
+// pad; g9 (B, 9, nblk) holds the 3x3 gram blocks component-major, entry
+// (3*(r%3) + c%3, r/3) lands on K[r][c] when r/3 == c/3 < nblk. Writes
+// inv and ks (B, 128, 128) and d_row (B, 128).
+__global__ void __launch_bounds__(NS_THREADS)
+ns_inverse_scaled_build_kernel(const float* __restrict__ hp, const float* __restrict__ g9,
+                               int nblk, float* __restrict__ inv, float* __restrict__ ks_out,
+                               float* __restrict__ d_row, NsSchedule s) {
+  extern __shared__ float smem[];
+  float* K = smem;
+  float* X = K + NS_N * NS_LD;
+  float* T = X + NS_N * NS_LD;
+  __shared__ float d[NS_N];
+  const size_t base = static_cast<size_t>(blockIdx.x) * NS_N * NS_N;
+  const float* g = g9 + static_cast<size_t>(blockIdx.x) * 9 * nblk;
+  for (int idx = threadIdx.x; idx < NS_N * NS_N; idx += NS_THREADS) {
+    const int r = idx / NS_N, c = idx % NS_N;
+    float v = hp[base + idx];
+    const int blk = c / 3;
+    if (r / 3 == blk && blk < nblk) v += g[(3 * (r % 3) + c % 3) * nblk + blk];
+    K[r * NS_LD + c] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < NS_N) {
+    const int i = threadIdx.x;
+    const float di = 1.f / sqrtf(fmaxf(K[i * NS_LD + i], 1e-30f));
+    d[i] = di;
+    d_row[static_cast<size_t>(blockIdx.x) * NS_N + i] = di;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < NS_N * NS_N; idx += NS_THREADS) {
+    const int r = idx / NS_N, c = idx % NS_N;
+    const float v = K[r * NS_LD + c] * d[r] * d[c];
+    K[r * NS_LD + c] = v;
+    ks_out[base + idx] = v;
+  }
+  __syncthreads();
+  ns_schedule(K, X, T, s);
+  store_tile(X, inv + base);
+}
+
+NsSchedule make_schedule(const float* mus, int n_scaled, int n_quad, int n_hi) {
+  NsSchedule s{};
+  for (int i = 0; i < n_scaled && i < NS_MAX_MUS; ++i) s.mu[i] = mus[i];
+  s.n_scaled = n_scaled;
+  s.n_quad = n_quad;
+  s.n_hi = n_hi;
+  return s;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(NS_SMEM_BYTES));
+}
+
+}  // namespace qct
+
+// C entry points (loaded with ctypes). Each returns the launch's cudaError_t;
+// the caller checks bounds, types and the schedule length.
+extern "C" int qct_ns_inverse_scaled(const float* ks, float* inv, int b, const float* mus,
+                                     int n_scaled, int n_quad, int n_hi, void* stream) {
+  if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = qct::allow_smem(qct::ns_inverse_scaled_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_scaled_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      ks, inv, qct::make_schedule(mus, n_scaled, n_quad, n_hi));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qct_ns_inverse_scaled_build(const float* hp, const float* g9, int nblk,
+                                           float* inv, float* ks, float* d_row, int b,
+                                           const float* mus, int n_scaled, int n_quad,
+                                           int n_hi, void* stream) {
+  if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = qct::allow_smem(qct::ns_inverse_scaled_build_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_scaled_build_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      hp, g9, nblk, inv, ks, d_row, qct::make_schedule(mus, n_scaled, n_quad, n_hi));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,24 @@
+"""Where the port's work runs.
+
+The JAX package chose its Pallas branches by backend (`jax.default_backend()
+== "tpu"` in `solver/admm.py` and `mpc/formation.py`). The port chooses by the
+data: the kernel branch is taken when the tensors lie on a CUDA device, unless
+the caller says otherwise. Nothing here moves work to another device or sets
+any global state.
+
+Precision: float32 products stay at PyTorch's default "highest" precision
+(no TF32), the counterpart of `Precision.HIGHEST` in the JAX package
+(`core/precision.py`). Nothing in the port calls
+`torch.set_float32_matmul_precision("high")`: the JAX package records the
+Kalman-filter Cholesky going NaN under reduced-precision products.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def use_kernels(t: torch.Tensor, use_kernels: bool | None = None) -> bool:
+    """True when the kernel branch runs for data `t`: `t.is_cuda` unless the
+    caller passes `use_kernels` explicitly."""
+    return t.is_cuda if use_kernels is None else bool(use_kernels)

@@ -1,0 +1,127 @@
+"""The batched packed MPC solve: formation -> packed QP -> ADMM -> forces.
+
+The counterpart of `quadruped_ctrl_tpu/mpc/pipeline.py` for
+`solve_packed_batch`, its inputs and its random scenario generator.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from quadruped_ctrl_tpu.config import FrameworkConfig
+from quadruped_ctrl_tpu_torch.mpc import formation
+from quadruped_ctrl_tpu_torch.solver import admm
+
+
+@dataclasses.dataclass(frozen=True)
+class MPCInputs:
+    """Per-scenario solver inputs with a leading batch axis (the reference's
+    update_data_t, convexMPC_interface.h:10-38). All float32."""
+
+    rpy: torch.Tensor          # (B,3)
+    position: torch.Tensor     # (B,3)
+    omega_world: torch.Tensor  # (B,3)
+    v_world: torch.Tensor      # (B,3)
+    r_feet: torch.Tensor       # (B,4,3) foot positions relative to CoM, world
+    traj: torch.Tensor         # (B,h,13) reference (13th column zero)
+    gait_table: torch.Tensor   # (B,h,4)
+    x_drag: torch.Tensor       # (B,)
+
+    def replace(self, **changes) -> "MPCInputs":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "MPCInputs":
+        return MPCInputs(**{f.name: getattr(self, f.name).to(device)
+                            for f in dataclasses.fields(self)})
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, device="cpu") -> "MPCInputs":
+        """From a dict of arrays keyed by field name (for example
+        `np.asarray` of each field of the JAX package's MPCInputs)."""
+        return cls(**{f.name: torch.as_tensor(np.array(arrays[f.name], np.float32),
+                                              device=device)
+                      for f in dataclasses.fields(cls)})
+
+    def to_numpy(self) -> dict:
+        return {f.name: getattr(self, f.name).detach().cpu().numpy()
+                for f in dataclasses.fields(self)}
+
+
+def random_inputs(seed: int, batch: int, h: int, device="cpu") -> MPCInputs:
+    """Random-but-realistic trotting scenario batch with the JAX package's
+    distributions (the JCQP ProblemGenerator pattern), drawn from a numpy
+    Generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(lo, hi, shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    rpy = uniform(-0.1, 0.1, (batch, 3))
+    position = np.concatenate([uniform(-1.0, 1.0, (batch, 2)),
+                               uniform(0.25, 0.3, (batch, 1))], axis=1)
+    omega = uniform(-0.3, 0.3, (batch, 3))
+    v = uniform(-0.5, 0.5, (batch, 3))
+    r_feet = uniform(-0.25, 0.25, (batch, 4, 3))
+    r_feet[:, :, 2] = uniform(-0.30, -0.25, (batch, 4))
+    traj = np.zeros((batch, h, 13), np.float32)
+    traj[:, :, 5] = 0.25
+    traj[:, :, 9] = v[:, None, 0]
+    half = h // 2
+    tbl = np.zeros((h, 4), np.float32)
+    tbl[:half, 0] = tbl[:half, 3] = 1.0
+    tbl[half:, 1] = tbl[half:, 2] = 1.0
+    gait = np.broadcast_to(tbl, (batch, h, 4))
+    return MPCInputs.from_numpy(dict(
+        rpy=rpy, position=position, omega_world=omega, v_world=v,
+        r_feet=r_feet, traj=traj, gait_table=gait,
+        x_drag=np.zeros((batch,), np.float32)), device=device)
+
+
+def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,
+                       max_stance: int = 2, pack: int = 2,
+                       iterations: int | None = None,
+                       polish_rounds: int | None = None,
+                       use_fused: bool | None = None,
+                       form_only: bool = False,
+                       use_kernels: bool | None = None):
+    """Stance-compressed, pair-packed batched solve: `pack` compressed
+    scenarios share one block-diagonal KKT system (a trot at h=10: 2 x 60
+    variables in one 120-variable system). Returns forces (B, h, 4, 3) with
+    zeros on swing feet. `use_kernels` defaults to whether the inputs lie on
+    a CUDA device."""
+    b = inputs.rpy.shape[0]
+    if b % pack:
+        raise ValueError(f"batch {b} is not a multiple of pack={pack}")
+    if use_fused:
+        raise NotImplementedError(
+            "fused single-kernel solve (K5, fused_admm_solve): later PR; "
+            "see ROADMAP")
+    h = inputs.gait_table.shape[1]
+
+    adt, bdt = formation.srb_discrete(
+        cfg.mpc, inputs.r_feet, inputs.rpy[:, 2], inputs.x_drag, cfg.dt_mpc)
+    x0 = formation.build_x0(inputs.rpy, inputs.position, inputs.omega_world,
+                            inputs.v_world, cfg.mpc.gravity)
+    foot_idx, gait_red, sel = formation.stance_selectors(inputs.gait_table,
+                                                         max_stance)
+    step_mask = torch.ones((b, h), dtype=torch.float32, device=adt.device)
+    n_c = 3 * max_stance * h
+
+    kp, gp = formation.qp_cost_packed(cfg.mpc, adt, bdt, x0, inputs.traj,
+                                      step_mask, sel, pack,
+                                      use_kernels=use_kernels)
+    if form_only:
+        # formation-phase timing without the solve: the returned "forces"
+        # depend on every formed quantity, but nothing is factorized
+        probe = (kp.sum(dim=(1, 2)) + gp.sum(dim=1)) * 1e-12
+        probe = probe[:, None].expand(b // pack, pack)
+        return probe.reshape(b, 1, 1, 1).expand(b, h, 4, 3)
+    gaitp = gait_red.reshape(b // pack, pack * h, max_stance)
+    xp = admm.admm_mpc_batched(cfg.solver, cfg.mpc, kp, gp, gaitp,
+                               iterations=iterations,
+                               polish_rounds=polish_rounds,
+                               use_kernels=use_kernels, pack=pack)
+    return formation.scatter_forces(xp.reshape(b, n_c), foot_idx, h)

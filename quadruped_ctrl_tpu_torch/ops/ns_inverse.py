@@ -1,0 +1,219 @@
+"""Mixed-precision scaled Newton-Schulz SPD inversion (kernels K2 and K3).
+
+The counterpart of `quadruped_ctrl_tpu/ops/ns_inverse.py` for the batched
+solve's factorizations:
+
+* `ns_inverse_scaled` (K3): the NS schedule on a prebuilt Jacobi-scaled,
+  tile-padded K;
+* `ns_inverse_scaled_build` (K2): builds K = hp + blockdiag3(g9), Jacobi-
+  scales it and runs the same schedule, returning (inv, ks, d_row).
+
+The schedule: X0 = I / ||K||_inf, then `mu_schedule(a0, n_scaled)` scaled
+steps X <- mu X (2I - mu K X) and n_quad quadratic steps in bf16x3, then n_hi
+fp32 steps. On a CUDA tensor the wrappers launch the hand-written kernels in
+`csrc/ns_inverse.cu` (128 tile; the 256 tile raises); on a CPU tensor they run
+the `_reference` functions, the same arithmetic in plain PyTorch.
+
+The TPU kernels group G = 8 systems per grid step and need the batch padded
+to a multiple of G; the CUDA kernels take any batch. `G` stays here because
+the solver pads its batch as the JAX solver does, so that both compare line
+for line.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from quadruped_ctrl_tpu_torch.ops import _build, _launch
+
+N = 128           # default padded system size (n <= 128, e.g. packed h=10)
+N_BIG = 256       # large tile (128 < n <= 256, e.g. the full h=16 problem)
+G = 8             # systems per TPU grid step; the solver's batch padding
+_MAX_MUS = 16     # length of the kernels' mu table (csrc/ns_core.cuh)
+
+
+def pad_sizes(n: int) -> int:
+    """Smallest kernel tile for an n-variable system: 128 or 256."""
+    if n <= N:
+        return N
+    if n > N_BIG:
+        raise ValueError(f"system size {n} exceeds the {N_BIG} kernel tile")
+    return N_BIG
+
+
+def pad_to(k: torch.Tensor, n: int, n_pad: int | None = None) -> torch.Tensor:
+    """Embed an (..., n, n) SPD block into (..., n_pad, n_pad) with identity
+    padding (the padded block's inverse is the padded inverse)."""
+    n_pad = pad_sizes(n) if n_pad is None else n_pad
+    out = torch.zeros(k.shape[:-2] + (n_pad, n_pad), dtype=torch.float32,
+                      device=k.device)
+    out[..., :n, :n] = k
+    idx = torch.arange(n, n_pad, device=k.device)
+    out[..., idx, idx] = 1.0
+    return out
+
+
+def _split(a: torch.Tensor):
+    """float32 -> (bf16 hi, bf16 lo) with a ~= hi + lo."""
+    hi = a.to(torch.bfloat16)
+    lo = (a - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+def _mm3(a_hi: torch.Tensor, a_lo: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16x3 product: hi*hi + hi*lo + lo*hi of the bf16 parts, each an fp32
+    product of bf16 values (exact) with fp32 accumulation, ~1e-6 relative."""
+    b_hi, b_lo = _split(b)
+    a_hi, a_lo, b_hi, b_lo = (t.float() for t in (a_hi, a_lo, b_hi, b_lo))
+    acc = a_hi @ b_hi
+    acc = acc + a_hi @ b_lo
+    acc = acc + a_lo @ b_hi
+    return acc
+
+
+def mu_schedule(a0: float, n_scaled: int) -> list[float]:
+    """Fixed scaling factors for the interval-[a,1] phase (host floats)."""
+    mus = []
+    a = a0
+    for _ in range(n_scaled):
+        mu = 2.0 / (1.0 + a)
+        mus.append(mu)
+        a = min(mu * a * (2.0 - mu * a), mu * (2.0 - mu))
+    return mus
+
+
+def _ns_schedule(ks: torch.Tensor, mus, n_quad: int, n_hi: int) -> torch.Tensor:
+    """The NS schedule on a batch of Jacobi-scaled systems (B, npad, npad)."""
+    eye = torch.eye(ks.shape[-1], dtype=torch.float32, device=ks.device)
+    k_hi, k_lo = _split(ks)
+    x = (1.0 / ks.abs().sum(-1).amax(-1))[:, None, None] * eye
+    for mu in mus:                        # scaled, bf16x3
+        kx = _mm3(k_hi, k_lo, x)
+        x_hi, x_lo = _split(x)
+        x = mu * _mm3(x_hi, x_lo, 2.0 * eye - mu * kx)
+    for _ in range(n_quad):               # quadratic, bf16x3
+        kx = _mm3(k_hi, k_lo, x)
+        x_hi, x_lo = _split(x)
+        x = _mm3(x_hi, x_lo, 2.0 * eye - kx)
+    for _ in range(n_hi):                 # quadratic, fp32 tail
+        kx = ks @ x
+        x = x @ (2.0 * eye - kx)
+    return x
+
+
+def _check_tile(npad: int):
+    if npad not in (N, N_BIG):
+        raise ValueError(f"tile {npad}: pad the system to {N} or {N_BIG} first")
+
+
+def _check_schedule(n_scaled: int):
+    if not 0 <= n_scaled <= _MAX_MUS:
+        raise ValueError(f"n_scaled={n_scaled} outside 0..{_MAX_MUS}")
+
+
+def _mus_arg(a0: float, n_scaled: int):
+    return (ctypes.c_float * _MAX_MUS)(*mu_schedule(a0, n_scaled))
+
+
+def ns_inverse_scaled_reference(ks, a0: float = 1e-5, n_scaled: int = 9,
+                                n_quad: int = 2, n_hi: int = 1):
+    """Plain PyTorch K3."""
+    return _ns_schedule(ks, mu_schedule(a0, n_scaled), n_quad, n_hi)
+
+
+def ns_inverse_scaled(ks, a0: float = 1e-5, n_scaled: int = 9, n_quad: int = 2,
+                      n_hi: int = 1):
+    """Scaled mixed-precision NS inverse of ks (B, npad, npad), Jacobi-scaled
+    SPD with identity on the pad, npad in {128, 256}, any B. The defaults are
+    the polish-grade schedule (SolverConfig.ns_a0 / ns_*_iters)."""
+    npad = ks.shape[-1] if ks.dim() == 3 else None
+    _launch.check(ks, "ks", (None, npad, npad))
+    _check_tile(npad)
+    _check_schedule(n_scaled)
+    if not ks.is_cuda:
+        return ns_inverse_scaled_reference(ks, a0, n_scaled, n_quad, n_hi)
+    if npad != N:
+        raise NotImplementedError(
+            f"ns_inverse_scaled on CUDA at the {npad} tile: later PR; see ROADMAP")
+    inv = torch.empty_like(ks)
+    with torch.cuda.device(ks.device):
+        rc = _build.load().qct_ns_inverse_scaled(
+            _launch.ptr(ks), _launch.ptr(inv), ks.shape[0],
+            _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(ks))
+    _launch.raise_on_error(rc, "ns_inverse_scaled")
+    _K3.launches += 1
+    return inv
+
+
+# The launch count lives on the function object; the private alias keeps it
+# there when the module attribute is swapped for a wrapper.
+_K3 = ns_inverse_scaled
+_K3.launches = 0
+
+
+def _build_k(hp: torch.Tensor, g9: torch.Tensor) -> torch.Tensor:
+    """K = hp + blockdiag3(g9): entry (3*(r%3) + c%3, r//3) of g9 lands on
+    K[r, c] where r//3 == c//3 < nblk."""
+    npad, nblk = hp.shape[-1], g9.shape[-1]
+    idx = torch.arange(npad, device=hp.device)
+    r, c = idx[:, None], idx[None, :]
+    blk_r = torch.div(r, 3, rounding_mode="floor")
+    blk_c = torch.div(c, 3, rounding_mode="floor")
+    on_block = (blk_r == blk_c) & (blk_c < nblk)
+    comp = (3 * (r % 3) + c % 3).expand(npad, npad)
+    blk = blk_c.clamp(max=nblk - 1).expand(npad, npad)
+    return hp + torch.where(on_block, g9[:, comp, blk], 0.0)
+
+
+def ns_inverse_scaled_build_reference(hp, g9, a0: float = 1e-5,
+                                      n_scaled: int = 9, n_quad: int = 2,
+                                      n_hi: int = 1):
+    """Plain PyTorch K2. Returns (inv, ks, d_row (B, 1, npad)), ks None at
+    the 256 tile."""
+    k = _build_k(hp, g9)
+    d = torch.rsqrt(torch.clamp(torch.diagonal(k, dim1=-2, dim2=-1), min=1e-30))
+    ks = k * d[:, :, None] * d[:, None, :]
+    inv = _ns_schedule(ks, mu_schedule(a0, n_scaled), n_quad, n_hi)
+    return inv, (ks if hp.shape[-1] == N else None), d[:, None, :]
+
+
+def ns_inverse_scaled_build(hp, g9, a0: float = 1e-5, n_scaled: int = 9,
+                            n_quad: int = 2, n_hi: int = 1):
+    """Fused K-build + scaled NS inverse.
+
+    hp (B, npad, npad): hess_n + sigma I, padded with identity on the pad;
+    g9 (B, 9, nblk): the pyramid gram blocks, component-major. Returns
+    (inv, ks, d_row) with d_row (B, 1, npad) the Jacobi scale; inv and ks are
+    in the scaled space (K^-1 = d inv d). At the 256 tile ks comes back as
+    None, as the JAX kernel's default (`emit_ks`) has it."""
+    b = hp.shape[0] if hp.dim() == 3 else None
+    npad = hp.shape[-1] if hp.dim() == 3 else None
+    _launch.check(hp, "hp", (b, npad, npad))
+    _launch.check(g9, "g9", (b, 9, None), hp.device)
+    _check_tile(npad)
+    if 3 * g9.shape[-1] > npad:
+        raise ValueError(f"g9 has {g9.shape[-1]} blocks, more than a {npad} tile holds")
+    _check_schedule(n_scaled)
+    if not hp.is_cuda:
+        return ns_inverse_scaled_build_reference(hp, g9, a0, n_scaled, n_quad, n_hi)
+    if npad != N:
+        raise NotImplementedError(
+            f"ns_inverse_scaled_build on CUDA at the {npad} tile: later PR; "
+            "see ROADMAP")
+    inv = torch.empty_like(hp)
+    ks = torch.empty_like(hp)
+    d_row = torch.empty((b, 1, npad), dtype=torch.float32, device=hp.device)
+    P = _launch.ptr
+    with torch.cuda.device(hp.device):
+        rc = _build.load().qct_ns_inverse_scaled_build(
+            P(hp), P(g9), g9.shape[-1], P(inv), P(ks), P(d_row), b,
+            _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(hp))
+    _launch.raise_on_error(rc, "ns_inverse_scaled_build")
+    _K2.launches += 1
+    return inv, ks, d_row
+
+
+_K2 = ns_inverse_scaled_build
+_K2.launches = 0

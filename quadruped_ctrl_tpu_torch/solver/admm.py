@@ -1,0 +1,482 @@
+"""Batched ADMM QP solver with active-set polish, for the packed MPC solve.
+
+The counterpart of the batched path of `quadruped_ctrl_tpu/solver/admm.py`:
+`admm_mpc_batched` solves  min 0.5 x'Hx + g'x  s.t.  l <= Ax <= u  with A the
+friction pyramid, over the Schur-complement KKT matrix
+K = H + sigma I + A' diag(rho) A, factorized by Newton-Schulz inversion. Both
+branches of the JAX function are here:
+
+* the kernel branch (`use_kernels`, the default for CUDA tensors): every cold
+  factorization runs the fused K-build + NS kernel K2
+  (`ops/ns_inverse.ns_inverse_scaled_build`), or the two-step build and K3
+  when `_FUSED_BUILD` is False, and the ADMM iterate runs in tile-padded
+  spaces with the inverse quantized to bf16 for all but the last
+  `f32_tail_iters` iterations;
+* the plain branch: plain 25-step fp32 NS and the structural pyramid.
+
+Where the JAX code updates an array with `.at[].set`, the port builds a fresh
+tensor (zeros or ones) and writes into it; no caller's tensor is modified.
+The `lax.scan` loops are Python loops. Left for later PRs: the Schur split
+for 128 < n <= 160 (K4), warm factorizations (K7) and the Woodbury polish
+(K6); each raises NotImplementedError where the JAX code would reach it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from quadruped_ctrl_tpu.config import MPCConfig, SolverConfig
+from quadruped_ctrl_tpu_torch import device
+from quadruped_ctrl_tpu_torch.mpc import formation
+from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
+
+
+def _bmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matvec (B,i,j) x (B,j) -> (B,i) in fp32."""
+    return torch.bmm(a, v[:, :, None])[:, :, 0]
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """Values rounded to bf16, kept in fp32: a product of two such tensors in
+    fp32 is the JAX package's bf16 x bf16 product with fp32 output."""
+    return t.to(torch.bfloat16).float()
+
+
+def constraint_rho(cfg: SolverConfig, l, u):
+    """Per-row penalty: equality / infinite / inequality (QpProblem.cpp:276-291)."""
+    infinite = (l < -cfg.infty) & (u > cfg.infty)
+    equality = torch.abs(u - l) < cfg.eql_tol
+    inner = torch.where(equality, cfg.rho * cfg.rho_equality_scale, cfg.rho)
+    return torch.where(infinite, cfg.rho_infty, inner).to(l.dtype)
+
+
+def _ns_inverse(ks, iters: int):
+    """Plain fp32 Newton-Schulz inverse of a batch of SPD, Jacobi-scaled
+    matrices (B, n, n): X0 = I / ||K||_inf, X <- X (2I - K X)."""
+    eye = torch.eye(ks.shape[-1], dtype=ks.dtype, device=ks.device)
+    x = (1.0 / ks.abs().sum(-1).amax(-1))[:, None, None] * eye
+    for _ in range(iters):
+        kx = ks @ x
+        x = x @ (2.0 * eye - kx)
+    return x
+
+
+def _adapt_rho_factor(cfg: SolverConfig, ax, z, hx, grad_n, aty):
+    """OSQP adaptive-rho rule: sqrt of the scaled primal/dual residual ratio,
+    clipped, per row of (B, m) / (B, n)."""
+    eps = 1e-12
+    r_pri = torch.abs(ax - z).amax(-1)
+    s_pri = torch.clamp(torch.maximum(torch.abs(ax).amax(-1),
+                                      torch.abs(z).amax(-1)), min=eps)
+    r_du = torch.abs(hx + grad_n + aty).amax(-1)
+    s_du = torch.maximum(
+        torch.maximum(torch.abs(hx).amax(-1), torch.abs(aty).amax(-1)),
+        torch.clamp(torch.abs(grad_n).amax(-1), min=eps))
+    ratio = (r_pri / s_pri) / torch.clamp(r_du / s_du, min=eps)
+    return torch.clamp(torch.sqrt(ratio), cfg.rho_adapt_clip_lo,
+                       cfg.rho_adapt_clip_hi)
+
+
+def _pyramid_dense(mu: float, h: int, nf: int):
+    """Dense (5 h nf, 3 h nf) friction-pyramid matrix, as a numpy constant."""
+    mu_inv = 1.0 / mu
+    block = np.array(
+        [[mu_inv, 0, 1], [-mu_inv, 0, 1], [0, mu_inv, 1], [0, -mu_inv, 1],
+         [0, 0, 1]], dtype=np.float32)
+    n_blk = h * nf
+    a = np.zeros((5 * n_blk, 3 * n_blk), dtype=np.float32)
+    for i in range(n_blk):
+        a[5 * i:5 * i + 5, 3 * i:3 * i + 3] = block
+    return a
+
+
+@dataclasses.dataclass
+class _Solver:
+    """A batched factorization: solve(b) -> x for K x = b, Jacobi-prescaled
+    (K^-1 = D inv D), with iterative refinement against the scaled K."""
+
+    inv: torch.Tensor                  # (B,n,n) Jacobi-scaled inverse
+    scale: torch.Tensor                # (B,n) Jacobi scale d
+    ks: torch.Tensor | None            # (B,n,n) Jacobi-scaled K, or None
+    inv_padded: torch.Tensor | None    # (B,npad,npad) kernel output, or None
+    k_scaled_mv: object = None         # x -> ks x when ks is None
+
+    @functools.cached_property
+    def inv16(self) -> torch.Tensor:
+        return _bf16_round(self.inv)
+
+    def __call__(self, b_vec, refine: int = 2, lowp: bool = False):
+        d = self.scale
+        bs = d * b_vec
+        if lowp:
+            # bf16 inverse matvec: only for the bulk ADMM iterations, never
+            # where the result is read out
+            return d * _bmv(self.inv16, _bf16_round(bs))
+        x = _bmv(self.inv, bs)
+        for _ in range(refine):
+            ksx = _bmv(self.ks, x) if self.ks is not None else self.k_scaled_mv(x)
+            x = x + _bmv(self.inv, bs - ksx)
+        return d * x
+
+
+def _batched_solver(k, cfg: SolverConfig, use_kernels: bool, schedule=None,
+                    prev_inv=None, prev_scale=None, schur: bool = False):
+    """k (B,n,n) SPD -> a _Solver, Jacobi-prescaled. The kernel branch pads
+    to the kernel tile and runs K3 on the scaled K (the two-step build);
+    the plain branch runs the plain 25-step NS."""
+    n = k.shape[-1]
+    d = torch.rsqrt(torch.clamp(torch.diagonal(k, dim1=-2, dim2=-1), min=1e-30))
+    ks = k * d[:, :, None] * d[:, None, :]
+    inv_padded = None
+    if schedule is None:
+        schedule = (cfg.ns_a0, cfg.ns_scaled_iters, cfg.ns_quad_iters,
+                    cfg.ns_hi_iters)
+    if use_kernels and schur and prev_inv is None and 128 < n <= 192:
+        raise NotImplementedError(
+            "Schur-split factorization (K4, ns_inverse_schur_scaled) for "
+            f"n={n}: later PR; see ROADMAP")
+    elif use_kernels:
+        if prev_inv is not None:
+            raise NotImplementedError(
+                "warm factorization (K7, ns_inverse_pallas_warm): later PR; "
+                "see ROADMAP")
+        b = ks.shape[0]
+        npad = NI.pad_sizes(n)
+        ksp = NI.pad_to(ks, n, npad)
+        pad_b = (-b) % NI.G
+        if pad_b:
+            ksp = torch.cat([ksp, torch.eye(npad, device=ks.device).expand(
+                pad_b, npad, npad)], dim=0)
+        inv_padded = NI.ns_inverse_scaled(ksp, *schedule)[:b]
+        inv = inv_padded[:, :n, :n]
+    else:
+        inv = _ns_inverse(ks, cfg.ns_iters)
+    return _Solver(inv=inv, scale=d, ks=ks, inv_padded=inv_padded)
+
+
+# A/B switch for the fused K-build factorization (benchmarks and differential
+# tests flip it to compare against the two-step build + K3).
+_FUSED_BUILD = True
+
+
+def _batched_solver_fused(hp_g, g9, n: int, bsz: int, cfg: SolverConfig,
+                          schedule=None):
+    """Fused-build factorization: K assembly, Jacobi prescale and scaled NS
+    in kernel K2. hp_g (B_pad, npad, npad): hess_n + sigma I padded to the
+    tile and to a G-multiple batch; g9 (B, 9, nblk) gram components."""
+    nblk = n // 3
+    pad_b = hp_g.shape[0] - bsz
+    g9_u = g9
+    if pad_b:
+        g9 = torch.cat([g9, torch.zeros((pad_b,) + g9.shape[1:], dtype=g9.dtype,
+                                        device=g9.device)], dim=0)
+    if schedule is None:
+        schedule = (cfg.ns_a0, cfg.ns_scaled_iters, cfg.ns_quad_iters,
+                    cfg.ns_hi_iters)
+    inv_p, ks_p, d_p = NI.ns_inverse_scaled_build(hp_g, g9.contiguous(), *schedule)
+    inv_padded = inv_p[:bsz]
+    inv = inv_padded[:, :n, :n]
+    d = d_p[:bsz, 0, :n]
+    k_scaled_mv = None
+    if ks_p is not None:
+        ks = ks_p[:bsz, :n, :n]
+    else:
+        # 256 tile: no ks output; refinement matvecs against the scaled K
+        # are d*(K@(d*x)) with K = hp + blockdiag3(gram)
+        ks = None
+        hp_n = hp_g[:bsz, :n, :n]
+        g4 = g9_u.transpose(1, 2).reshape(bsz, nblk, 3, 3)
+
+        def k_scaled_mv(x):
+            xu = d * x
+            ku = _bmv(hp_n, xu)
+            ku = ku + torch.einsum("bdij,bdj->bdi", g4,
+                                   xu.reshape(bsz, nblk, 3)).reshape(bsz, n)
+            return d * ku
+    return _Solver(inv=inv, scale=d, ks=ks, inv_padded=inv_padded,
+                   k_scaled_mv=k_scaled_mv)
+
+
+def admm_mpc_batched(
+    cfg: SolverConfig,
+    cfg_mpc: MPCConfig,
+    hess,            # (B, n, n) with n = 3*nf*h
+    grad,            # (B, n)
+    gait_table,      # (B, h, nf)
+    iterations: int | None = None,
+    polish_rounds: int | None = None,
+    use_kernels: bool | None = None,
+    warm=None,
+    return_warm: bool = False,
+    pack: int = 1,
+):
+    """Batch-explicit MPC QP solve. Returns forces (B, n).
+
+    `warm`/`return_warm`: an (x_hat (B,n), z_hat (B,m), y_hat (B,m)) triple
+    in force-normalized units; zeros are exactly the cold start. The
+    returned triple is the pre-polish ADMM iterate.
+
+    `pack`: each system is `pack` independent scenarios stacked
+    block-diagonally; the adaptive-rho ratio and the polish best-iterate
+    selection are then taken per scenario."""
+    if cfg.polish_woodbury:
+        raise NotImplementedError(
+            "Woodbury polish (K6, ns_inverse_pallas_refine): later PR; see ROADMAP")
+    n_iter = cfg.iterations if iterations is None else iterations
+    polish_rounds = cfg.polish_rounds if polish_rounds is None else polish_rounds
+    use_kernels = device.use_kernels(hess, use_kernels)
+    bsz, h, nf = gait_table.shape
+    n = 3 * nf * h
+    dtype, dev = hess.dtype, hess.device
+
+    f_scale = float(cfg_mpc.f_max)
+    hess_n = hess * (f_scale * f_scale)
+    grad_n = grad * f_scale
+
+    u3 = torch.full((bsz, h, nf, 5), cfg_mpc.big_number, dtype=dtype, device=dev)
+    u3[..., 4] = gait_table * (cfg_mpc.f_max / f_scale)
+    l = torch.zeros((bsz, h * nf * 5), dtype=dtype, device=dev)
+    u = u3.reshape(bsz, -1)
+    rho = constraint_rho(cfg, l, u)
+
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    sel = torch.eye(h * nf, dtype=dtype, device=dev)
+    m_full = h * nf * 5
+
+    def per_scn(v):
+        """(B, pack*d) -> (B*pack, d): per-scenario view of packed rows."""
+        return v.reshape(bsz * pack, v.shape[-1] // pack)
+
+    def scn_fac_rows(fac, d):
+        """(B*pack,) scenario factors -> (B, pack*d) row-aligned."""
+        return fac.reshape(bsz, pack, 1).expand(bsz, pack, d).reshape(bsz, pack * d)
+
+    admm_schedule = (cfg.ns_admm_a0, cfg.ns_admm_scaled_iters,
+                     cfg.ns_quad_iters, cfg.ns_hi_iters)
+
+    hp_g = None
+    if use_kernels:
+        # hess_n + sigma I, tile-padded (identity diagonal) and G-padded,
+        # built once per solve; every cold factorization then runs K2 on it
+        npad_f = NI.pad_sizes(n)
+        hp_g = NI.pad_to(hess_n + cfg.sigma * eye[None], n, npad_f)
+        pad_bf = (-bsz) % NI.G
+        if pad_bf:
+            hp_g = torch.cat([hp_g, torch.eye(npad_f, device=dev).expand(
+                pad_bf, npad_f, npad_f)], dim=0)
+
+    def build_solver(w, schedule=None):
+        # ADMM-grade factorizations of 128 < n <= 160 systems take the Schur
+        # split (K4, not ported: _batched_solver raises); polish
+        # factorizations (schedule None) keep the full path
+        schur = (cfg.ns_schur_split and use_kernels and schedule is not None
+                 and 128 < n <= 160)
+        if use_kernels and _FUSED_BUILD and not schur:
+            gram = formation.pyramid_gram(cfg_mpc, w.reshape(bsz, h, nf, 5))
+            g9 = gram.reshape(bsz, h * nf, 9).transpose(1, 2)   # (B,9,hnf)
+            return _batched_solver_fused(hp_g, g9, n, bsz, cfg, schedule=schedule)
+        gram = formation.pyramid_gram(cfg_mpc, w.reshape(bsz, h, nf, 5))
+        gram = gram.reshape(bsz, h * nf, 3, 3)
+        delta = (gram[:, :, :, None, :] * sel[None, :, None, :, None]
+                 ).reshape(bsz, n, n)
+        k = hess_n + cfg.sigma * eye[None] + delta
+        return _batched_solver(k, cfg, use_kernels, schedule=schedule,
+                               schur=schur)
+
+    def apply_a(v):
+        return formation.pyramid_apply(cfg_mpc, v.reshape(bsz, h, nf, 3)
+                                       ).reshape(bsz, -1)
+
+    def apply_at(wv):
+        return formation.pyramid_apply_t(cfg_mpc, wv.reshape(bsz, h, nf, 5)
+                                         ).reshape(bsz, -1)
+
+    # ---- ADMM iterations (batched) ----
+    alpha = cfg.over_relax_alpha
+    sigma = cfg.sigma
+    adapt = max(int(cfg.rho_adapt), 0)
+    segs = adapt + 1
+    seg = n_iter // segs
+    solve0 = build_solver(rho, schedule=admm_schedule)
+
+    if use_kernels:
+        # Tile-padded iterate: one dense shared-A product per apply and the
+        # Jacobi scale folded into the inverse. Padding is inert: zero A
+        # rows/cols with l=u=0, rho=1 pin the padded z/y/x entries to ~0.
+        m = 5 * nf * h
+        np_ = solve0.inv_padded.shape[-1]
+        mp_ = -(-m // 128) * 128
+
+        def padded_inverse(solver):
+            dp = torch.ones((bsz, np_), dtype=dtype, device=dev)
+            dp[:, :n] = solver.scale
+            invf = solver.inv_padded * (dp[:, :, None] * dp[:, None, :])
+            return invf, _bf16_round(invf)
+
+        def pad_rows(v, width, fill=0.0):
+            out = torch.full((bsz, width), fill, dtype=dtype, device=dev)
+            out[:, :v.shape[-1]] = v
+            return out
+
+        inv_fullp, inv16p = padded_inverse(solve0)
+        gradp = pad_rows(grad_n, np_)
+        lP = pad_rows(l, mp_)
+        uP = pad_rows(u, mp_)
+        rhoP = pad_rows(rho, mp_, 1.0)
+        a_pad = torch.zeros((mp_, np_), dtype=dtype, device=dev)
+        a_pad[:m, :n] = torch.as_tensor(_pyramid_dense(cfg_mpc.mu, h, nf),
+                                        dtype=dtype, device=dev)
+        at_pad = a_pad.T
+
+        def run(carry, inv_fullp, inv16p, rhoP, n_lo, n_hi):
+            inv_rhoP = 1.0 / rhoP
+            x, z, y = carry                          # (B,128), (B,256) x2
+            for i in range(n_lo + n_hi):
+                rhs = sigma * x - gradp + (rhoP * z - y) @ a_pad
+                if i < n_lo:
+                    x_t = _bmv(inv16p, _bf16_round(rhs))
+                else:
+                    x_t = _bmv(inv_fullp, rhs)
+                z_t = x_t @ at_pad
+                x = alpha * x_t + (1.0 - alpha) * x
+                z_relax = alpha * z_t + (1.0 - alpha) * z
+                z_new = torch.clamp(z_relax + inv_rhoP * y, min=lP, max=uP)
+                y = y + rhoP * (z_relax - z_new)
+                z = z_new
+            return x, z, y
+
+        if warm is None:
+            carry = (torch.zeros((bsz, np_), dtype=dtype, device=dev),
+                     torch.zeros((bsz, mp_), dtype=dtype, device=dev),
+                     torch.zeros((bsz, mp_), dtype=dtype, device=dev))
+        else:
+            wx, wz, wy = warm
+            carry = (pad_rows(wx, np_), pad_rows(wz, mp_), pad_rows(wy, mp_))
+        for s_i in range(segs):
+            last = s_i == segs - 1
+            n_seg = n_iter - seg * (segs - 1) if last else seg
+            tail = min(cfg.f32_tail_iters, n_seg) if last else 0
+            carry = run(carry, inv_fullp, inv16p, rhoP, n_seg - tail, tail)
+            if not last:
+                # per-scenario OSQP adaptive rho + one cold ADMM-grade
+                # refactorization
+                xs, zs, ys = carry
+                ax = (xs @ at_pad)[:, :m]
+                hx = _bmv(hess_n, xs[:, :n].contiguous())
+                aty = (ys @ a_pad)[:, :n]
+                fac = _adapt_rho_factor(
+                    cfg, per_scn(ax), per_scn(zs[:, :m]), per_scn(hx),
+                    per_scn(grad_n), per_scn(aty))
+                rhoP = pad_rows(rho * scn_fac_rows(fac, m // pack), mp_, 1.0)
+                solve_s = build_solver(rhoP[:, :m], schedule=admm_schedule)
+                inv_fullp, inv16p = padded_inverse(solve_s)
+        xp, zp, yp = carry
+        x = xp[:, :n]
+        z = zp[:, :m]
+        y = yp[:, :m]
+    else:
+        def run(carry, solve_c, rho_c, n_lo, n_hi):
+            # inexact solves are fine inside ADMM (a fixed-point iteration):
+            # no refinement; the bulk uses the bf16 inverse
+            inv_rho_c = 1.0 / rho_c
+            x, z, y = carry
+            for i in range(n_lo + n_hi):
+                rhs = sigma * x - grad_n + apply_at(rho_c * z - y)
+                x_t = solve_c(rhs, refine=0, lowp=i < n_lo)
+                z_t = apply_a(x_t)
+                x = alpha * x_t + (1.0 - alpha) * x
+                z_relax = alpha * z_t + (1.0 - alpha) * z
+                z_new = torch.clamp(z_relax + inv_rho_c * y, min=l, max=u)
+                y = y + rho_c * (z_relax - z_new)
+                z = z_new
+            return x, z, y
+
+        if warm is None:
+            carry = (torch.zeros_like(grad_n), torch.zeros_like(rho),
+                     torch.zeros_like(rho))
+        else:
+            carry = tuple(w.to(dtype) for w in warm)
+        rho_c = rho
+        solve_c = solve0
+        for s_i in range(segs):
+            last = s_i == segs - 1
+            n_seg = n_iter - seg * (segs - 1) if last else seg
+            # the plain branch runs its whole last segment in fp32
+            tail = n_seg if last else 0
+            carry = run(carry, solve_c, rho_c, n_seg - tail, tail)
+            if not last:
+                xs, zs, ys = carry
+                hx = _bmv(hess_n, xs)
+                fac = _adapt_rho_factor(
+                    cfg, per_scn(apply_a(xs)), per_scn(zs), per_scn(hx),
+                    per_scn(grad_n), per_scn(apply_at(ys)))
+                rho_c = rho * scn_fac_rows(fac, m_full // pack)
+                solve_c = build_solver(rho_c, schedule=admm_schedule)
+        x, z, y = carry
+
+    warm_out = (x, z, y)          # pre-polish fixed-point iterate, normalized
+
+    # ---- polish (batched, AL dual correction) ----
+    finite_u = u < cfg.infty
+    w_act = cfg.polish_w_act
+    lo_act = (z - l) < 1e-4
+    hi_act = finite_u & ((u - z) < 1e-4)
+    if cfg.polish_dual_seed_tol > 0.0:
+        dt_ = cfg.polish_dual_seed_tol
+        lo_act = lo_act | (y < -dt_)
+        hi_act = hi_act | (finite_u & (y > dt_))
+
+    def viol(v):
+        av = apply_a(v)
+        per_row = torch.maximum(l - av, torch.where(finite_u, av - u, -1.0))
+        return per_scn(per_row).amax(-1)                      # (B*pack,)
+
+    def rhs_parts(lo, hi, y_al):
+        act = lo | hi
+        bound = torch.where(lo, l, torch.where(hi & finite_u, u, 0.0))
+        w = torch.where(act, w_act, 0.0).to(dtype)
+        y_act = torch.where(act, y_al, 0.0)
+        return w, bound, y_act
+
+    def apply_round(solve_fn, w, bound, y_act, best_x, best_v, lo, hi):
+        """One polish solve at the current working set plus the refinement
+        proposal (drop wrong-sign multipliers, add violated rows). A
+        non-finite scenario keeps its incoming working set and duals."""
+        x_p = solve_fn(-grad_n + apply_at(w * bound - y_act))
+        ax = apply_a(x_p)
+        y_new = y_act + w * (ax - bound)
+        finite_p = torch.isfinite(per_scn(x_p)).all(-1)       # (B*pack,)
+        v_p = torch.where(finite_p, viol(x_p), torch.inf)
+        take = (v_p < best_v)[:, None]                        # per scenario
+        nsc = n // pack
+        best_x = torch.where(take, per_scn(x_p),
+                             best_x.reshape(bsz * pack, nsc)).reshape(bsz, n)
+        best_v = torch.minimum(v_p, best_v)
+        lo_d = (lo & (y_new <= 1e-9)) | (ax < l - 1e-6)
+        hi_d = (hi & (y_new >= -1e-9)) | (finite_u & (ax > u + 1e-6))
+        fin_rows = scn_fac_rows(finite_p.to(dtype), m_full // pack) > 0.5
+        lo_d = torch.where(fin_rows, lo_d, lo)
+        hi_d = torch.where(fin_rows, hi_d, hi)
+        y_al = torch.where(fin_rows, torch.where(lo_d | hi_d, y_new, 0.0), y_act)
+        return best_x, best_v, lo_d, hi_d, y_al
+
+    if polish_rounds > 0:
+        # round 0: one cold polish-grade factorization at the ADMM-identified
+        # active set, duals seeded from the ADMM iterate
+        y_seed = torch.where(lo_act | hi_act, y, 0.0)
+        w0p, bound0, y_act0 = rhs_parts(lo_act, hi_act, y_seed)
+        carry = apply_round(build_solver(w0p), w0p, bound0, y_act0,
+                            x, torch.clamp(viol(x), min=0.0), lo_act, hi_act)
+        for _ in range(polish_rounds - 1):
+            best_x, best_v, lo, hi, y_al = carry
+            w, bound, y_act = rhs_parts(lo, hi, y_al)
+            carry = apply_round(build_solver(w), w, bound, y_act,
+                                best_x, best_v, lo, hi)
+        x = carry[0]
+    if return_warm:
+        return x * f_scale, warm_out
+    return x * f_scale

@@ -1,0 +1,136 @@
+"""PyTorch port vs JAX package: the factorization kernels' references (K2
+`ns_inverse_scaled_build`, K3 `ns_inverse_scaled`) and their wrappers, on
+the CPU.
+
+Residual gates are the JAX kernel tests' (test_pallas_kernels.py): ADMM
+schedule at cond 2.1e3 max |I - KX| < 1e-2; polish schedule row-sum residual
+< 5e-3 at cond 1e4 and < 5e-2 at cond 1e5.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quadruped_ctrl_tpu.config import default_config
+from quadruped_ctrl_tpu.mpc import formation as JF
+from quadruped_ctrl_tpu.ops import ns_inverse as JNI
+from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
+
+SCFG = default_config().solver
+ADMM = (SCFG.ns_admm_a0, SCFG.ns_admm_scaled_iters, SCFG.ns_quad_iters, SCFG.ns_hi_iters)
+POLISH = (SCFG.ns_a0, SCFG.ns_scaled_iters, SCFG.ns_quad_iters, SCFG.ns_hi_iters)
+
+
+def _spd_batch(seed, b, n, npad, cond):
+    """Jacobi-scaled random SPD matrices of condition ~cond, identity-padded
+    (numpy; the construction of test_pallas_kernels._spd_batch)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((b, npad, npad), np.float32)
+    for i in range(b):
+        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        ev = np.logspace(0.0, -np.log10(cond), n)
+        k = (q * ev[None, :]) @ q.T
+        d = 1.0 / np.sqrt(np.diagonal(k))
+        out[i, :n, :n] = k * d[:, None] * d[None, :]
+        out[i, n:, n:] = np.eye(npad - n)
+    return out
+
+
+def _resid(ks, inv):
+    r = np.eye(ks.shape[-1]) - ks.astype(np.float64) @ inv.astype(np.float64)
+    return np.abs(r).max(), np.abs(r).sum(-1).max()
+
+
+def test_tiles_padding_and_schedule_match_jax():
+    assert (NI.N, NI.N_BIG, NI.G) == (JNI.N, JNI.N_BIG, JNI.G)
+    for n in (1, 100, 128, 129, 256):
+        assert NI.pad_sizes(n) == JNI.pad_sizes(n)
+    with pytest.raises(ValueError):
+        NI.pad_sizes(257)
+    k = np.random.default_rng(0).normal(size=(2, 10, 10)).astype(np.float32)
+    np.testing.assert_array_equal(NI.pad_to(torch.from_numpy(k), 10).numpy(),
+                                  np.asarray(JNI.pad_to(jnp.asarray(k), 10)))
+    for a0, n in ((SCFG.ns_a0, SCFG.ns_scaled_iters), (SCFG.ns_admm_a0, 6), (0.3, 3)):
+        assert NI.mu_schedule(a0, n) == JNI.mu_schedule(a0, n)
+
+
+@pytest.mark.parametrize("cond,sched,metric,gate", [
+    (2.1e3, ADMM, 0, 1e-2),      # the ADMM schedule, 10x the worst ADMM cond
+    (1e4, POLISH, 1, 5e-3),      # the polish schedule at polish conditioning
+    (1e5, POLISH, 1, 5e-2),
+])
+def test_scaled_reference_residual(cond, sched, metric, gate):
+    ks = _spd_batch(3, 8, 120, 128, cond)
+    inv = NI.ns_inverse_scaled(torch.from_numpy(ks), *sched).numpy()
+    assert _resid(ks, inv)[metric] < gate
+
+
+def test_build_reference_matches_jax_kernel():
+    """K2's reference vs the JAX Pallas kernel in interpret mode, on gram
+    blocks from pyramid_gram: the K build and Jacobi scale (ks, d_row) to
+    1e-6 relative, the inverse to 1e-3 relative (measured 2.8e-7)."""
+    cfg = default_config()
+    b, hv, nf = 8, 20, 2
+    n = 3 * nf * hv
+    rng = np.random.default_rng(5)
+    m0 = rng.uniform(-1, 1, (b, n, n)).astype(np.float32)
+    hess_n = (np.einsum("bij,bkj->bik", m0, m0) * 0.05 + 3.0 * np.eye(n)).astype(np.float32)
+    w = (np.abs(rng.normal(size=(b, hv * nf * 5))) * 30.0).astype(np.float32)
+    gram = np.asarray(JF.pyramid_gram(cfg.mpc, w.reshape(b, hv, nf, 5)))
+    g9 = np.ascontiguousarray(gram.reshape(b, hv * nf, 9).transpose(0, 2, 1))
+    hp = np.asarray(JNI.pad_to(jnp.asarray(hess_n + SCFG.sigma * np.eye(n, dtype=np.float32)),
+                               n, 128))
+    kernel = jax.jit(functools.partial(JNI.ns_inverse_pallas_scaled_build, interpret=True),
+                     static_argnums=(2, 3, 4, 5))
+    inv_j, ks_j, d_j = (np.asarray(a) for a in kernel(hp, g9, *POLISH))
+    inv_t, ks_t, d_t = (a.numpy() for a in NI.ns_inverse_scaled_build(
+        torch.from_numpy(hp.copy()), torch.from_numpy(g9), *POLISH))
+
+    def rel(a, ref):
+        return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+    assert rel(ks_t, ks_j) <= 1e-6 and rel(d_t, d_j) <= 1e-6, (rel(ks_t, ks_j), rel(d_t, d_j))
+    assert rel(inv_t, inv_j) < 1e-3, rel(inv_t, inv_j)
+    # the build is K3 on the built ks, exactly
+    inv3 = NI.ns_inverse_scaled(torch.from_numpy(ks_t), *POLISH).numpy()
+    np.testing.assert_array_equal(inv3, inv_t)
+
+
+def test_build_reference_at_256_tile_skips_ks():
+    hp = torch.from_numpy(_spd_batch(4, 2, 150, 256, 10.0))
+    g9 = torch.zeros((2, 9, 50))
+    inv, ks, d = NI.ns_inverse_scaled_build(hp, g9, *ADMM)
+    assert ks is None and inv.shape == (2, 256, 256) and d.shape == (2, 1, 256)
+    assert _resid(hp.numpy(), inv.numpy())[0] < 1e-2
+
+
+def test_wrappers_route_cpu_to_reference_and_check_inputs():
+    ks = torch.from_numpy(_spd_batch(6, 3, 120, 128, 100.0))
+    NI.ns_inverse_scaled.launches = 0
+    NI.ns_inverse_scaled_build.launches = 0
+    assert torch.equal(NI.ns_inverse_scaled(ks, *ADMM),
+                       NI.ns_inverse_scaled_reference(ks, *ADMM))
+    g9 = torch.zeros((3, 9, 40))
+    for a, r in zip(NI.ns_inverse_scaled_build(ks, g9, *ADMM),
+                    NI.ns_inverse_scaled_build_reference(ks, g9, *ADMM)):
+        assert torch.equal(a, r)
+    assert NI.ns_inverse_scaled.launches == 0
+    assert NI.ns_inverse_scaled_build.launches == 0
+    with pytest.raises(TypeError):
+        NI.ns_inverse_scaled(ks.double())
+    with pytest.raises(ValueError):
+        NI.ns_inverse_scaled(ks[:, :120, :120].contiguous())     # not a tile
+    with pytest.raises(ValueError):
+        NI.ns_inverse_scaled(ks[:, :, :64])                      # not square
+    with pytest.raises(ValueError):
+        NI.ns_inverse_scaled(ks.transpose(1, 2))                 # not contiguous
+    with pytest.raises(ValueError):
+        NI.ns_inverse_scaled_build(ks, torch.zeros((2, 9, 40)))   # batch mismatch
+    with pytest.raises(ValueError):
+        NI.ns_inverse_scaled_build(ks, torch.zeros((3, 9, 50)))   # too many blocks
+    with pytest.raises(ValueError):
+        NI.ns_inverse_scaled(ks, n_scaled=17)                    # mu table length

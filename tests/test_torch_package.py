@@ -1,0 +1,67 @@
+"""The PyTorch port as a package: it and chip_smoke.py import no JAX, the
+kernel build imports without nvcc, and the CUDA route is never taken for a
+CPU tensor."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_package_and_chip_smoke_import_no_jax():
+    code = (
+        "import sys\n"
+        "import quadruped_ctrl_tpu_torch\n"
+        "from quadruped_ctrl_tpu_torch import device\n"
+        "from quadruped_ctrl_tpu_torch.mpc import formation, pipeline\n"
+        "from quadruped_ctrl_tpu_torch.ops import _build, formation_pack, ns_inverse\n"
+        "from quadruped_ctrl_tpu_torch.solver import admm\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = _run(code)
+    assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr[-2000:]
+
+
+def test_build_module_without_nvcc(monkeypatch, tmp_path):
+    from quadruped_ctrl_tpu_torch.ops import _build
+
+    names = [p.name for p in _build.source_files()]
+    assert {"ns_core.cuh", "ns_inverse.cu", "formation_pack.cu"} <= set(names)
+    assert len(_build.source_hash()) == 16
+    assert _build.library_path().parent == _build.BUILD_DIR
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    if not Path("/usr/local/cuda/bin/nvcc").exists():
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.nvcc()
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_device_routing():
+    from quadruped_ctrl_tpu_torch import device
+
+    t = torch.zeros(2)
+    assert device.use_kernels(t) is False
+    assert device.use_kernels(t, True) is True
+    assert device.use_kernels(t, False) is False
+    assert torch.get_float32_matmul_precision() == "highest"
