@@ -4,16 +4,25 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
-2. builds the CUDA kernels from quadruped_ctrl_tpu_torch/csrc;
+2. builds the CUDA kernels from quadruped_ctrl_tpu_torch/csrc (one nvcc per
+   source, in parallel);
 3. holds each kernel (K1 form_packed, K2 ns_inverse_scaled_build, K3
-   ns_inverse_scaled) against its plain PyTorch reference on the card, at the
-   main path's shapes, and times both;
+   ns_inverse_scaled) against its plain PyTorch reference on the card at the
+   128 tile, at the h=10 path's shapes, and times both;
+3b. the same at the h=16 shapes: K1 above 128 variables, K2 and K3 at the 256
+   tile (one 4-CTA cluster per system), and the Schur split K4 (K3 at the
+   128 tile inside) against its plain version;
 4. drives `solve_packed_batch` at batch 4096, h=10 (2048 packed systems of
    120 variables) through the kernels, counts their launches, checks the
    forces and compares them with the plain branch on the same inputs, then
    runs the polish_rounds=0, form_only and two-step-build variants;
-5. profiles one solve (device time by kernel, device idle share);
-6. prints a JSON line with the kernels, then the result line.
+4b. drives the three h=16 lanes of bench.py (h16_full, h16_trot,
+   h16_midband) at batch 2048 the same way;
+5. profiles one solve of h10 and of h16_full (device time by kernel, device
+   idle share);
+6. prints a JSON line with the kernels (one entry per kernel and tile, with
+   its bound on this card and the time of torch.linalg.inv beside K2/K3),
+   then the result line.
 
 Exits non-zero when no CUDA device is present, when a kernel fails to build
 or launch, or when any check fails. Needs no JAX.
@@ -21,6 +30,8 @@ or launch, or when any check fails. Needs no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import math
 import statistics
@@ -32,24 +43,43 @@ import torch
 
 from quadruped_ctrl_tpu_torch import default_config
 from quadruped_ctrl_tpu_torch.mpc import formation, pipeline
-from quadruped_ctrl_tpu_torch.ops import _build
+from quadruped_ctrl_tpu_torch.ops import _build, _launch
 from quadruped_ctrl_tpu_torch.ops import formation_pack as FP
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
 from quadruped_ctrl_tpu_torch.solver import admm
 
 BATCH, H, MS, PACK = 4096, 10, 2, 2
 N_SYS, N_VARS = BATCH // PACK, PACK * 3 * MS * H      # 2048 systems of n=120
+B16, H16 = 2048, 16
+N_SPD = 512                     # systems per SPD case at the 256 tile
+# bench.py's h=16 lanes: (max_stance, pack, gait)
+LANES16 = {"h16_full": (4, 1, "trot"), "h16_trot": (2, 2, "trot"),
+           "h16_midband": (3, 1, "midband")}
 WRAPPERS = {"K1": FP.form_packed, "K2": NI.ns_inverse_scaled_build,
             "K3": NI.ns_inverse_scaled}
+TILES = (128, 256)
 KERNEL_INFO = {
-    "K1": dict(name="form_packed", source="quadruped_ctrl_tpu_torch/csrc/formation_pack.cu",
-               replaces="quadruped_ctrl_tpu/ops/formation_pack.py:135"),
-    "K2": dict(name="ns_inverse_scaled_build",
-               source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
-               replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:615"),
-    "K3": dict(name="ns_inverse_scaled", source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
-               replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:259"),
+    "K1/128": dict(name="form_packed", source="quadruped_ctrl_tpu_torch/csrc/formation_pack.cu",
+                   replaces="quadruped_ctrl_tpu/ops/formation_pack.py:135"),
+    "K1/256": dict(name="form_packed (n_pair > 128)",
+                   source="quadruped_ctrl_tpu_torch/csrc/formation_pack.cu",
+                   replaces="quadruped_ctrl_tpu/ops/formation_pack.py:135"),
+    "K2/128": dict(name="ns_inverse_scaled_build",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:615"),
+    "K2/256": dict(name="ns_inverse_scaled_build (256 tile)",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:615"),
+    "K3/128": dict(name="ns_inverse_scaled",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:259"),
+    "K3/256": dict(name="ns_inverse_scaled (256 tile)",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:259"),
 }
+# Peak rates of one H100 SXM (data sheet, dense): the bf16 tensor cores, the
+# fp32 CUDA cores, device memory.
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def check(ok: bool, what: str):
@@ -74,11 +104,48 @@ def median_ms(fn, reps: int = 10) -> float:
 
 def reset_counts():
     for fn in WRAPPERS.values():
-        fn.launches = 0
+        _launch.new_count(fn, TILES)
 
 
 def counts() -> dict:
-    return {k: fn.launches for k, fn in WRAPPERS.items()}
+    """Launches since the last reset, keyed "K<i>/<tile>"."""
+    return {f"{k}/{t}": fn.launches_by_tile[t] for k, fn in WRAPPERS.items() for t in TILES}
+
+
+def want(**launches) -> dict:
+    """The expected counts(): the given keys (K1_256=1 -> "K1/256": 1), 0 elsewhere."""
+    out = dict.fromkeys(counts(), 0)
+    out.update({k.replace("_", "/"): v for k, v in launches.items()})
+    return out
+
+
+def bound(ops_bf16: float, ops_fp32: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over their peak (bf16 tensor-core passes plus fp32 CUDA-core
+    operations) and the bytes moved once over the memory rate."""
+    t_ops = ops_bf16 / PEAK_BF16 + ops_fp32 / PEAK_FP32
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ns_bound(b: int, npad: int, schedule, nbytes: float) -> tuple[float, str]:
+    """K2/K3: per NS step two npad^3 products (2 npad^3 operations each); the
+    bf16x3 steps count 3 bf16 passes, the fp32 tail one fp32 product."""
+    _, n_scaled, n_quad, n_hi = schedule
+    prod = 2.0 * npad ** 3 * 2 * b
+    return bound(3 * prod * (n_scaled + n_quad), prod * n_hi, nbytes)
+
+
+def form_bound(b: int, h: int, ms: int, pack: int) -> tuple[float, str]:
+    """K1 per scenario: u = bfam_s smat (39 x 12 x n_c), the bq expansion
+    (~8 operations per entry), the gradient (13h x n_c) in fp32 and the
+    Gram (13h x n_c x n_c) in 3 bf16 passes; bytes: the operands in, the
+    packed H and g out."""
+    n_c, rows = 3 * ms * h, 13 * h
+    n_pair = pack * n_c
+    fp32 = b * (2.0 * 39 * 12 * n_c + 8.0 * rows * n_c + 2.0 * rows * n_c)
+    nbytes = 4.0 * (b * (468 + 12 * n_c + rows + h) + b // pack * (n_pair * n_pair + n_pair))
+    return bound(3 * 2.0 * rows * n_c * n_c * b, fp32, nbytes)
 
 
 def rel(a, b) -> float:
@@ -102,136 +169,323 @@ def residuals(ks, inv):
     return float(r.abs().max()), float(r.abs().sum(-1).max())
 
 
-def solve_operands(cfg, inputs):
-    """The (hp, g9, schedule) of every K2 call one real solve makes: the cold
-    ADMM factorization, the adaptive-rho refactorization and the polish
-    rounds."""
+def solve_operands(cfg, inputs, name="ns_inverse_scaled_build", **solve_kw):
+    """The arguments of every call one real solve makes to NI.<name>, as
+    (tensors..., schedule): K2's are the cold ADMM factorization, the
+    adaptive-rho refactorization and the polish rounds."""
     calls = []
-    kernel = NI.ns_inverse_scaled_build
+    fn = getattr(NI, name)
 
-    def record(hp, g9, *schedule):
-        calls.append((hp, g9.clone(), schedule))
-        return kernel(hp, g9, *schedule)
+    def record(*args):
+        calls.append((*(a.clone() for a in args if isinstance(a, torch.Tensor)),
+                      tuple(a for a in args if not isinstance(a, torch.Tensor))))
+        return fn(*args)
 
-    NI.ns_inverse_scaled_build = record
+    setattr(NI, name, record)
     try:
-        pipeline.solve_packed_batch(cfg, inputs)
+        pipeline.solve_packed_batch(cfg, inputs, **solve_kw)
     finally:
-        NI.ns_inverse_scaled_build = kernel
+        setattr(NI, name, fn)
     return calls
 
 
+def ns_times(hp, g9, ks, sched) -> list[float]:
+    """Median ms of K2, its reference, K3, its reference and
+    torch.linalg.inv (the yardstick; the port never calls it) on one batch."""
+    return [median_ms(lambda: NI.ns_inverse_scaled_build(hp, g9, *sched)),
+            median_ms(lambda: NI.ns_inverse_scaled_build_reference(hp, g9, *sched)),
+            median_ms(lambda: NI.ns_inverse_scaled(ks, *sched)),
+            median_ms(lambda: NI.ns_inverse_scaled_reference(ks, *sched)),
+            median_ms(lambda: torch.linalg.inv(ks))]
+
+
+def ns_results(results, npad, hp, g9, sched, times, err2, err3):
+    """Fill the K2 and K3 entries of one tile from ns_times() on (hp, g9)."""
+    b, nblk = hp.shape[0], g9.shape[-1]
+    mat = b * npad * npad * 4.0
+    small = 4.0 * b * (9 * nblk + npad)              # g9 in, d_row out
+    outs_k2 = 2 if npad == NI.N else 1               # inv (and ks at 128) out
+    k2 = ns_bound(b, npad, sched, mat * (1 + outs_k2) + small)
+    k3 = ns_bound(b, npad, sched, 2 * mat)
+    results[f"K2/{npad}"].update(max_abs_err=err2, ms=times[0], plain_ms=times[1],
+                                 library_ms=times[4], bound_ms=k2[0], bound_by=k2[1])
+    results[f"K3/{npad}"].update(max_abs_err=err3, ms=times[2], plain_ms=times[3],
+                                 library_ms=times[4], bound_ms=k3[0], bound_by=k3[1])
+    print(f"  bounds at the {npad} tile: K2 %.3f ms (%s), K3 %.3f ms (%s)" % (*k2, *k3))
+
+
+def gait_table(kind: str, b: int, h: int, dev) -> torch.Tensor | None:
+    """None for random_inputs' own trot; "midband" is the aio walking-to-trot
+    band's 3-stance table of bench.py (v = 0.3)."""
+    if kind == "trot":
+        return None
+    v_band = 0.3
+    o2, o3 = math.floor(h * 1.25 * v_band), math.floor(h * (1.25 * v_band + 0.5))
+    dwt = math.floor(h * (-1.25 * v_band + 1.0))
+    offs = torch.tensor([0, h // 2, o2, o3], device=dev)
+    steps = torch.arange(h, device=dev)[:, None]
+    tbl = (((steps - offs[None, :]) % h) < dwt).float()
+    check(int(tbl.sum(1).max()) <= 3 and int(tbl.sum(1).min()) >= 1,
+          "midband table: 1 to 3 stance feet per step")
+    return tbl.expand(b, h, 4).contiguous()
+
+
+def lane_inputs(seed: int, b: int, h: int, kind: str, dev):
+    inputs = pipeline.random_inputs(seed=seed, batch=b, h=h, device=dev)
+    tbl = gait_table(kind, b, h, dev)
+    return inputs if tbl is None else inputs.replace(gait_table=tbl)
+
+
+def check_k1(cfg, dev, batch, h, ms, pack, masked, kind, results=None):
+    """K1 against its reference and the fp32 plain formation; with `results`,
+    times it and fills the K1 entry of its tile."""
+    inp = lane_inputs(1, batch, h, kind, dev)
+    adt, bdt = formation.srb_discrete(cfg.mpc, inp.r_feet, inp.rpy[:, 2], inp.x_drag,
+                                      cfg.dt_mpc)
+    x0 = formation.build_x0(inp.rpy, inp.position, inp.omega_world, inp.v_world,
+                            cfg.mpc.gravity)
+    _, _, sel = formation.stance_selectors(inp.gait_table, ms)
+    mask = torch.ones((batch, h), device=dev)
+    if masked:
+        mask[:, -masked:] = 0.0
+    ops = formation.packed_qp_operands(cfg.mpc, adt, bdt, x0, inp.traj, mask, sel)
+    args = (*ops, h, ms, pack, float(cfg.mpc.alpha))
+    hk, gk = FP.form_packed(*args)
+    hr, gr = FP.form_packed_reference(*args)
+    hx, gx = formation.qp_cost_packed(cfg.mpc, adt, bdt, x0, inp.traj, mask, sel, pack,
+                                      use_kernels=False)
+    torch.cuda.synchronize()
+    n_pair = pack * 3 * ms * h
+    tag = f"K1 h={h} ms={ms} pack={pack} batch {batch}" + (f" ({masked} masked steps)"
+                                                          if masked else "")
+    print(f"  {tag}: rel_H {rel(hk, hr):.3e} rel_g {rel(gk, gr):.3e} vs reference; "
+          f"rel_H {rel(hk, hx):.3e} rel_g {rel(gk, gx):.3e} vs the fp32 plain formation")
+    check(hk.shape == (batch // pack, n_pair, n_pair) and bool(torch.isfinite(hk).all()),
+          f"{tag}: shape and finite")
+    check(rel(hk, hr) < 5e-5 and rel(gk, gr) < 1e-5, f"{tag} vs reference")
+    check(rel(hk, hx) < 5e-5 and rel(gk, gx) < 1e-5, f"{tag} vs fp32 plain")
+    if results is not None:
+        key = f"K1/{FP.pair_tile(n_pair)}"
+        bound_ms, bound_by = form_bound(batch, h, ms, pack)
+        results[key].update(max_abs_err=float((hk - hr).abs().max()),
+                            ms=median_ms(lambda: FP.form_packed(*args)),
+                            plain_ms=median_ms(lambda: FP.form_packed_reference(*args)),
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        print("  %s: kernel %.3f ms reference %.3f ms (median of 10); bound %.4f ms (%s)"
+              % (tag, results[key]["ms"], results[key]["plain_ms"], bound_ms, bound_by))
+
+
+def check_ns(cases, results, npad, n_sys):
+    """K2 and K3 against their references on (label, hp, g9, schedule,
+    residual metric (0 elementwise, 1 row sum), gate) cases. The kernel's
+    residual must pass the gate and stay within 2x of the reference's. Times
+    solve calls 0 and 2 and fills the tile's entries from call 0."""
+    for label, hp_c, g9_c, sched, metric, gate in cases:
+        inv_k, ks_k, d_k = NI.ns_inverse_scaled_build(hp_c, g9_c, *sched)
+        inv_r, ks_r, d_r = NI.ns_inverse_scaled_build_reference(hp_c, g9_c, *sched)
+        if ks_r is None:          # the 256 tile returns no ks: scale K as K2 does
+            d = d_r[:, 0]
+            ks_r = NI._build_k(hp_c, g9_c) * d[:, :, None] * d[:, None, :]
+        res_k, res_r = residuals(ks_r, inv_k)[metric], residuals(ks_r, inv_r)[metric]
+        err2 = float((inv_k - inv_r).abs().max())
+        ks_note = ("ks None" if ks_k is None else f"rel ks {rel(ks_k, ks_r):.3e}")
+        print(f"  K2/{npad} {label}: residual kernel {res_k:.3e} reference {res_r:.3e} "
+              f"(gate {gate}); {ks_note} rel d {rel(d_k, d_r):.3e}; "
+              f"max |inv_k - inv_r| {err2:.3e}")
+        check(res_k < gate and res_r < gate and res_k <= 2 * res_r + 1e-5,
+              f"K2/{npad} {label}: residuals")
+        check((ks_k is None) == (npad > NI.N), f"K2/{npad} {label}: ks only at the 128 tile")
+        check((ks_k is None or rel(ks_k, ks_r) <= 1e-6) and rel(d_k, d_r) <= 1e-6,
+              f"K2/{npad} {label}: ks, d_row")
+        inv3_k = NI.ns_inverse_scaled(ks_r, *sched)
+        inv3_r = NI.ns_inverse_scaled_reference(ks_r, *sched)
+        res3_k, res3_r = residuals(ks_r, inv3_k)[metric], residuals(ks_r, inv3_r)[metric]
+        err3 = float((inv3_k - inv3_r).abs().max())
+        print(f"  K3/{npad} {label}: residual kernel {res3_k:.3e} reference {res3_r:.3e} "
+              f"(gate {gate}); max |inv_k - inv_r| {err3:.3e}")
+        check(res3_k < gate and res3_r < gate and res3_k <= 2 * res3_r + 1e-5,
+              f"K3/{npad} {label}: residuals")
+        if label.startswith("solve call 0") or label.startswith("solve call 2"):
+            times = ns_times(hp_c, g9_c, ks_r, sched)
+            print(f"  %s at {n_sys} systems: K2 kernel %.3f ms reference %.3f ms; K3 kernel "
+                  "%.3f ms reference %.3f ms; torch.linalg.inv %.3f ms (median of 10)"
+                  % (label, *times))
+        if label.startswith("solve call 0"):
+            # the kernels' line reports the solve's first factorization;
+            # polish-schedule inverses differ from the reference by more in
+            # absolute terms (entries up to ~cond), see the lines above
+            ns_results(results, npad, hp_c, g9_c, sched, times, err2, err3)
+
+
+def schedules(cfg):
+    s = cfg.solver
+    return ((s.ns_admm_a0, s.ns_admm_scaled_iters, s.ns_quad_iters, s.ns_hi_iters),
+            (s.ns_a0, s.ns_scaled_iters, s.ns_quad_iters, s.ns_hi_iters))
+
+
+def solve_cases(calls, polish_sched, polish_gate=0.5):
+    """check_ns cases for a real solve's K2 calls. A real solve's polish-round
+    K (w_act = 1e4 on the active set) is worse conditioned than the SPD
+    cases: at h=10 the reference's own row-sum residual reaches ~0.26 there
+    (CPU, batch 1024) and 0.34 on the card, which the polish solves' two
+    refinement passes contract as r^3; its gate is 0.5. At h=16 (the 256
+    tile) the reference itself reads 0.51 on the card, so the gate there is
+    1.0, the row-sum bound under which the refinement still contracts; the
+    2x rule of check_ns holds the kernel to the reference either way."""
+    cases = []
+    for i, (hp, g9, sched) in enumerate(calls):
+        polish = sched == polish_sched
+        cases.append((f"solve call {i} ({'polish' if polish else 'ADMM'} schedule)", hp, g9,
+                      sched, 1 if polish else 0, polish_gate if polish else 1e-2))
+    return cases
+
+
 def phase_kernels(cfg, dev, results):
-    print("phase 3: kernels vs references on the card")
+    print("phase 3: kernels vs references on the card (h=10, the 128 tile)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
 
     # K1 at the main path's shape and at an odd system count with 2 masked steps
-    for batch, masked in ((BATCH, 0), (BATCH - 2, 2)):
-        inp = pipeline.random_inputs(seed=1, batch=batch, h=H, device=dev)
-        adt, bdt = formation.srb_discrete(cfg.mpc, inp.r_feet, inp.rpy[:, 2], inp.x_drag,
-                                          cfg.dt_mpc)
-        x0 = formation.build_x0(inp.rpy, inp.position, inp.omega_world, inp.v_world,
-                                cfg.mpc.gravity)
-        _, _, sel = formation.stance_selectors(inp.gait_table, MS)
-        mask = torch.ones((batch, H), device=dev)
-        if masked:
-            mask[:, -masked:] = 0.0
-        ops = formation.packed_qp_operands(cfg.mpc, adt, bdt, x0, inp.traj, mask, sel)
-        args = (*ops, H, MS, PACK, float(cfg.mpc.alpha))
-        hk, gk = FP.form_packed(*args)
-        hr, gr = FP.form_packed_reference(*args)
-        hx, gx = formation.qp_cost_packed(cfg.mpc, adt, bdt, x0, inp.traj, mask, sel, PACK,
-                                          use_kernels=False)
-        torch.cuda.synchronize()
-        print(f"  K1 batch {batch}: rel_H {rel(hk, hr):.3e} rel_g {rel(gk, gr):.3e} vs "
-              f"reference; rel_H {rel(hk, hx):.3e} rel_g {rel(gk, gx):.3e} vs the fp32 "
-              "plain formation")
-        check(hk.shape == (batch // PACK, N_VARS, N_VARS) and bool(torch.isfinite(hk).all()),
-              f"K1 batch {batch}: shape and finite")
-        check(rel(hk, hr) < 5e-5 and rel(gk, gr) < 1e-5, f"K1 batch {batch} vs reference")
-        check(rel(hk, hx) < 5e-5 and rel(gk, gx) < 1e-5, f"K1 batch {batch} vs fp32 plain")
-        if batch == BATCH:
-            results["K1"].update(max_abs_err=float((hk - hr).abs().max()),
-                                 ms=median_ms(lambda: FP.form_packed(*args)),
-                                 plain_ms=median_ms(lambda: FP.form_packed_reference(*args)))
-            print("  K1 at batch %d: kernel %.3f ms reference %.3f ms (median of 10)"
-                  % (batch, results["K1"]["ms"], results["K1"]["plain_ms"]))
+    check_k1(cfg, dev, BATCH, H, MS, PACK, 0, "trot", results)
+    check_k1(cfg, dev, BATCH - 2, H, MS, PACK, 2, "trot")
 
-    s = cfg.solver
-    admm_sched = (s.ns_admm_a0, s.ns_admm_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
-    polish_sched = (s.ns_a0, s.ns_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
+    admm_sched, polish_sched = schedules(cfg)
     g9_zero = torch.zeros((N_SYS, 9, N_VARS // 3), device=dev)
-    # (label, hp, g9, schedule, residual metric (0 elementwise, 1 row sum), gate):
     # the JAX package's kernel-test gates for the SPD cases and for a real
-    # solve's ADMM operands. A real solve's polish-round K (w_act = 1e4 on the
-    # active set) is worse conditioned than the SPD cases: the reference's own
-    # row-sum residual reaches ~0.26 there (CPU, batch 1024), which the
-    # polish solves' two refinement passes contract as r^3. Its gate is 0.5,
-    # inside the refinement's convergence region. Everywhere the kernel's
-    # residual must also stay within 2x of the reference's.
+    # solve's ADMM operands
     cases = [("SPD cond 2.1e3, ADMM schedule", spd_batch(gen, N_SYS, N_VARS, NI.N, 2.1e3, dev),
               g9_zero, admm_sched, 0, 1e-2),
              ("SPD cond 1e4, polish schedule", spd_batch(gen, N_SYS, N_VARS, NI.N, 1e4, dev),
               g9_zero, polish_sched, 1, 5e-3)]
     calls = solve_operands(cfg, pipeline.random_inputs(seed=2, batch=BATCH, h=H, device=dev))
     check(len(calls) == 5, "a real solve makes 5 K2 calls")
-    for i, (hp, g9, sched) in enumerate(calls):
-        polish = sched == polish_sched
-        cases.append((f"solve call {i} ({'polish' if polish else 'ADMM'} schedule)", hp, g9,
-                      sched, 1 if polish else 0, 0.5 if polish else 1e-2))
-    for label, hp_c, g9_c, sched, metric, gate in cases:
-        inv_k, ks_k, d_k = NI.ns_inverse_scaled_build(hp_c, g9_c, *sched)
-        inv_r, ks_r, d_r = NI.ns_inverse_scaled_build_reference(hp_c, g9_c, *sched)
-        res_k, res_r = residuals(ks_r, inv_k)[metric], residuals(ks_r, inv_r)[metric]
-        err2 = float((inv_k - inv_r).abs().max())
-        print(f"  K2 {label}: residual kernel {res_k:.3e} reference {res_r:.3e} (gate {gate}); "
-              f"rel ks {rel(ks_k, ks_r):.3e} rel d {rel(d_k, d_r):.3e}; "
-              f"max |inv_k - inv_r| {err2:.3e}")
-        check(res_k < gate and res_r < gate and res_k <= 2 * res_r + 1e-5,
-              f"K2 {label}: residuals")
-        check(rel(ks_k, ks_r) <= 1e-6 and rel(d_k, d_r) <= 1e-6, f"K2 {label}: ks, d_row")
-        inv3_k = NI.ns_inverse_scaled(ks_r, *sched)
-        inv3_r = NI.ns_inverse_scaled_reference(ks_r, *sched)
-        res3_k, res3_r = residuals(ks_r, inv3_k)[metric], residuals(ks_r, inv3_r)[metric]
-        err3 = float((inv3_k - inv3_r).abs().max())
-        print(f"  K3 {label}: residual kernel {res3_k:.3e} reference {res3_r:.3e} "
-              f"(gate {gate}); max |inv_k - inv_r| {err3:.3e}")
-        check(res3_k < gate and res3_r < gate and res3_k <= 2 * res3_r + 1e-5,
-              f"K3 {label}: residuals")
-        if label.startswith("solve call 0") or label.startswith("solve call 2"):
-            times = [median_ms(lambda: NI.ns_inverse_scaled_build(hp_c, g9_c, *sched)),
-                     median_ms(lambda: NI.ns_inverse_scaled_build_reference(hp_c, g9_c, *sched)),
-                     median_ms(lambda: NI.ns_inverse_scaled(ks_r, *sched)),
-                     median_ms(lambda: NI.ns_inverse_scaled_reference(ks_r, *sched))]
-            print(f"  %s at {N_SYS} systems: K2 kernel %.3f ms reference %.3f ms; K3 kernel "
-                  "%.3f ms reference %.3f ms (median of 10)" % (label, *times))
-        if label.startswith("solve call 0"):
-            # the kernels' line reports the solve's first factorization;
-            # polish-schedule inverses differ from the reference by more in
-            # absolute terms (entries up to ~cond), see the lines above
-            results["K2"].update(max_abs_err=err2, ms=times[0], plain_ms=times[1])
-            results["K3"].update(max_abs_err=err3, ms=times[2], plain_ms=times[3])
+    check_ns(cases + solve_cases(calls, polish_sched), results, NI.N, N_SYS)
 
 
-def force_checks(cfg, inputs, forces):
-    """Finite forces, exact zeros on swing feet, and the friction pyramid and
-    normal-force box: every scenario inside the controller's acceptance gate
-    (SolverConfig.fail_primal_tol) and >= 99% inside 1e-3 N."""
-    check(forces.shape == (BATCH, H, 4, 3), "forces shape (4096, 10, 4, 3)")
-    check(bool(torch.isfinite(forces).all()), "forces finite")
-    swing = inputs.gait_table == 0
-    check(bool((forces[swing] == 0).all()), "swing-foot forces exactly 0")
+def check_k4(label, ks, sched, gate):
+    """K4 (the Schur split around K3 at the 128 tile) against its plain
+    version, the same function with K3's reference in place of the kernel:
+    row-sum residuals under the gate, the kernel's within 2x of the plain
+    one's."""
+    x_k = NI.ns_inverse_schur_scaled(ks, *sched)
+    kernel = NI.ns_inverse_scaled
+    NI.ns_inverse_scaled = NI.ns_inverse_scaled_reference
+    try:
+        x_r = NI.ns_inverse_schur_scaled(ks, *sched)
+    finally:
+        NI.ns_inverse_scaled = kernel
+    res_k, res_r = residuals(ks, x_k)[1], residuals(ks, x_r)[1]
+    print(f"  K4 {label}: row-sum residual kernel {res_k:.3e} plain {res_r:.3e} (gate {gate}); "
+          f"max |x_k - x_r| {float((x_k - x_r).abs().max()):.3e}")
+    check(x_k.shape == ks.shape and res_k < gate and res_r < gate
+          and res_k <= 2 * res_r + 1e-5, f"K4 {label}: residuals")
+
+
+def phase_kernels16(cfg, dev, results):
+    print(f"phase 3b: kernels vs references on the card (h=16: K1 above 128 variables, "
+          f"the 256 tile, K4)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    for lane, (ms, pack, kind) in LANES16.items():
+        check_k1(cfg, dev, B16, H16, ms, pack, 0, kind,
+                 results if lane == "h16_full" else None)
+    check_k1(cfg, dev, B16 - 2, H16, 4, 1, 2, "trot")
+
+    admm_sched, polish_sched = schedules(cfg)
+    n_spd = N_SPD
+    cases = []
+    for n in (192, 144):
+        g9_zero = torch.zeros((n_spd, 9, n // 3), device=dev)
+        cases += [(f"SPD n={n} cond 2.1e3, ADMM schedule",
+                   spd_batch(gen, n_spd, n, NI.N_BIG, 2.1e3, dev), g9_zero, admm_sched, 0, 1e-2),
+                  (f"SPD n={n} cond 1e4, polish schedule",
+                   spd_batch(gen, n_spd, n, NI.N_BIG, 1e4, dev), g9_zero, polish_sched, 1, 5e-3)]
+    ms, pack, kind = LANES16["h16_full"]
+    calls = solve_operands(cfg, lane_inputs(2, B16, H16, kind, dev), max_stance=ms, pack=pack)
+    check(len(calls) == 5 and all(c[0].shape[-1] == NI.N_BIG for c in calls),
+          "a real h16_full solve makes 5 K2 calls at the 256 tile")
+    check_ns(cases + solve_cases(calls, polish_sched, polish_gate=1.0), results, NI.N_BIG, B16)
+    del calls, cases
+
+    # K4 on ADMM-grade SPD systems and on a real midband solve's two ADMM
+    # operands (n = 144), gate 5e-3: the JAX package's Schur-split test and
+    # its batch, 2G + 3 systems (the A block G-padded). Over 2048 such SPD
+    # systems at cond 1e3 the largest row sum of the kernel's and of the
+    # plain version's result comes near or over 5e-3, a tail the 19-system
+    # gate was not set for.
+    for cond in (213.0, 1e3):
+        check_k4(f"SPD n=144 cond {cond:g}, ADMM schedule, {2 * NI.G + 3} systems",
+                 spd_batch(gen, 2 * NI.G + 3, 144, 144, cond, dev), admm_sched, 5e-3)
+    ms, pack, kind = LANES16["h16_midband"]
+    k4_calls = solve_operands(cfg, lane_inputs(2, B16, H16, kind, dev),
+                              "ns_inverse_schur_scaled", max_stance=ms, pack=pack)
+    check(len(k4_calls) == 2 and all(c[0].shape == (B16, 144, 144) for c in k4_calls),
+          "a real h16_midband solve makes 2 K4 calls at n=144")
+    for i, (ks, sched) in enumerate(k4_calls):
+        check_k4(f"midband solve call {i} (ADMM schedule)", ks, sched, 5e-3)
+        if i == 0:
+            t_k4 = median_ms(lambda: NI.ns_inverse_schur_scaled(ks, *sched))
+            print(f"  K4 midband solve call 0 at {B16} systems: %.3f ms (median of 10)" % t_k4)
+
+
+def bound_violation(cfg, inputs, forces) -> torch.Tensor:
+    """Per scenario, the largest violation of the friction pyramid and the
+    normal-force box (0 <= fz <= f_max on stance feet, 0 on swing feet), N."""
+    gait = inputs.gait_table
     fx, fy, fz = forces[..., 0], forces[..., 1], forces[..., 2]
     mu, f_max = cfg.mpc.mu, cfg.mpc.f_max
-    viol = torch.stack([-fz, fz - f_max, fx.abs() - mu * fz, fy.abs() - mu * fz],
+    return torch.stack([-fz, fz - f_max * gait, fx.abs() - mu * fz, fy.abs() - mu * fz],
                        dim=-1).amax(dim=(1, 2, 3)).clamp(min=0.0)
+
+
+def force_checks(cfg, inputs, forces, max_stance: int = MS, tight_min: float = 0.99):
+    """Finite forces of the inputs' shape; exact zeros on the swing feet the
+    stance compression drops (a swing foot kept in one of the max_stance
+    slots is a variable bounded by 0 <= fz <= 0); every scenario inside the
+    controller's acceptance gate (SolverConfig.fail_primal_tol) and a share
+    >= tight_min inside 1e-3 N of the bounds."""
+    b, h = inputs.gait_table.shape[:2]
+    check(forces.shape == (b, h, 4, 3), f"forces shape ({b}, {h}, 4, 3)")
+    check(bool(torch.isfinite(forces).all()), "forces finite")
+    _, _, sel = formation.stance_selectors(inputs.gait_table, max_stance)
+    dropped = (inputs.gait_table == 0) & (sel.sum(-2) == 0)
+    check(bool((forces[dropped] == 0).all()), "forces of the dropped swing feet exactly 0")
+    viol = bound_violation(cfg, inputs, forces)
     tight = float((viol <= 1e-3).float().mean())
     print(f"  max bound violation {float(viol.max()):.3e} N; share of scenarios within "
           f"1e-3 N {tight:.4f}")
     check(float(viol.max()) <= cfg.solver.fail_primal_tol,
           f"every scenario within the acceptance gate ({cfg.solver.fail_primal_tol} N)")
-    check(tight >= 0.99, ">= 99% of scenarios within 1e-3 N of the bounds")
+    check(tight >= tight_min, f">= {tight_min:.4f} of scenarios within 1e-3 N of the bounds")
+
+
+def plain_gate(forces, plain, share_min: float = 0.98):
+    """The kernel branch against the plain branch on the same inputs. The
+    reference solve resolves a few knife-edge active sets differently under
+    rounding-level changes (ROADMAP queue 3: the JAX package's own Pallas and
+    XLA branches differ by > 0.5 N on 7 of 1024 scenarios at h=10), so the
+    comparison gates the share of scenarios and the median, not the max."""
+    diff = (forces - plain).abs().amax(dim=(1, 2, 3))
+    share = float((diff <= 0.5).float().mean())
+    print(f"  vs plain branch on the card: max |d| {float(diff.max()):.3e} N, median "
+          f"{float(diff.median()):.3e} N, share of scenarios within 0.5 N {share:.4f}")
+    check(share >= share_min and float(diff.median()) <= 0.15,
+          f">= {share_min:.4f} of scenarios within 0.5 N of the plain branch, median <= 0.15 N")
+    return share
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The kernel branch with every kernel replaced by its plain reference:
+    the same solve arithmetic without the CUDA kernels."""
+    saved = (FP.form_packed, NI.ns_inverse_scaled_build, NI.ns_inverse_scaled)
+    FP.form_packed = FP.form_packed_reference
+    NI.ns_inverse_scaled_build = NI.ns_inverse_scaled_build_reference
+    NI.ns_inverse_scaled = NI.ns_inverse_scaled_reference
+    try:
+        yield
+    finally:
+        FP.form_packed, NI.ns_inverse_scaled_build, NI.ns_inverse_scaled = saved
 
 
 def phase_main_path(cfg, dev, name_power, results):
@@ -242,21 +496,11 @@ def phase_main_path(cfg, dev, name_power, results):
     torch.cuda.synchronize()
     main_counts = counts()
     print(f"  launches in one solve: {main_counts}")
-    check(main_counts == {"K1": 1, "K2": 5, "K3": 0}, "launches K1=1, K2=5, K3=0")
-    for k in ("K1", "K2"):
-        results[k].update(launches=main_counts[k], counted_in="default")
+    check(main_counts == want(K1_128=1, K2_128=5), "launches K1/128=1, K2/128=5, else 0")
+    for k in ("K1/128", "K2/128"):
+        results[k].update(launches=main_counts[k], counted_in="h10 default")
     force_checks(cfg, inputs, forces)
-    # The reference solve resolves a few knife-edge active sets differently
-    # under rounding-level changes (ROADMAP queue 3: the JAX package's own
-    # Pallas and XLA branches differ by > 0.5 N on 7 of 1024 scenarios), so
-    # the comparison gates the share of scenarios and the median, not the max.
-    plain = pipeline.solve_packed_batch(cfg, inputs, use_kernels=False)
-    diff = (forces - plain).abs().amax(dim=(1, 2, 3))
-    share = float((diff <= 0.5).float().mean())
-    print(f"  vs plain branch on the card: max |d| {float(diff.max()):.3e} N, median "
-          f"{float(diff.median()):.3e} N, share of scenarios within 0.5 N {share:.4f}")
-    check(share >= 0.98 and float(diff.median()) <= 0.15,
-          ">= 98% of scenarios within 0.5 N of the plain branch, median <= 0.15 N")
+    plain_gate(forces, pipeline.solve_packed_batch(cfg, inputs, use_kernels=False))
 
     times = {}
     for label, kw in (("full", {}), ("no_polish", dict(polish_rounds=0)),
@@ -265,9 +509,9 @@ def phase_main_path(cfg, dev, name_power, results):
         out = pipeline.solve_packed_batch(cfg, inputs, **kw)
         torch.cuda.synchronize()
         c = counts()
-        want = {"full": {"K1": 1, "K2": 5, "K3": 0}, "no_polish": {"K1": 1, "K2": 2, "K3": 0},
-                "form_only": {"K1": 1, "K2": 0, "K3": 0}}[label]
-        check(c == want and bool(torch.isfinite(out).all()), f"{label}: launches {c}, finite")
+        expect = {"full": want(K1_128=1, K2_128=5), "no_polish": want(K1_128=1, K2_128=2),
+                  "form_only": want(K1_128=1)}[label]
+        check(c == expect and bool(torch.isfinite(out).all()), f"{label}: launches {c}, finite")
         times[label] = median_ms(lambda: pipeline.solve_packed_batch(cfg, inputs, **kw), reps=5)
     admm._FUSED_BUILD = False
     try:
@@ -275,8 +519,8 @@ def phase_main_path(cfg, dev, name_power, results):
         two = pipeline.solve_packed_batch(cfg, inputs)
         torch.cuda.synchronize()
         c = counts()
-        check(c == {"K1": 1, "K2": 0, "K3": 5}, f"two-step build: launches {c}")
-        results["K3"].update(launches=c["K3"], counted_in="two_step_build")
+        check(c == want(K1_128=1, K3_128=5), f"two-step build: launches {c}")
+        results["K3/128"].update(launches=c["K3/128"], counted_in="h10 two_step_build")
         force_checks(cfg, inputs, two)
         d2 = float((two - forces).abs().amax(dim=(1, 2, 3)).le(0.25).float().mean())
         print(f"  two-step vs fused build: share of scenarios within 0.25 N {d2:.4f}")
@@ -291,16 +535,96 @@ def phase_main_path(cfg, dev, name_power, results):
     return times
 
 
-def phase_profile(cfg, dev) -> dict:
+def phase_lanes16(cfg, dev, name_power, results):
+    """bench.py's three h=16 lanes at batch 2048 through the kernels: launch
+    counts, forces, the plain branch, and ms per call with its phase split
+    (no_polish, form_only), then h16_full on the two-step build (K3/256)."""
+    print(f"phase 4b: the h=16 lanes, solve_packed_batch at batch {B16}")
+    expect = {"h16_full": want(K1_256=1, K2_256=5), "h16_trot": want(K1_256=1, K2_256=5),
+              "h16_midband": want(K1_256=1, K3_128=2, K2_256=3)}
+    times = {}
+    for lane, (ms, pack, kind) in LANES16.items():
+        n = pack * 3 * ms * H16
+        print(f"  {lane}: max_stance={ms} pack={pack} ({B16 // pack} systems of n={n})")
+        inputs = lane_inputs(1, B16, H16, kind, dev)
+        kw = dict(max_stance=ms, pack=pack)
+        reset_counts()
+        forces = pipeline.solve_packed_batch(cfg, inputs, **kw)
+        torch.cuda.synchronize()
+        c = counts()
+        print(f"  launches in one solve: {c}")
+        check(c == expect[lane], f"{lane}: launches as routed")
+        if lane == "h16_full":
+            for k in ("K1/256", "K2/256"):
+                results[k].update(launches=c[k], counted_in="h16_full")
+        if lane == "h16_midband":
+            results["K3/128"].update(launches=c["K3/128"], counted_in="h16_midband (in K4)")
+        # At h=16 the reference itself leaves 2-3% of scenarios more than
+        # 1e-3 N outside the bounds (the plain branch, which matches the JAX
+        # package's XLA path, printed below), so the share gate is the plain
+        # branch's share on the same inputs less 0.01 instead of h=10's 0.99.
+        plain = pipeline.solve_packed_batch(cfg, inputs, use_kernels=False, **kw)
+        tight_plain = float((bound_violation(cfg, inputs, plain) <= 1e-3).float().mean())
+        print(f"  plain branch: share of scenarios within 1e-3 N {tight_plain:.4f}")
+        force_checks(cfg, inputs, forces, ms, tight_min=tight_plain - 0.01)
+        # The two branches' arithmetic differs (mixed-precision NS and a bf16
+        # iterate against plain fp32 NS), and at h=16 that alone moves more
+        # than 2% of scenarios by > 0.5 N: the kernel branch with its kernels
+        # replaced by their references, printed below, reaches only 93-96%.
+        # The share gate is therefore the lower of 0.98 and that share on the
+        # same inputs, less 0.01.
+        with plain_kernels():
+            ref_forces = pipeline.solve_packed_batch(cfg, inputs, use_kernels=True, **kw)
+        ref_share = float(((ref_forces - plain).abs().amax(dim=(1, 2, 3)) <= 0.5)
+                          .float().mean())
+        near = float(((forces - ref_forces).abs().amax(dim=(1, 2, 3)) <= 0.5).float().mean())
+        print(f"  kernel branch with the references in place: share within 0.5 N of the plain "
+              f"branch {ref_share:.4f}; the kernels' share within 0.5 N of it {near:.4f}")
+        share_min = min(0.98, ref_share - 0.01)
+        plain_gate(forces, plain, share_min=share_min)
+        for label, extra in (("full", {}), ("no_polish", dict(polish_rounds=0)),
+                             ("form_only", dict(form_only=True))):
+            times[f"{lane}/{label}"] = median_ms(
+                lambda: pipeline.solve_packed_batch(cfg, inputs, **kw, **extra), reps=3)
+        ms_call = times[f"{lane}/full"]
+        print(f"  {lane}: {ms_call:.2f} ms per call (median of 3), {B16 / ms_call * 1e3:.0f} "
+              f"solves/s at batch {B16}; no_polish {times[f'{lane}/no_polish']:.2f} ms, "
+              f"form_only {times[f'{lane}/form_only']:.2f} ms ({name_power})")
+        if lane == "h16_full":
+            full_forces, full_inputs, full_kw = forces, inputs, kw
+            full_tight, full_plain, full_share_min = tight_plain - 0.01, plain, share_min
+    admm._FUSED_BUILD = False
+    try:
+        reset_counts()
+        two = pipeline.solve_packed_batch(cfg, full_inputs, **full_kw)
+        torch.cuda.synchronize()
+        c = counts()
+        check(c == want(K1_256=1, K3_256=5), f"h16_full two-step build: launches {c}")
+        results["K3/256"].update(launches=c["K3/256"], counted_in="h16_full two_step_build")
+        force_checks(cfg, full_inputs, two, full_kw["max_stance"], tight_min=full_tight)
+        # The two-step build is held to the fused build's gate against the
+        # plain branch. The two builds differ by rounding only (ks built in
+        # torch or in the kernel, refinement against ks or against hp + the
+        # gram blocks), which at h=16 moves ~5% of scenarios by > 0.25 N, as
+        # rounding moves the kernel branch against its own references: the
+        # share between the builds is printed, not gated.
+        plain_gate(two, full_plain, share_min=full_share_min)
+        d2 = float((two - full_forces).abs().amax(dim=(1, 2, 3)).le(0.25).float().mean())
+        print(f"  two-step vs fused build: share of scenarios within 0.25 N {d2:.4f}")
+    finally:
+        admm._FUSED_BUILD = True
+    return times
+
+
+def phase_profile(cfg, label, inputs, **solve_kw) -> dict:
     """Device time by kernel and the device's idle share over one solve,
     from torch.profiler's CUDA activity (the profiler's own host overhead
     widens the span, so the idle share is an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
-    print(f"phase 5: torch.profiler over one solve at batch {BATCH}")
-    inputs = pipeline.random_inputs(seed=0, batch=BATCH, h=H, device=dev)
+    print(f"phase 5: torch.profiler over one {label} solve at batch {inputs.rpy.shape[0]}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipeline.solve_packed_batch(cfg, inputs)
+        pipeline.solve_packed_batch(cfg, inputs, **solve_kw)
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -347,16 +671,36 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
+    clusters = ctypes.c_int(-1)
+    rc = _build.load().qct_ns_cluster_max_active(ctypes.byref(clusters))
+    check(rc == 0 and clusters.value > 0,
+          f"the 256-tile kernels' 4-CTA clusters fit: {clusters.value} active at once")
+
     cfg = default_config()
-    results = {k: dict(KERNEL_INFO[k], route="cuda") for k in WRAPPERS}
+    results = {k: dict(KERNEL_INFO[k], route="cuda", tile=int(k.split("/")[1]))
+               for k in KERNEL_INFO}
+    t0 = time.perf_counter()
     phase_kernels(cfg, dev, results)
+    phase_kernels16(cfg, dev, results)
+    t1 = time.perf_counter()
     times = phase_main_path(cfg, dev, name_power, results)
-    profile = phase_profile(cfg, dev)
-    print(json.dumps({"phase_ms": times, "profile": profile, "batch": BATCH,
+    times16 = phase_lanes16(cfg, dev, name_power, results)
+    t2 = time.perf_counter()
+    profile = phase_profile(cfg, "h10", pipeline.random_inputs(seed=0, batch=BATCH, h=H,
+                                                               device=dev))
+    ms, pack, kind = LANES16["h16_full"]
+    profile16 = phase_profile(cfg, "h16_full", lane_inputs(1, B16, H16, kind, dev),
+                              max_stance=ms, pack=pack)
+    print(f"phase seconds: kernels {t1 - t0:.1f}, paths {t2 - t1:.1f}, profiles "
+          f"{time.perf_counter() - t2:.1f}")
+    print(name_power)       # again, near the end: the output's head may be cut
+    print(json.dumps({"phase_ms": times, "batch": BATCH, "phase_ms_h16": times16,
+                      "batch_h16": B16, "profile": profile, "profile_h16_full": profile16,
                       "card": name_power}))
     kernels = [{key: results[k][key] for key in (
-        "name", "route", "source", "replaces", "launches", "counted_in", "max_abs_err",
-        "ms", "plain_ms")} for k in ("K1", "K2", "K3")]
+        "name", "route", "source", "replaces", "tile", "launches", "counted_in",
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for k in KERNEL_INFO]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

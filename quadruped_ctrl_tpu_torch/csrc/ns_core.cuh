@@ -44,6 +44,15 @@ struct NsSchedule {
   int n_hi;
 };
 
+inline NsSchedule make_schedule(const float* mus, int n_scaled, int n_quad, int n_hi) {
+  NsSchedule s{};
+  for (int i = 0; i < n_scaled && i < NS_MAX_MUS; ++i) s.mu[i] = mus[i];
+  s.n_scaled = n_scaled;
+  s.n_quad = n_quad;
+  s.n_hi = n_hi;
+  return s;
+}
+
 __device__ __forceinline__ void split_bf16(float a, float& hi, float& lo) {
   hi = __bfloat162float(__float2bfloat16_rn(a));
   lo = __bfloat162float(__float2bfloat16_rn(a - hi));

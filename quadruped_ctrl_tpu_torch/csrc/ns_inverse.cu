@@ -82,15 +82,6 @@ ns_inverse_scaled_build_kernel(const float* __restrict__ hp, const float* __rest
   store_tile(X, inv + base);
 }
 
-NsSchedule make_schedule(const float* mus, int n_scaled, int n_quad, int n_hi) {
-  NsSchedule s{};
-  for (int i = 0; i < n_scaled && i < NS_MAX_MUS; ++i) s.mu[i] = mus[i];
-  s.n_scaled = n_scaled;
-  s.n_quad = n_quad;
-  s.n_hi = n_hi;
-  return s;
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

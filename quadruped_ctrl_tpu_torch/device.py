@@ -18,6 +18,20 @@ from __future__ import annotations
 import torch
 
 
+def resolve(dev=None) -> torch.device:
+    """The device an entry point builds its tensors on: `dev` as given, or
+    `cuda:0` when it is None. Raises when `cuda:0` is asked for implicitly
+    and no CUDA device is present; the CPU is taken only when asked for
+    (`device="cpu"`)."""
+    if dev is not None:
+        return torch.device(dev)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points run on cuda:0 by default; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return torch.device("cuda", 0)
+
+
 def use_kernels(t: torch.Tensor, use_kernels: bool | None = None) -> bool:
     """True when the kernel branch runs for data `t`: `t.is_cuda` unless the
     caller passes `use_kernels` explicitly."""

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from quadruped_ctrl_tpu.config import MPCConfig
+from quadruped_ctrl_tpu_torch.config import MPCConfig
 from quadruped_ctrl_tpu_torch import device
 
 

@@ -11,7 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from quadruped_ctrl_tpu.config import FrameworkConfig
+from quadruped_ctrl_tpu_torch import device as _device
+from quadruped_ctrl_tpu_torch.config import FrameworkConfig
 from quadruped_ctrl_tpu_torch.mpc import formation
 from quadruped_ctrl_tpu_torch.solver import admm
 
@@ -38,11 +39,13 @@ class MPCInputs:
                             for f in dataclasses.fields(self)})
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device="cpu") -> "MPCInputs":
+    def from_numpy(cls, arrays: dict, device=None) -> "MPCInputs":
         """From a dict of arrays keyed by field name (for example
-        `np.asarray` of each field of the JAX package's MPCInputs)."""
+        `np.asarray` of each field of the JAX package's MPCInputs), on
+        `device`: cuda:0 unless the caller names another device."""
+        dev = _device.resolve(device)
         return cls(**{f.name: torch.as_tensor(np.array(arrays[f.name], np.float32),
-                                              device=device)
+                                              device=dev)
                       for f in dataclasses.fields(cls)})
 
     def to_numpy(self) -> dict:
@@ -50,10 +53,10 @@ class MPCInputs:
                 for f in dataclasses.fields(self)}
 
 
-def random_inputs(seed: int, batch: int, h: int, device="cpu") -> MPCInputs:
+def random_inputs(seed: int, batch: int, h: int, device=None) -> MPCInputs:
     """Random-but-realistic trotting scenario batch with the JAX package's
     distributions (the JCQP ProblemGenerator pattern), drawn from a numpy
-    Generator seeded with `seed`."""
+    Generator seeded with `seed`, on `device` (cuda:0 unless named)."""
     rng = np.random.default_rng(seed)
 
     def uniform(lo, hi, shape):

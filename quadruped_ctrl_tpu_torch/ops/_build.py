@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `quadruped_ctrl_tpu_torch/csrc/` have a plain C interface
-and include no PyTorch header, so one `nvcc` call builds them into a shared
-library in seconds. The library is named by a hash of the sources and lives in
+and include no PyTorch header: one `nvcc` per `.cu` file, all started
+together, compiles them to objects in seconds, and one more links the shared
+library. The library is named by a hash of the sources and lives in
 `quadruped_ctrl_tpu_torch/_build/` (listed in `.gitignore`): an edited source
 gets a new library at its first use, an unchanged one is loaded as it is.
 Pointers and the stream cross as `ctypes.c_void_p`.
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -35,6 +36,10 @@ _SIGNATURES = {
     "qct_ns_inverse_scaled": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
     "qct_ns_inverse_scaled_build": (
         (_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P), _I),
+    "qct_ns_inverse_scaled_256": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
+    "qct_ns_inverse_scaled_build_256": (
+        (_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P), _I),
+    "qct_ns_cluster_max_active": ((_P,), _I),
 }
 
 
@@ -67,23 +72,36 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the sources unless a library of the same hash exists.
-    Returns (library path, seconds spent compiling; 0.0 when it existed)."""
+    """Compile the sources unless a library of the same hash exists: one
+    nvcc per .cu file in parallel, then a link. Returns (library path,
+    seconds spent compiling and linking; 0.0 when it existed)."""
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in source_files() if p.suffix == ".cu")]
+    tag = f"{lib.stem}.{os.getpid()}"
+    sources = [p for p in source_files() if p.suffix == ".cu"]
+    objects = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs = [f"{src.name}:\n{proc.communicate()[0]}" for src, proc in zip(sources, procs)]
+    failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objects)], capture_output=True, text=True)
+        logs.append(f"link:\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("\n".join(logs))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs)[-8000:])
     os.replace(tmp, lib)
     return lib, seconds
 

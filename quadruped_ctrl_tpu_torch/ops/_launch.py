@@ -34,3 +34,17 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
 def raise_on_error(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
+
+
+def new_count(fn, tiles=(128, 256)):
+    """Give a kernel wrapper its launch counts: `fn.launches` (every launch)
+    and `fn.launches_by_tile` (per tile). Returns fn."""
+    fn.launches = 0
+    fn.launches_by_tile = dict.fromkeys(tiles, 0)
+    return fn
+
+
+def count(fn, tile: int):
+    """One launch of fn's kernel at `tile`; called right after the launch."""
+    fn.launches += 1
+    fn.launches_by_tile[tile] += 1

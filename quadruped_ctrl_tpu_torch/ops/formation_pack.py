@@ -8,8 +8,9 @@ builds the block-diagonally packed QP cost
     H_pair = 2 (bq_pair' bq_pair + alpha I),   g_pair = 2 bq_pair' r_pair
 
 for `pack` scenarios per system, with the Gram in bf16x3 as the TPU kernel
-computes it. On a CUDA tensor `form_packed` launches the hand-written kernel
-in `csrc/formation_pack.cu`; on a CPU tensor it runs
+computes it, for packed systems of up to 256 variables (the TPU kernel's 128
+and 256 tiles). On a CUDA tensor `form_packed` launches the hand-written
+kernel in `csrc/formation_pack.cu`; on a CPU tensor it runs
 `form_packed_reference`, the same arithmetic in plain PyTorch.
 """
 
@@ -82,22 +83,18 @@ def form_packed(bfam_s, smat, r, smask, h: int, ms: int, pack: int, alpha: float
     smask (B,h), float32 and contiguous, B a multiple of pack. Returns
     (hess (B/pack, n_pair, n_pair), grad (B/pack, n_pair)).
 
-    A CPU tensor runs the reference; a CUDA tensor launches the kernel, which
-    covers the 128 tile (n_pair <= 128) and raises beyond it."""
+    A CPU tensor runs the reference; a CUDA tensor launches the kernel, at
+    either tile (n_pair <= 128 or 128 < n_pair <= 256)."""
     _check(bfam_s, smat, r, smask, h, ms, pack)
     if not bfam_s.is_cuda:
         return form_packed_reference(bfam_s, smat, r, smask, h, ms, pack, alpha)
-    n_c = 3 * ms * h
-    n_pair = pack * n_c
-    if pair_tile(n_pair) != 128:
-        raise NotImplementedError(
-            f"form_packed on CUDA at n_pair={n_pair} (the 256 tile): later PR; "
-            "see ROADMAP")
+    n_pair = pack * 3 * ms * h
     lib = _build.load()
-    if lib.qct_form_packed_smem_bytes(h, ms) > _SMEM_LIMIT:
-        raise NotImplementedError(
-            f"form_packed on CUDA at h={h}, ms={ms}: one scenario's bq exceeds "
-            "shared memory; later PR, see ROADMAP")
+    smem = lib.qct_form_packed_smem_bytes(h, ms)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"form_packed on CUDA at h={h}, ms={ms}: one scenario needs {smem} bytes of "
+            f"shared memory, over the {_SMEM_LIMIT} one block may use")
     b = bfam_s.shape[0]
     hess = torch.empty((b // pack, n_pair, n_pair), dtype=torch.float32,
                        device=bfam_s.device)
@@ -109,11 +106,10 @@ def form_packed(bfam_s, smat, r, smask, h: int, ms: int, pack: int, alpha: float
                                  P(grad), b, h, ms, pack, float(alpha),
                                  _launch.stream(bfam_s))
     _launch.raise_on_error(rc, "form_packed")
-    _K1.launches += 1
+    _launch.count(_K1, pair_tile(n_pair))
     return hess, grad
 
 
-# The launch count lives on the function object; the private alias keeps it
+# The launch counts live on the function object; the private alias keeps them
 # there when the module attribute is swapped for a wrapper.
-_K1 = form_packed
-_K1.launches = 0
+_K1 = _launch.new_count(form_packed)

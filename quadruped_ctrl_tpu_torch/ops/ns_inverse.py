@@ -6,13 +6,18 @@ solve's factorizations:
 * `ns_inverse_scaled` (K3): the NS schedule on a prebuilt Jacobi-scaled,
   tile-padded K;
 * `ns_inverse_scaled_build` (K2): builds K = hp + blockdiag3(g9), Jacobi-
-  scales it and runs the same schedule, returning (inv, ks, d_row).
+  scales it and runs the same schedule, returning (inv, ks, d_row);
+* `ns_inverse_schur_scaled` (K4, no kernel of its own): the 2 x 2 block
+  inverse at the 128 boundary for ADMM-grade 128 < n <= 192 systems, K3 on
+  the leading block and plain fp32 products around it.
 
 The schedule: X0 = I / ||K||_inf, then `mu_schedule(a0, n_scaled)` scaled
 steps X <- mu X (2I - mu K X) and n_quad quadratic steps in bf16x3, then n_hi
-fp32 steps. On a CUDA tensor the wrappers launch the hand-written kernels in
-`csrc/ns_inverse.cu` (128 tile; the 256 tile raises); on a CPU tensor they run
-the `_reference` functions, the same arithmetic in plain PyTorch.
+fp32 steps. On a CUDA tensor the wrappers launch the hand-written kernels:
+`csrc/ns_inverse.cu` at the 128 tile (one block per system) and
+`csrc/ns_cluster.cu` at the 256 tile (one cluster of 4 blocks per system).
+On a CPU tensor they run the `_reference` functions, the same arithmetic in
+plain PyTorch.
 
 The TPU kernels group G = 8 systems per grid step and need the batch padded
 to a multiple of G; the CUDA kernels take any batch. `G` stays here because
@@ -134,23 +139,20 @@ def ns_inverse_scaled(ks, a0: float = 1e-5, n_scaled: int = 9, n_quad: int = 2,
     _check_schedule(n_scaled)
     if not ks.is_cuda:
         return ns_inverse_scaled_reference(ks, a0, n_scaled, n_quad, n_hi)
-    if npad != N:
-        raise NotImplementedError(
-            f"ns_inverse_scaled on CUDA at the {npad} tile: later PR; see ROADMAP")
+    lib = _build.load()
+    entry = lib.qct_ns_inverse_scaled if npad == N else lib.qct_ns_inverse_scaled_256
     inv = torch.empty_like(ks)
     with torch.cuda.device(ks.device):
-        rc = _build.load().qct_ns_inverse_scaled(
-            _launch.ptr(ks), _launch.ptr(inv), ks.shape[0],
-            _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(ks))
-    _launch.raise_on_error(rc, "ns_inverse_scaled")
-    _K3.launches += 1
+        rc = entry(_launch.ptr(ks), _launch.ptr(inv), ks.shape[0],
+                   _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(ks))
+    _launch.raise_on_error(rc, f"ns_inverse_scaled at the {npad} tile")
+    _launch.count(_K3, npad)
     return inv
 
 
-# The launch count lives on the function object; the private alias keeps it
+# The launch counts live on the function object; the private alias keeps them
 # there when the module attribute is swapped for a wrapper.
-_K3 = ns_inverse_scaled
-_K3.launches = 0
+_K3 = _launch.new_count(ns_inverse_scaled)
 
 
 def _build_k(hp: torch.Tensor, g9: torch.Tensor) -> torch.Tensor:
@@ -198,22 +200,73 @@ def ns_inverse_scaled_build(hp, g9, a0: float = 1e-5, n_scaled: int = 9,
     _check_schedule(n_scaled)
     if not hp.is_cuda:
         return ns_inverse_scaled_build_reference(hp, g9, a0, n_scaled, n_quad, n_hi)
-    if npad != N:
-        raise NotImplementedError(
-            f"ns_inverse_scaled_build on CUDA at the {npad} tile: later PR; "
-            "see ROADMAP")
+    lib = _build.load()
     inv = torch.empty_like(hp)
-    ks = torch.empty_like(hp)
     d_row = torch.empty((b, 1, npad), dtype=torch.float32, device=hp.device)
+    sched = (_mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(hp))
     P = _launch.ptr
     with torch.cuda.device(hp.device):
-        rc = _build.load().qct_ns_inverse_scaled_build(
-            P(hp), P(g9), g9.shape[-1], P(inv), P(ks), P(d_row), b,
-            _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(hp))
-    _launch.raise_on_error(rc, "ns_inverse_scaled_build")
-    _K2.launches += 1
+        if npad == N:
+            ks = torch.empty_like(hp)
+            rc = lib.qct_ns_inverse_scaled_build(P(hp), P(g9), g9.shape[-1], P(inv),
+                                                 P(ks), P(d_row), b, *sched)
+        else:
+            ks = None
+            rc = lib.qct_ns_inverse_scaled_build_256(P(hp), P(g9), g9.shape[-1], P(inv),
+                                                     P(d_row), b, *sched)
+    _launch.raise_on_error(rc, f"ns_inverse_scaled_build at the {npad} tile")
+    _launch.count(_K2, npad)
     return inv, ks, d_row
 
 
-_K2 = ns_inverse_scaled_build
-_K2.launches = 0
+_K2 = _launch.new_count(ns_inverse_scaled_build)
+
+
+def _ns_small(ss: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain fp32 NS inverse of a batch of small SPD blocks (B, m, m), Jacobi-
+    prescaled inside: the counterpart of the JAX package's `_xla_ns_small`."""
+    eye = torch.eye(ss.shape[-1], dtype=ss.dtype, device=ss.device)
+    d = torch.rsqrt(torch.clamp(torch.diagonal(ss, dim1=-2, dim2=-1), min=1e-30))
+    sshat = ss * d[:, :, None] * d[:, None, :]
+    x = (1.0 / sshat.abs().sum(-1).amax(-1))[:, None, None] * eye
+    for _ in range(iters):
+        kx = sshat @ x
+        x = x @ (2.0 * eye - kx)
+    return x * d[:, :, None] * d[:, None, :]
+
+
+def ns_inverse_schur_scaled(ks, a0: float = 5e-4, n_scaled: int = 6,
+                            n_quad: int = 2, n_hi: int = 1, n_small: int = 13,
+                            n_scrub: int = 1):
+    """Schur-split NS inverse (K4) of Jacobi-scaled SPD ks (B, n, n),
+    128 < n <= 192, for ADMM-grade conditioning only (cond <~ 1e3; the polish
+    K keeps the 256 tile). With K = [[A, B], [B', D]] at the 128 boundary:
+    A^-1 from K3 at the 128 tile (the batch G-padded as the JAX code pads
+    it), the Schur complement S = D - B' A^-1 B inverted by `_ns_small`, the
+    2 x 2 block inverse assembled, then n_scrub fp32 NS steps at the logical
+    n. Returns the (B, n, n) inverse at the logical size. The products
+    around K3 are fp32 `torch.matmul`s, as the JAX function's are
+    `Precision.HIGHEST` XLA products."""
+    b, n = ks.shape[0], ks.shape[-1]
+    if not 128 < n <= 192:
+        raise ValueError(f"the Schur split takes 128 < n <= 192, got n={n}")
+    a = ks[:, :N, :N]
+    bb = ks[:, :N, N:]
+    dd = ks[:, N:, N:]
+    pad_b = (-b) % G
+    if pad_b:
+        a = torch.cat([a, torch.eye(N, dtype=ks.dtype, device=ks.device).expand(
+            pad_b, N, N)], dim=0)
+    ainv = ns_inverse_scaled(a.contiguous(), a0, n_scaled, n_quad, n_hi)[:b]
+    aib = ainv @ bb
+    s = dd - bb.transpose(1, 2) @ aib
+    sinv = _ns_small(s, n_small)
+    aib_sinv = aib @ sinv
+    tl = ainv + aib_sinv @ aib.transpose(1, 2)
+    x = torch.cat([torch.cat([tl, -aib_sinv], dim=2),
+                   torch.cat([-aib_sinv.transpose(1, 2), sinv], dim=2)], dim=1)
+    eye = torch.eye(n, dtype=ks.dtype, device=ks.device)
+    for _ in range(n_scrub):
+        kx = ks @ x
+        x = x @ (2.0 * eye - kx)
+    return x

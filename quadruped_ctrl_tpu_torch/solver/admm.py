@@ -9,16 +9,18 @@ branches of the JAX function are here:
 * the kernel branch (`use_kernels`, the default for CUDA tensors): every cold
   factorization runs the fused K-build + NS kernel K2
   (`ops/ns_inverse.ns_inverse_scaled_build`), or the two-step build and K3
-  when `_FUSED_BUILD` is False, and the ADMM iterate runs in tile-padded
-  spaces with the inverse quantized to bf16 for all but the last
-  `f32_tail_iters` iterations;
+  when `_FUSED_BUILD` is False; ADMM-grade factorizations of 128 < n <= 160
+  systems take the Schur split K4 (`ops/ns_inverse.ns_inverse_schur_scaled`)
+  when `ns_schur_split` is on. The ADMM iterate runs in tile-padded spaces
+  with the inverse quantized to bf16 for all but the last `f32_tail_iters`
+  iterations;
 * the plain branch: plain 25-step fp32 NS and the structural pyramid.
 
 Where the JAX code updates an array with `.at[].set`, the port builds a fresh
 tensor (zeros or ones) and writes into it; no caller's tensor is modified.
-The `lax.scan` loops are Python loops. Left for later PRs: the Schur split
-for 128 < n <= 160 (K4), warm factorizations (K7) and the Woodbury polish
-(K6); each raises NotImplementedError where the JAX code would reach it.
+The `lax.scan` loops are Python loops. Left for later PRs: warm
+factorizations (K7) and the Woodbury polish (K6); each raises
+NotImplementedError where the JAX code would reach it.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from quadruped_ctrl_tpu.config import MPCConfig, SolverConfig
+from quadruped_ctrl_tpu_torch.config import MPCConfig, SolverConfig
 from quadruped_ctrl_tpu_torch import device
 from quadruped_ctrl_tpu_torch.mpc import formation
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
@@ -136,9 +138,10 @@ def _batched_solver(k, cfg: SolverConfig, use_kernels: bool, schedule=None,
         schedule = (cfg.ns_a0, cfg.ns_scaled_iters, cfg.ns_quad_iters,
                     cfg.ns_hi_iters)
     if use_kernels and schur and prev_inv is None and 128 < n <= 192:
-        raise NotImplementedError(
-            "Schur-split factorization (K4, ns_inverse_schur_scaled) for "
-            f"n={n}: later PR; see ROADMAP")
+        # ADMM-grade 128 < n <= 192: the Schur split at the 128 tile boundary
+        # (K4, K3 on the leading block); not valid at polish conditioning
+        inv = NI.ns_inverse_schur_scaled(ks, *schedule)
+        inv_padded = NI.pad_to(inv, n)   # identity padding, as the kernels'
     elif use_kernels:
         if prev_inv is not None:
             raise NotImplementedError(
@@ -270,9 +273,10 @@ def admm_mpc_batched(
                 pad_bf, npad_f, npad_f)], dim=0)
 
     def build_solver(w, schedule=None):
-        # ADMM-grade factorizations of 128 < n <= 160 systems take the Schur
-        # split (K4, not ported: _batched_solver raises); polish
-        # factorizations (schedule None) keep the full path
+        # ADMM-grade factorizations (the only callers passing a schedule) of
+        # 128 < n <= 160 systems take the Schur split (K4) at the 128 tile
+        # boundary; polish factorizations (schedule None) keep the fused
+        # 256-tile kernel
         schur = (cfg.ns_schur_split and use_kernels and schedule is not None
                  and 128 < n <= 160)
         if use_kernels and _FUSED_BUILD and not schur:

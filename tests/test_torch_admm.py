@@ -20,31 +20,34 @@ import numpy as np
 import pytest
 import torch
 
-from quadruped_ctrl_tpu.config import default_config
+from quadruped_ctrl_tpu.config import default_config as jax_default_config
 from quadruped_ctrl_tpu.mpc import formation as JF
 from quadruped_ctrl_tpu.ops import ns_inverse as JNI
 from quadruped_ctrl_tpu.solver import admm as JA
+from quadruped_ctrl_tpu_torch import default_config
 from quadruped_ctrl_tpu_torch.mpc import pipeline as TP
+from quadruped_ctrl_tpu_torch.ops import ns_inverse as TNI
 from quadruped_ctrl_tpu_torch.solver import admm as TA
 
-CFG = default_config()
+JCFG = jax_default_config()     # drives the JAX side
+CFG = default_config()          # the port's own
 
 
 def _problem(h, b, pack, seed):
     """(hess, grad, gait, pack) as numpy: per-scenario uncompressed QPs
     (qp_cost_nil) when pack == 1, else stance-compressed pair-packed ones."""
-    inp = TP.random_inputs(seed, b, h).to_numpy()
-    adt, bdt = JF.srb_discrete(CFG.mpc, inp["r_feet"], inp["rpy"][:, 2],
-                               inp["x_drag"], CFG.dt_mpc)
+    inp = TP.random_inputs(seed, b, h, device="cpu").to_numpy()
+    adt, bdt = JF.srb_discrete(JCFG.mpc, inp["r_feet"], inp["rpy"][:, 2],
+                               inp["x_drag"], JCFG.dt_mpc)
     x0 = JF.build_x0(inp["rpy"], inp["position"], inp["omega_world"],
-                     inp["v_world"], CFG.mpc.gravity)
+                     inp["v_world"], JCFG.mpc.gravity)
     if pack == 1:
         hess, grad = jax.vmap(lambda a, bb, x, t: JF.qp_cost_nil(
-            CFG.mpc, a, bb, x, t, jnp.ones((h,), jnp.float32)))(adt, bdt, x0, inp["traj"])
+            JCFG.mpc, a, bb, x, t, jnp.ones((h,), jnp.float32)))(adt, bdt, x0, inp["traj"])
         gait = inp["gait_table"]
     else:
         _, gait_red, sel = JF.stance_selectors(jnp.asarray(inp["gait_table"]), 2)
-        hess, grad = JF.qp_cost_packed(CFG.mpc, adt, bdt, x0, inp["traj"],
+        hess, grad = JF.qp_cost_packed(JCFG.mpc, adt, bdt, x0, inp["traj"],
                                        jnp.ones((b, h), jnp.float32), sel, pack)
         gait = np.asarray(gait_red).reshape(b // pack, pack * h, 2)
     return np.asarray(hess), np.asarray(grad), np.asarray(gait, np.float32), pack
@@ -53,7 +56,7 @@ def _problem(h, b, pack, seed):
 def _jax_solve(prob, use_pallas, **kw):
     hess, grad, gait, pack = prob
     fn = jax.jit(lambda hh, gg, tt: JA.admm_mpc_batched(
-        CFG.solver, CFG.mpc, hh, gg, tt, use_pallas=use_pallas, pack=pack, **kw))
+        JCFG.solver, JCFG.mpc, hh, gg, tt, use_pallas=use_pallas, pack=pack, **kw))
     return np.asarray(fn(hess, grad, gait))
 
 
@@ -107,6 +110,29 @@ def test_two_step_build_matches_fused(monkeypatch, h, b, pack, seed):
     np.testing.assert_allclose(x_2, x_f, rtol=0, atol=0.25)
 
 
+@pytest.mark.parametrize("h,seed", [(11, 18), (12, 17)])
+def test_schur_split_solve_matches_jax_interpret(jax_kernels_interpret, monkeypatch, h, seed):
+    """n = 132 and n = 144 (128 < n <= 160, pack 1): the two ADMM-grade
+    factorizations take the Schur split K4 (K3 at the 128 tile on the
+    leading block), the three polish ones K2 at the 256 tile, against the
+    JAX Pallas branch under interpret mode, which routes alike.
+    Measured max |d|: 0.028 N (n=132) and 0.047 N (n=144)."""
+    prob = _problem(h, 4, 1, seed)
+    real = TNI.ns_inverse_schur_scaled
+    calls = []
+
+    def record(ks, *schedule):
+        calls.append(ks.shape)
+        return real(ks, *schedule)
+
+    monkeypatch.setattr(TNI, "ns_inverse_schur_scaled", record)
+    x_t = _port_solve(prob, use_kernels=True).numpy()
+    x_j = _jax_solve(prob, use_pallas=True)
+    assert calls == [(4, 12 * h, 12 * h)] * 2
+    assert np.isfinite(x_t).all()
+    np.testing.assert_allclose(x_t, x_j, rtol=0, atol=0.5)
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
 def test_warm_start_contract(use_kernels):
     """Zeros as `warm` are exactly the cold start; `return_warm` gives the
@@ -129,11 +155,11 @@ def test_helpers_match_jax():
     u = np.where(rng.uniform(size=(3, 40)) < 0.3, 0.0,
                  np.where(rng.uniform(size=(3, 40)) < 0.5, 5e10, 1.0)).astype(np.float32)
     np.testing.assert_array_equal(TA.constraint_rho(s, torch.from_numpy(l), torch.from_numpy(u)),
-                                  np.asarray(JA.constraint_rho(s, l, u)))
+                                  np.asarray(JA.constraint_rho(JCFG.solver, l, u)))
     ax, z, hx, g, aty = (rng.normal(size=(5, 30)).astype(np.float32) for _ in range(5))
     np.testing.assert_allclose(
         TA._adapt_rho_factor(s, *map(torch.from_numpy, (ax, z, hx, g, aty))).numpy(),
-        np.asarray(JA._adapt_rho_factor(s, ax, z, hx, g, aty)), rtol=1e-6)
+        np.asarray(JA._adapt_rho_factor(JCFG.solver, ax, z, hx, g, aty)), rtol=1e-6)
     np.testing.assert_array_equal(TA._pyramid_dense(0.4, 3, 2), JA._pyramid_dense(0.4, 3, 2))
     q, _ = np.linalg.qr(rng.normal(size=(2, 24, 24)))
     ks = (q * np.logspace(0, -2, 24)[None, None]) @ q.transpose(0, 2, 1)
@@ -149,10 +175,6 @@ def test_unported_paths_raise():
     wood = dataclasses.replace(CFG.solver, polish_woodbury=True)
     with pytest.raises(NotImplementedError, match="K6"):
         _port_solve(prob, use_kernels=True, cfg=wood)
-    hess = torch.eye(132).expand(2, 132, 132).contiguous()          # 128 < n <= 160
-    with pytest.raises(NotImplementedError, match="K4"):
-        TA.admm_mpc_batched(CFG.solver, CFG.mpc, hess, torch.zeros(2, 132),
-                            torch.ones(2, 11, 4), use_kernels=True)
     ks = torch.eye(8).expand(2, 8, 8).contiguous()
     with pytest.raises(NotImplementedError, match="K7"):
         TA._batched_solver(ks, CFG.solver, True, prev_inv=ks, prev_scale=torch.ones(2, 8))

@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from quadruped_ctrl_tpu.config import default_config
+from quadruped_ctrl_tpu.config import default_config as jax_default_config
 from quadruped_ctrl_tpu.mpc import formation as JF
+from quadruped_ctrl_tpu_torch import default_config
 from quadruped_ctrl_tpu_torch.mpc import formation as TF
 from quadruped_ctrl_tpu_torch.ops import formation_pack as FP
 
-CFG = default_config()
+JCFG = jax_default_config()     # drives the JAX side
+CFG = default_config()          # the port's own
 
 
 def _t(a):
@@ -30,9 +32,12 @@ def _close(t, j, atol):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=atol)
 
 
-def _scenarios(seed, b, h, ms=2):
+def _scenarios(seed, b, h, ms=2, jax_test_table=False):
     """Random scenario batch (numpy) with a gait of at most ms stance feet
-    per step; returns the arrays the formation consumes."""
+    per step; returns the arrays the formation consumes. With
+    `jax_test_table` the gait is drawn as test_pallas_kernels.py draws its
+    ms >= 3 tables: stance with probability 0.75, foot 0 always in stance,
+    clamped to ms per step."""
     rng = np.random.default_rng(seed)
     r_feet = rng.uniform(-0.25, 0.25, (b, 4, 3)).astype(np.float32)
     r_feet[:, :, 2] = rng.uniform(-0.30, -0.25, (b, 4))
@@ -42,7 +47,10 @@ def _scenarios(seed, b, h, ms=2):
                          np.full((b, 1), -9.8)], axis=1).astype(np.float32)
     traj = np.concatenate([rng.uniform(-0.5, 0.5, (b, h, 12)),
                            np.zeros((b, h, 1))], axis=2).astype(np.float32)
-    gait = (rng.uniform(size=(b, h, 4)) < 0.6).astype(np.float32)
+    gait = (rng.uniform(size=(b, h, 4)) < (0.75 if jax_test_table else 0.6)
+            ).astype(np.float32)
+    if jax_test_table:
+        gait[:, :, 0] = 1.0
     for s in range(b):
         for x in range(h):
             on = np.flatnonzero(gait[s, x])
@@ -58,11 +66,11 @@ def test_pyramid_and_x0_match_jax():
     y = rng.normal(size=(3, h, 4, 5)).astype(np.float32)
     rho = rng.uniform(0.5, 2.0, size=(3, h, 4, 5)).astype(np.float32)
     for t, j in zip(TF.pyramid_bounds(CFG.mpc, _t(gait)),
-                    JF.pyramid_bounds(CFG.mpc, jnp.asarray(gait))):
+                    JF.pyramid_bounds(JCFG.mpc, jnp.asarray(gait))):
         _close(t, j, 0.0)
-    _close(TF.pyramid_apply(CFG.mpc, _t(x)), JF.pyramid_apply(CFG.mpc, x), 1e-6)
-    _close(TF.pyramid_apply_t(CFG.mpc, _t(y)), JF.pyramid_apply_t(CFG.mpc, y), 1e-6)
-    _close(TF.pyramid_gram(CFG.mpc, _t(rho)), JF.pyramid_gram(CFG.mpc, rho), 1e-5)
+    _close(TF.pyramid_apply(CFG.mpc, _t(x)), JF.pyramid_apply(JCFG.mpc, x), 1e-6)
+    _close(TF.pyramid_apply_t(CFG.mpc, _t(y)), JF.pyramid_apply_t(JCFG.mpc, y), 1e-6)
+    _close(TF.pyramid_gram(CFG.mpc, _t(rho)), JF.pyramid_gram(JCFG.mpc, rho), 1e-5)
     parts = [rng.normal(size=(5, 3)).astype(np.float32) for _ in range(4)]
     _close(TF.build_x0(*map(_t, parts), 9.8), JF.build_x0(*parts, 9.8), 0.0)
 
@@ -71,7 +79,7 @@ def test_srb_discrete_and_stance_selectors_match_jax():
     sc = _scenarios(1, 7, 10, ms=4)
     adt_t, bdt_t = TF.srb_discrete(CFG.mpc, _t(sc["r_feet"]), _t(sc["yaw"]),
                                    _t(sc["x_drag"]), CFG.dt_mpc)
-    adt_j, bdt_j = JF.srb_discrete(CFG.mpc, sc["r_feet"], sc["yaw"],
+    adt_j, bdt_j = JF.srb_discrete(JCFG.mpc, sc["r_feet"], sc["yaw"],
                                    sc["x_drag"], CFG.dt_mpc)
     _close(adt_t, adt_j, 1e-6)
     _close(bdt_t, bdt_j, 1e-6)
@@ -94,9 +102,9 @@ def test_scatter_forces_matches_jax():
 
 
 def _formation_inputs(seed, b, h, ms):
-    sc = _scenarios(seed, b, h, ms)
-    adt, bdt = JF.srb_discrete(CFG.mpc, sc["r_feet"], sc["yaw"], sc["x_drag"],
-                               CFG.dt_mpc)
+    sc = _scenarios(seed, b, h, ms, jax_test_table=h == 16 and ms >= 3)
+    adt, bdt = JF.srb_discrete(JCFG.mpc, sc["r_feet"], sc["yaw"], sc["x_drag"],
+                               JCFG.dt_mpc)
     _, _, sel = JF.stance_selectors(jnp.asarray(sc["gait"]), ms)
     mask = np.ones((b, h), np.float32)
     mask[:, -2:] = 0.0                       # exercise the step-mask rows
@@ -106,12 +114,12 @@ def _formation_inputs(seed, b, h, ms):
 def test_qp_cost_compressed_nil_sel_and_operands_match_jax():
     args = _formation_inputs(4, 5, 10, 2)
     h_t, g_t = TF.qp_cost_compressed_nil_sel(CFG.mpc, *map(_t, args))
-    h_j, g_j = JF.qp_cost_compressed_nil_sel(CFG.mpc, *args)
+    h_j, g_j = JF.qp_cost_compressed_nil_sel(JCFG.mpc, *args)
     scale = float(np.abs(np.asarray(h_j)).max())
     _close(h_t, h_j, 1e-6 * max(scale, 1.0))
     _close(g_t, g_j, 1e-5)
     for t, j in zip(TF.packed_qp_operands(CFG.mpc, *map(_t, args)),
-                    JF.packed_qp_operands(CFG.mpc, *args)):
+                    JF.packed_qp_operands(JCFG.mpc, *args)):
         _close(t, j, 1e-5 * max(float(np.abs(np.asarray(j)).max()), 1.0))
 
 
@@ -119,6 +127,9 @@ def test_qp_cost_compressed_nil_sel_and_operands_match_jax():
     (10, 2, 2, 8),      # the flagship shape (120-variable pairs, 128 tile)
     (10, 2, 2, 6),      # an odd system count (3 pairs)
     (4, 3, 1, 4),       # unpacked, three stance slots
+    (16, 2, 2, 4),      # h=16 fast-trot band: 192-variable pairs, 256 tile
+    (16, 3, 1, 2),      # h=16 walking band: 144 variables, 256 tile
+    (16, 4, 1, 2),      # h=16 uncompressed: 192 variables, n_c = 192 > 128
 ])
 def test_packed_formation_matches_jax(h, ms, pack, b):
     """qp_cost_packed through K1's reference (use_kernels=True on CPU) and
@@ -127,7 +138,7 @@ def test_packed_formation_matches_jax(h, ms, pack, b):
     args = _formation_inputs(10 + h * ms + pack, b, h, ms)
 
     def jax_packed(interpret):
-        fn = jax.jit(functools.partial(JF.qp_cost_packed, CFG.mpc, pack=pack,
+        fn = jax.jit(functools.partial(JF.qp_cost_packed, JCFG.mpc, pack=pack,
                                        use_pallas=False, interpret=interpret))
         return (np.asarray(a) for a in fn(*args))
 

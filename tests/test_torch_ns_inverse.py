@@ -1,10 +1,12 @@
 """PyTorch port vs JAX package: the factorization kernels' references (K2
-`ns_inverse_scaled_build`, K3 `ns_inverse_scaled`) and their wrappers, on
-the CPU.
+`ns_inverse_scaled_build`, K3 `ns_inverse_scaled`) at the 128 and 256 tiles,
+the Schur split K4 (`ns_inverse_schur_scaled`) and their wrappers, on the
+CPU.
 
 Residual gates are the JAX kernel tests' (test_pallas_kernels.py): ADMM
 schedule at cond 2.1e3 max |I - KX| < 1e-2; polish schedule row-sum residual
-< 5e-3 at cond 1e4 and < 5e-2 at cond 1e5.
+< 5e-3 at cond 1e4 and < 5e-2 at cond 1e5; the Schur split row-sum residual
+< 5e-3 and error against the f64 inverse < 1e-2.
 """
 
 import functools
@@ -15,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from quadruped_ctrl_tpu.config import default_config
+from quadruped_ctrl_tpu.config import default_config as jax_default_config
 from quadruped_ctrl_tpu.mpc import formation as JF
 from quadruped_ctrl_tpu.ops import ns_inverse as JNI
+from quadruped_ctrl_tpu_torch import default_config
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
 
 SCFG = default_config().solver
@@ -69,21 +72,33 @@ def test_scaled_reference_residual(cond, sched, metric, gate):
     assert _resid(ks, inv)[metric] < gate
 
 
+def _build_operands(seed, b, hv, nf, npad):
+    """(hp, g9, k, n): a random SPD hess_n + sigma I padded to npad, the gram
+    blocks of random pyramid weights from JAX's pyramid_gram, and the
+    assembled K = hess_n + sigma I + blockdiag3(gram) at the logical n (the
+    construction of test_pallas_kernels.test_fused_kbuild_matches_xla_assembly)."""
+    jcfg = jax_default_config()
+    n = 3 * nf * hv
+    rng = np.random.default_rng(seed)
+    m0 = rng.uniform(-1, 1, (b, n, n)).astype(np.float32)
+    hess_n = (np.einsum("bij,bkj->bik", m0, m0) * 0.05 + 3.0 * np.eye(n)).astype(np.float32)
+    w = (np.abs(rng.normal(size=(b, hv * nf * 5))) * 30.0).astype(np.float32)
+    gram = np.asarray(JF.pyramid_gram(jcfg.mpc, w.reshape(b, hv, nf, 5)))
+    g9 = np.ascontiguousarray(gram.reshape(b, hv * nf, 9).transpose(0, 2, 1))
+    hs = hess_n + SCFG.sigma * np.eye(n, dtype=np.float32)
+    hp = np.asarray(JNI.pad_to(jnp.asarray(hs), n, npad))
+    g4 = gram.reshape(b, hv * nf, 3, 3)
+    delta = np.zeros((b, n, n), np.float32)
+    for blk in range(hv * nf):
+        delta[:, 3 * blk:3 * blk + 3, 3 * blk:3 * blk + 3] = g4[:, blk]
+    return hp, g9, hs + delta, n
+
+
 def test_build_reference_matches_jax_kernel():
     """K2's reference vs the JAX Pallas kernel in interpret mode, on gram
     blocks from pyramid_gram: the K build and Jacobi scale (ks, d_row) to
     1e-6 relative, the inverse to 1e-3 relative (measured 2.8e-7)."""
-    cfg = default_config()
-    b, hv, nf = 8, 20, 2
-    n = 3 * nf * hv
-    rng = np.random.default_rng(5)
-    m0 = rng.uniform(-1, 1, (b, n, n)).astype(np.float32)
-    hess_n = (np.einsum("bij,bkj->bik", m0, m0) * 0.05 + 3.0 * np.eye(n)).astype(np.float32)
-    w = (np.abs(rng.normal(size=(b, hv * nf * 5))) * 30.0).astype(np.float32)
-    gram = np.asarray(JF.pyramid_gram(cfg.mpc, w.reshape(b, hv, nf, 5)))
-    g9 = np.ascontiguousarray(gram.reshape(b, hv * nf, 9).transpose(0, 2, 1))
-    hp = np.asarray(JNI.pad_to(jnp.asarray(hess_n + SCFG.sigma * np.eye(n, dtype=np.float32)),
-                               n, 128))
+    hp, g9, _, _ = _build_operands(5, 8, 20, 2, 128)
     kernel = jax.jit(functools.partial(JNI.ns_inverse_pallas_scaled_build, interpret=True),
                      static_argnums=(2, 3, 4, 5))
     inv_j, ks_j, d_j = (np.asarray(a) for a in kernel(hp, g9, *POLISH))
@@ -98,6 +113,65 @@ def test_build_reference_matches_jax_kernel():
     # the build is K3 on the built ks, exactly
     inv3 = NI.ns_inverse_scaled(torch.from_numpy(ks_t), *POLISH).numpy()
     np.testing.assert_array_equal(inv3, inv_t)
+
+
+@pytest.mark.parametrize("hv,nf", [(24, 2), (32, 2)])     # n = 144, 192
+def test_references_at_256_tile_match_jax_kernels(hv, nf):
+    """K2's and K3's references at the 256 tile (b = 8) against the JAX
+    Pallas kernels in interpret mode, ADMM schedule. Within the port, as
+    test_pallas_kernels.test_fused_kbuild_matches_xla_assembly holds the JAX
+    kernels: K2's d_row equals the two-step Jacobi scale exactly, K2's
+    inverse is within 1e-6 of K3 on the two-step ks, and ks is None at 256.
+    Against JAX: d_row to 1e-6 relative (measured 1.5e-8), the inverses to
+    1e-3 relative as at the 128 tile (measured <= 6.0e-7)."""
+    hp, g9, k, n = _build_operands(7, NI.G, hv, nf, 256)
+    inv_t, ks_t, d_t = (None if a is None else a.numpy() for a in NI.ns_inverse_scaled_build(
+        torch.from_numpy(hp.copy()), torch.from_numpy(g9), *ADMM))
+    assert ks_t is None and inv_t.shape == (NI.G, 256, 256) and d_t.shape == (NI.G, 1, 256)
+    kt = torch.from_numpy(k)
+    d2 = torch.rsqrt(torch.clamp(torch.diagonal(kt, dim1=-2, dim2=-1), min=1e-30))
+    ks2 = NI.pad_to(kt * d2[:, :, None] * d2[:, None, :], n, 256)
+    inv2 = NI.ns_inverse_scaled(ks2, *ADMM).numpy()
+    np.testing.assert_array_equal(d_t[:, 0, :n], d2.numpy())
+    assert np.abs(inv_t - inv2).max() < 1e-6
+
+    build = jax.jit(functools.partial(JNI.ns_inverse_pallas_scaled_build, interpret=True),
+                    static_argnums=(2, 3, 4, 5))
+    inv_j, ks_j, d_j = build(hp, g9, *ADMM)
+    scaled = jax.jit(functools.partial(JNI.ns_inverse_pallas_scaled, interpret=True),
+                     static_argnums=(1, 2, 3, 4))
+    inv3_j = np.asarray(scaled(ks2.numpy(), *ADMM))
+
+    def rel(a, ref):
+        return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+    assert ks_j is None
+    assert rel(d_t, np.asarray(d_j)) <= 1e-6, rel(d_t, np.asarray(d_j))
+    assert rel(inv_t, np.asarray(inv_j)) < 1e-3, rel(inv_t, np.asarray(inv_j))
+    assert rel(inv2, inv3_j) < 1e-3, rel(inv2, inv3_j)
+
+
+@pytest.mark.parametrize("n,cond", [(144, 213.0), (192, 1e3)])
+def test_schur_split_matches_jax(n, cond):
+    """K4 at the ADMM schedule of the JAX test (5e-4, 6, 2, 1) on
+    b = 2G + 3 systems (the A block G-padded), against the JAX function with
+    its K3 in interpret mode: the JAX test's residual and f64 gates
+    (measured 6.3e-5 / 4.9e-6 at n=144, 1.8e-3 / 1.0e-5 at n=192), and
+    agreement with the JAX output to 1e-4 relative (measured <= 1.6e-5)."""
+    b = 2 * NI.G + 3
+    ks = _spd_batch(11, b, n, n, cond)
+    x_t = NI.ns_inverse_schur_scaled(torch.from_numpy(ks), 5e-4, 6, 2, 1).numpy()
+    x_j = np.asarray(JNI.ns_inverse_schur_scaled(jnp.asarray(ks), 5e-4, 6, 2, 1,
+                                                 interpret=True))
+    x64 = x_t.astype(np.float64)
+    ks64 = ks.astype(np.float64)
+    assert x_t.shape == (b, n, n)
+    assert np.abs(np.eye(n) - ks64 @ x64).sum(-1).max() < 5e-3
+    assert np.abs(x64 - np.linalg.inv(ks64)).max() / np.abs(x64).max() < 1e-2
+    agree = np.abs(x_t - x_j).max() / np.abs(x_j).max()
+    assert agree < 1e-4, agree
+    with pytest.raises(ValueError):
+        NI.ns_inverse_schur_scaled(torch.from_numpy(ks[:, :128, :128].copy()))
 
 
 def test_build_reference_at_256_tile_skips_ks():

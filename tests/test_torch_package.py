@@ -1,7 +1,9 @@
-"""The PyTorch port as a package: it and chip_smoke.py import no JAX, the
-kernel build imports without nvcc, and the CUDA route is never taken for a
-CPU tensor."""
+"""The PyTorch port as a package: it and chip_smoke.py import no JAX and
+nothing of the JAX package, its config equals the JAX package's field by
+field, its entry points default to the card, the kernel build imports without
+nvcc, and the CUDA route is never taken for a CPU tensor."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -21,23 +23,55 @@ def test_package_and_chip_smoke_import_no_jax():
     code = (
         "import sys\n"
         "import quadruped_ctrl_tpu_torch\n"
-        "from quadruped_ctrl_tpu_torch import device\n"
+        "from quadruped_ctrl_tpu_torch import config, device\n"
         "from quadruped_ctrl_tpu_torch.mpc import formation, pipeline\n"
-        "from quadruped_ctrl_tpu_torch.ops import _build, formation_pack, ns_inverse\n"
+        "from quadruped_ctrl_tpu_torch.ops import _build, _launch, formation_pack, ns_inverse\n"
         "from quadruped_ctrl_tpu_torch.solver import admm\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'quadruped_ctrl_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     proc = _run(code)
     assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr[-2000:]
 
 
+def test_config_equals_the_jax_config_field_by_field():
+    from quadruped_ctrl_tpu.config import default_config as jax_default_config
+    from quadruped_ctrl_tpu_torch import default_config
+
+    port, ref = default_config(), jax_default_config()
+    assert type(port).__module__ == "quadruped_ctrl_tpu_torch.config"
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for sub in ("mpc", "solver"):
+        assert [f.name for f in dataclasses.fields(getattr(port, sub))] == \
+            [f.name for f in dataclasses.fields(getattr(ref, sub))]
+
+
+def test_entry_points_default_to_the_card():
+    """random_inputs and MPCInputs.from_numpy build on cuda:0 unless told
+    otherwise: without a CUDA device they raise, never fall back to the CPU."""
+    from quadruped_ctrl_tpu_torch import device
+    from quadruped_ctrl_tpu_torch.mpc import pipeline
+
+    assert device.resolve("cpu") == torch.device("cpu")
+    inp = pipeline.random_inputs(0, 2, 4, device="cpu")
+    assert inp.rpy.device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is that device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.random_inputs(0, 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.MPCInputs.from_numpy(inp.to_numpy())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve()
+
+
 def test_build_module_without_nvcc(monkeypatch, tmp_path):
     from quadruped_ctrl_tpu_torch.ops import _build
 
     names = [p.name for p in _build.source_files()]
-    assert {"ns_core.cuh", "ns_inverse.cu", "formation_pack.cu"} <= set(names)
+    assert {"ns_core.cuh", "ns_inverse.cu", "ns_cluster.cu", "formation_pack.cu"} <= set(names)
     assert len(_build.source_hash()) == 16
     assert _build.library_path().parent == _build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
