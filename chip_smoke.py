@@ -12,14 +12,22 @@
 3b. the same at the h=16 shapes: K1 above 128 variables, K2 and K3 at the 256
    tile (one 4-CTA cluster per system), and the Schur split K4 (K3 at the
    128 tile inside) against its plain version;
+3c. the single-launch solve K5 (fused_admm_solve) at batch 2048, h=10, on the
+   operands the fused path builds, and the warm NS refinement K6
+   (ns_inverse_refine) at both tiles on 2048 SPD warm starts and on the
+   operands of a real Woodbury solve (h=10 and h16_full, 2048 systems),
+   against their references;
 4. drives `solve_packed_batch` at batch 4096, h=10 (2048 packed systems of
    120 variables) through the kernels, counts their launches, checks the
    forces and compares them with the plain branch on the same inputs, then
    runs the polish_rounds=0, form_only and two-step-build variants;
 4b. drives the three h=16 lanes of bench.py (h16_full, h16_trot,
    h16_midband) at batch 2048 the same way;
-5. profiles one solve of h10 and of h16_full (device time by kernel, device
-   idle share);
+4c. drives the fused solve (h10_fused: use_fused=True, batch 2048, K5 alone)
+   and the Woodbury polish (h10_woodbury: polish_woodbury=True, batch 4096,
+   K6 for the polish rounds after the first) the same way;
+5. profiles one solve of h10, h16_full, h10_fused and h10_woodbury (device
+   time by kernel, device idle share);
 6. prints a JSON line with the kernels (one entry per kernel and tile, with
    its bound on this card and the time of torch.linalg.inv beside K2/K3),
    then the result line.
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import statistics
@@ -45,6 +54,7 @@ from quadruped_ctrl_tpu_torch import default_config
 from quadruped_ctrl_tpu_torch.mpc import formation, pipeline
 from quadruped_ctrl_tpu_torch.ops import _build, _launch
 from quadruped_ctrl_tpu_torch.ops import formation_pack as FP
+from quadruped_ctrl_tpu_torch.ops import fused_admm as FA
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
 from quadruped_ctrl_tpu_torch.solver import admm
 
@@ -55,8 +65,10 @@ N_SPD = 512                     # systems per SPD case at the 256 tile
 # bench.py's h=16 lanes: (max_stance, pack, gait)
 LANES16 = {"h16_full": (4, 1, "trot"), "h16_trot": (2, 2, "trot"),
            "h16_midband": (3, 1, "midband")}
+B_FUSED = 2048                  # scenarios of the fused lane (one system each)
 WRAPPERS = {"K1": FP.form_packed, "K2": NI.ns_inverse_scaled_build,
-            "K3": NI.ns_inverse_scaled}
+            "K3": NI.ns_inverse_scaled, "K5": FA.fused_admm_solve,
+            "K6": NI.ns_inverse_refine}
 TILES = (128, 256)
 KERNEL_INFO = {
     "K1/128": dict(name="form_packed", source="quadruped_ctrl_tpu_torch/csrc/formation_pack.cu",
@@ -76,6 +88,15 @@ KERNEL_INFO = {
     "K3/256": dict(name="ns_inverse_scaled (256 tile)",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:259"),
+    "K5/128": dict(name="fused_admm_solve",
+                   source="quadruped_ctrl_tpu_torch/csrc/fused_admm.cu",
+                   replaces="quadruped_ctrl_tpu/ops/fused_admm.py:199"),
+    "K6/128": dict(name="ns_inverse_refine",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:344"),
+    "K6/256": dict(name="ns_inverse_refine (256 tile)",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:344"),
 }
 # Peak rates of one H100 SXM (data sheet, dense): the bf16 tensor cores, the
 # fp32 CUDA cores, device memory.
@@ -108,8 +129,10 @@ def reset_counts():
 
 
 def counts() -> dict:
-    """Launches since the last reset, keyed "K<i>/<tile>"."""
-    return {f"{k}/{t}": fn.launches_by_tile[t] for k, fn in WRAPPERS.items() for t in TILES}
+    """Launches since the last reset, keyed "K<i>/<tile>" (K5 has the 128
+    tile only)."""
+    return {f"{k}/{t}": fn.launches_by_tile[t] for k, fn in WRAPPERS.items() for t in TILES
+            if k != "K5" or t == FA.N}
 
 
 def want(**launches) -> dict:
@@ -163,10 +186,16 @@ def spd_batch(gen, b: int, n: int, npad: int, cond: float, dev):
     return NI.pad_to((k * d[:, :, None] * d[:, None, :]).float(), n, npad)
 
 
+def identity_gap(ks, inv) -> torch.Tensor:
+    """|I - ks inv| in float64, per system."""
+    eye = torch.eye(ks.shape[-1], dtype=torch.float64, device=ks.device)
+    return (eye - ks.double() @ inv.double()).abs()
+
+
 def residuals(ks, inv):
-    """(max |I - ks inv| elementwise, max row sum of |I - ks inv|), in float64."""
-    r = torch.eye(ks.shape[-1], dtype=torch.float64, device=ks.device) - ks.double() @ inv.double()
-    return float(r.abs().max()), float(r.abs().sum(-1).max())
+    """(max |I - ks inv| elementwise, max row sum of |I - ks inv|), over the batch."""
+    gap = identity_gap(ks, inv)
+    return float(gap.max()), float(gap.sum(-1).max())
 
 
 def solve_operands(cfg, inputs, name="ns_inverse_scaled_build", **solve_kw):
@@ -362,6 +391,20 @@ def phase_kernels(cfg, dev, results):
     check_ns(cases + solve_cases(calls, polish_sched), results, NI.N, N_SYS)
 
 
+def schur_bound(b: int, n: int, schedule, n_small: int = 13, n_scrub: int = 1):
+    """K4 (ns_inverse_schur_scaled with its defaults) on b systems of n: K3 on
+    the 128 block, then in fp32 A^-1 B, the Schur complement, its n_small
+    NS steps, the block assembly and n_scrub NS steps at n; bytes: ks in, the
+    inverse out."""
+    m = n - NI.N
+    k3 = ns_bound(b, NI.N, schedule, 0.0)[0] * 1e-3
+    fp32 = b * (2.0 * NI.N * NI.N * m + 2.0 * m * NI.N * m + n_small * 4.0 * m ** 3
+                + 2.0 * NI.N * m * m + 2.0 * NI.N * m * NI.N + n_scrub * 4.0 * n ** 3)
+    t_ops = k3 + fp32 / PEAK_FP32
+    t_bytes = 2 * b * n * n * 4.0 / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def check_k4(label, ks, sched, gate):
     """K4 (the Schur split around K3 at the 128 tile) against its plain
     version, the same function with K3's reference in place of the kernel:
@@ -425,7 +468,171 @@ def phase_kernels16(cfg, dev, results):
         check_k4(f"midband solve call {i} (ADMM schedule)", ks, sched, 5e-3)
         if i == 0:
             t_k4 = median_ms(lambda: NI.ns_inverse_schur_scaled(ks, *sched))
-            print(f"  K4 midband solve call 0 at {B16} systems: %.3f ms (median of 10)" % t_k4)
+            t_inv = median_ms(lambda: torch.linalg.inv(ks))
+            b4 = schur_bound(B16, ks.shape[-1], sched)
+            print(f"  K4 midband solve call 0 at {B16} systems: %.3f ms, torch.linalg.inv %.3f ms "
+                  "(median of 10); bound %.4f ms (%s)" % (t_k4, t_inv, *b4))
+
+
+def fused_call(cfg, inputs):
+    """(args, kwargs) of the one K5 call a fused solve of `inputs` makes."""
+    calls = []
+    fn = FA.fused_admm_solve
+
+    def record(*args, **kw):
+        calls.append((tuple(a.clone() for a in args), kw))
+        return fn(*args, **kw)
+
+    FA.fused_admm_solve = record
+    try:
+        pipeline.solve_packed_batch(cfg, inputs, use_fused=True)
+    finally:
+        FA.fused_admm_solve = fn
+    check(len(calls) == 1, "a fused solve makes 1 K5 call")
+    return calls[0]
+
+
+def fused_bound(b: int, kw: dict) -> tuple[float, str]:
+    """K5 per system: 1 + polish_rounds factorizations (the NS schedule at
+    the 128 tile, as ns_bound) and as many grams (2 M N^2), n_iter ADMM
+    iterations (A'v and Av, 2 M N each, and the inverse matvec, 2 N^2) and per
+    polish round its right-hand side, 3 inverse and 2 K matvecs and Ax;
+    bytes: H, g, l, u, rho in, x out, A once."""
+    n, m = FA.N, FA.M
+    facs = 1 + kw["polish_rounds"]
+    prod = 2.0 * n ** 3 * 2 * b * facs
+    fp32 = b * (facs * 2.0 * m * n * n + kw["n_iter"] * (4.0 * m * n + 2.0 * n * n)
+                + kw["polish_rounds"] * (4.0 * m * n + 10.0 * n * n))
+    nbytes = 4.0 * (b * (n * n + 2 * n + 3 * m) + m * n)
+    return bound(3 * prod * (kw["n_scaled"] + kw["n_quad"]), prod * kw["n_hi"] + fp32, nbytes)
+
+
+def spd_warm(gen, b: int, n: int, npad: int, dev):
+    """(ks, init, r0): SPD systems of condition 1e4 and the warm start of the
+    JAX package's refinement test, the exact inverse times (I + E) with
+    ||E||_2 = 0.05; r0 is the start's row-sum residual."""
+    ks = spd_batch(gen, b, n, npad, 1e4, dev)
+    e = torch.randn((b, npad, npad), generator=gen, device=dev, dtype=torch.float64)
+    e *= 0.05 / torch.linalg.matrix_norm(e.float(), ord=2).double()[:, None, None]
+    eye = torch.eye(npad, dtype=torch.float64, device=dev)
+    init = torch.linalg.inv(ks.double()) @ (eye + e)
+    r0 = float((eye - ks.double() @ init).abs().sum(-1).max())
+    return ks, init.float(), r0
+
+
+def woodbury_config(cfg):
+    return dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, polish_woodbury=True))
+
+
+def row_sums(ks, inv) -> torch.Tensor:
+    """Per system, the largest row sum of |I - ks inv|."""
+    return identity_gap(ks, inv).sum(-1).amax(-1)
+
+
+def check_k6_real(label, ks, init, sched, polish_gate) -> float:
+    """K6 against its reference on the operands of a real Woodbury solve.
+    K6 has no guard: its contract is a start whose row-sum residual is below
+    1, and the Woodbury correction meets it on part of the batch only (it
+    amplifies the stored inverse's fp32 error by ~w_act, the JAX package's
+    config note): on the card 13-17% of the systems of round 1 and 33-45% of
+    round 2 start below 1; outside, kernel and reference diverge alike. On
+    the systems inside, both stop at the fp32 floor of the polish
+    conditioning (row sum ~0.02 median, up to ~0.15), where the SPD cases'
+    5e-3 and 0.1 r0 do not apply. Gates there: finite; the largest row sum
+    under solve_cases' polish gate and within 2x of the reference's; the
+    median within 1.2x of the reference's (measured 0.98-1.05x); each
+    system's inverse within 5e-2 of the reference's, relative to its largest
+    entry (measured <= 1.5e-2). Returns max |inv_k - inv_r| on those
+    systems."""
+    out_k = NI.ns_inverse_refine(ks, init, *sched)
+    out_r = NI.ns_inverse_refine_reference(ks, init, *sched)
+    r0, rk, rr = row_sums(ks, init), row_sums(ks, out_k), row_sums(ks, out_r)
+    dom = r0 < 1.0
+    n_dom = int(dom.sum())
+    fin_k = torch.isfinite(out_k).all(-1).all(-1)
+    fin_r = torch.isfinite(out_r).all(-1).all(-1)
+    rel_sys = ((out_k - out_r).abs().amax(dim=(-2, -1))
+               / out_r.abs().amax(dim=(-2, -1)))[dom]
+    check(n_dom > 0, f"{label}: some systems start below 1")
+    rk_d, rr_d = rk[dom], rr[dom]
+    print(f"  {label}: {n_dom} of {ks.shape[0]} systems start below 1 (r0 median "
+          f"{float(r0.median()):.3e}); on them row sums kernel max {float(rk_d.max()):.3e} median "
+          f"{float(rk_d.median()):.3e}, reference max {float(rr_d.max()):.3e} median "
+          f"{float(rr_d.median()):.3e}; per-system relative |inv_k - inv_r| max "
+          f"{float(rel_sys.max()):.3e}; finite alike on {float((fin_k == fin_r).float().mean()):.4f}"
+          f" of all systems")
+    check(bool(fin_k[dom].all()), f"{label}: finite where the start is below 1")
+    check(float(rk_d.max()) < polish_gate and float(rk_d.max()) <= 2 * float(rr_d.max()) + 1e-5,
+          f"{label}: largest row sum < {polish_gate} and within 2x of the reference's")
+    check(float(rk_d.median()) <= 1.2 * float(rr_d.median()) and float(rel_sys.max()) <= 5e-2,
+          f"{label}: median row sum within 1.2x of the reference's, each inverse within 5e-2")
+    return float((out_k - out_r)[dom].abs().max())
+
+
+def phase_kernels_fused(cfg, dev, results):
+    print(f"phase 3c: K5 and K6 vs references on the card (K5 at batch {B_FUSED}, h={H})")
+    args, kw = fused_call(cfg, pipeline.random_inputs(seed=0, batch=B_FUSED, h=H, device=dev))
+    x_k = FA.fused_admm_solve(*args, **kw)
+    x_r = FA.fused_admm_solve_reference(*args, **kw)
+    torch.cuda.synchronize()
+    n = 3 * MS * H
+    f_scale = float(cfg.mpc.f_max)
+    diff = ((x_k - x_r)[:, :n].abs() * f_scale).amax(-1)
+    share = float((diff <= 0.5).float().mean())
+    print(f"  K5: max |f_k - f_r| {float(diff.max()):.3e} N, median {float(diff.median()):.3e} N, "
+          f"share of systems within 0.5 N {share:.4f}")
+    check(bool(torch.isfinite(x_k).all()), "K5: finite")
+    check(share >= 0.98 and float(diff.median()) <= 0.15,
+          "K5: >= 0.98 of systems within 0.5 N of the reference, median <= 0.15 N")
+    t_k = median_ms(lambda: FA.fused_admm_solve(*args, **kw), reps=3)
+    t_r = median_ms(lambda: FA.fused_admm_solve_reference(*args, **kw), reps=3)
+    b5 = fused_bound(B_FUSED, kw)
+    results["K5/128"].update(max_abs_err=float((x_k - x_r).abs().max()), ms=t_k, plain_ms=t_r,
+                             bound_ms=b5[0], bound_by=b5[1], library_ms=None)
+    print(f"  K5 at {B_FUSED} systems: kernel %.3f ms reference %.3f ms (median of 3); "
+          "bound %.3f ms (%s)" % (t_k, t_r, *b5))
+    del args, x_k, x_r
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    s = cfg.solver
+    sched = (s.ns_wb_quad, s.ns_wb_hi)
+    wb = woodbury_config(cfg)
+    ms16, pack16, kind16 = LANES16["h16_full"]
+    # (tile, systems, variables, the Woodbury solve whose K6 operands are held)
+    for npad, n_sys, n_log, (inputs, kw) in (
+            (NI.N, N_SYS, N_VARS, (pipeline.random_inputs(seed=2, batch=BATCH, h=H, device=dev),
+                                   {})),
+            (NI.N_BIG, B16, 3 * ms16 * pack16 * H16,
+             (lane_inputs(2, B16, H16, kind16, dev), dict(max_stance=ms16, pack=pack16)))):
+        ks, init, r0 = spd_warm(gen, n_sys, n_log, npad, dev)
+        out_k = NI.ns_inverse_refine(ks, init, *sched)
+        out_r = NI.ns_inverse_refine_reference(ks, init, *sched)
+        res_k, res_r = residuals(ks, out_k)[1], residuals(ks, out_r)[1]
+        print(f"  K6/{npad} ({n_sys} systems of n={n_log}, cond 1e4): row-sum residual r0 {r0:.3e}"
+              f" -> kernel {res_k:.3e} reference {res_r:.3e}; max |inv_k - inv_r| "
+              f"{float((out_k - out_r).abs().max()):.3e}")
+        check(bool(torch.isfinite(out_k).all()) and res_k < 5e-3 and res_k < 0.1 * r0
+              and res_k <= 1.1 * res_r, f"K6/{npad} SPD: residual < 5e-3, < 0.1 r0, within 10% "
+              "of the reference's")
+        del ks, init, out_k, out_r
+        calls = solve_operands(wb, inputs, "ns_inverse_refine", **kw)
+        check(len(calls) == 2 and all(c[0].shape == (n_sys, npad, npad) for c in calls),
+              f"a real Woodbury solve makes 2 K6 calls on {n_sys} systems at the {npad} tile")
+        for i, (ks, init, sched_c) in enumerate(calls):
+            err = check_k6_real(f"K6/{npad} Woodbury solve call {i}", ks, init, sched_c,
+                                polish_gate=0.5 if npad == NI.N else 1.0)
+            if i == 0:
+                t = [median_ms(lambda: NI.ns_inverse_refine(ks, init, *sched_c)),
+                     median_ms(lambda: NI.ns_inverse_refine_reference(ks, init, *sched_c)),
+                     median_ms(lambda: torch.linalg.inv(ks))]
+                b6 = ns_bound(n_sys, npad, (0.0, 0) + sched_c, 3 * n_sys * npad * npad * 4.0)
+                results[f"K6/{npad}"].update(max_abs_err=err, ms=t[0], plain_ms=t[1],
+                                             library_ms=t[2], bound_ms=b6[0], bound_by=b6[1])
+                print(f"  K6/{npad} Woodbury solve call 0 at {n_sys} systems: kernel %.3f ms "
+                      "reference %.3f ms torch.linalg.inv %.3f ms (median of 10); bound %.4f ms "
+                      "(%s)" % (*t, *b6))
+        del calls
 
 
 def bound_violation(cfg, inputs, forces) -> torch.Tensor:
@@ -478,14 +685,16 @@ def plain_gate(forces, plain, share_min: float = 0.98):
 def plain_kernels():
     """The kernel branch with every kernel replaced by its plain reference:
     the same solve arithmetic without the CUDA kernels."""
-    saved = (FP.form_packed, NI.ns_inverse_scaled_build, NI.ns_inverse_scaled)
-    FP.form_packed = FP.form_packed_reference
-    NI.ns_inverse_scaled_build = NI.ns_inverse_scaled_build_reference
-    NI.ns_inverse_scaled = NI.ns_inverse_scaled_reference
+    swaps = ((FP, "form_packed"), (NI, "ns_inverse_scaled_build"), (NI, "ns_inverse_scaled"),
+             (NI, "ns_inverse_refine"), (FA, "fused_admm_solve"))
+    saved = [getattr(mod, name) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, f"{name}_reference"))
     try:
         yield
     finally:
-        FP.form_packed, NI.ns_inverse_scaled_build, NI.ns_inverse_scaled = saved
+        for (mod, name), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def phase_main_path(cfg, dev, name_power, results):
@@ -616,6 +825,122 @@ def phase_lanes16(cfg, dev, name_power, results):
     return times
 
 
+def phase_fused_woodbury(cfg, dev, name_power, results):
+    """The two new lanes end to end: h10_fused (K5 alone) and h10_woodbury
+    (K6 for the Woodbury rounds)."""
+    print(f"phase 4c: h10_fused (use_fused=True, batch {B_FUSED}) and h10_woodbury "
+          f"(polish_woodbury=True, batch {BATCH})")
+    times = {}
+    inputs = pipeline.random_inputs(seed=0, batch=B_FUSED, h=H, device=dev)
+    reset_counts()
+    forces = pipeline.solve_packed_batch(cfg, inputs, use_fused=True)
+    torch.cuda.synchronize()
+    c = counts()
+    print(f"  h10_fused launches in one solve: {c}")
+    check(c == want(K5_128=1), "h10_fused: launches K5/128=1, else 0")
+    results["K5/128"].update(launches=c["K5/128"], counted_in="h10_fused")
+    plain = pipeline.solve_packed_batch(cfg, inputs, use_fused=True, use_kernels=False)
+    tight_plain = float((bound_violation(cfg, inputs, plain) <= 1e-3).float().mean())
+    print(f"  plain version: share of scenarios within 1e-3 N {tight_plain:.4f}")
+    force_checks(cfg, inputs, forces, tight_min=min(0.99, tight_plain - 0.01))
+    plain_gate(forces, plain)
+    # The packed path at a fixed rho, with the JAX fused test's terms. The
+    # reference arithmetic itself misses that test's step-0 share at this
+    # batch (the plain version on the CPU at batch 256: 0.977 within 1 N), so
+    # the step-0 share gate is the lower of 0.99 and the plain version's
+    # share on the same inputs, less 0.01.
+    cfg0 = default_config(**{"solver.rho_adapt": 0})
+    packed = pipeline.solve_packed_batch(cfg0, inputs)
+
+    def vs_packed(f):
+        diff = (f - packed).abs()
+        step0 = diff[:, 0].amax(dim=(1, 2))
+        return (float(torch.quantile(diff.flatten(), 0.99)), float(diff.max()),
+                float((step0 <= 1.0).float().mean()), float(step0.max()))
+
+    q99, dmax, share0, max0 = vs_packed(forces)
+    q99_p, dmax_p, share0_p, max0_p = vs_packed(plain)
+    print(f"  vs the packed path at rho_adapt=0: q99 |d| {q99:.3e} N, max {dmax:.3e} N; step-0 "
+          f"share within 1.0 N {share0:.4f}, step-0 max {max0:.3e} N (plain version: q99 "
+          f"{q99_p:.3e}, max {dmax_p:.3e}, step-0 share {share0_p:.4f}, step-0 max {max0_p:.3e})")
+    share0_min = min(0.99, share0_p - 0.01)
+    check(q99 < 0.5 and share0 >= share0_min, f"h10_fused vs packed (rho_adapt=0): q99 < 0.5 N, "
+          f">= {share0_min:.4f} of step-0 forces within 1 N")
+    times["h10_fused"] = median_ms(lambda: pipeline.solve_packed_batch(cfg, inputs, use_fused=True),
+                                   reps=3)
+    print(f"  h10_fused: {times['h10_fused']:.2f} ms per call (median of 3), "
+          f"{B_FUSED / times['h10_fused'] * 1e3:.0f} solves/s at batch {B_FUSED} ({name_power})")
+    del inputs, forces, plain, packed
+
+    wb = woodbury_config(cfg)
+    inputs = pipeline.random_inputs(seed=0, batch=BATCH, h=H, device=dev)
+    reset_counts()
+    forces = pipeline.solve_packed_batch(wb, inputs)
+    torch.cuda.synchronize()
+    c = counts()
+    print(f"  h10_woodbury launches in one solve: {c}")
+    check(c == want(K1_128=1, K2_128=3, K6_128=2), "h10_woodbury: launches K1=1, K2=3, K6=2")
+    results["K6/128"].update(launches=c["K6/128"], counted_in="h10_woodbury")
+    check(bool(torch.isfinite(forces).all()), "h10_woodbury: forces finite")
+    cold = pipeline.solve_packed_batch(cfg, inputs)
+    guard = (forces - cold).abs().amax(dim=(1, 2, 3))
+    print(f"  vs the default-config solve: median {float(guard.median()):.3e} N, max "
+          f"{float(guard.max()):.3e} N, share within 0.5 N {float((guard <= 0.5).float().mean()):.4f}")
+    check(float(guard.median()) < 1.0 and float(guard.max()) < 40.0,
+          "h10_woodbury vs default config: median < 1 N, max < 40 N (the JAX test's guard)")
+    # The Woodbury rounds amplify rounding (the JAX solve moves by up to
+    # 13 N between its eager and jit runs on 8 scenarios): the kernels are
+    # held to the share the same arithmetic reaches with the references in
+    # place, both against the plain branch on the same inputs, less 0.02.
+    plain = pipeline.solve_packed_batch(wb, inputs, use_kernels=False)
+    with plain_kernels():
+        ref_forces = pipeline.solve_packed_batch(wb, inputs, use_kernels=True)
+    ref_share = float(((ref_forces - plain).abs().amax(dim=(1, 2, 3)) <= 0.5).float().mean())
+    share = float(((forces - plain).abs().amax(dim=(1, 2, 3)) <= 0.5).float().mean())
+    near = float(((forces - ref_forces).abs().amax(dim=(1, 2, 3)) <= 0.5).float().mean())
+    print(f"  share of scenarios within 0.5 N of the plain branch: kernels {share:.4f}, "
+          f"references in place {ref_share:.4f}; kernels within 0.5 N of the references "
+          f"in place {near:.4f}")
+    check(share >= ref_share - 0.02, "h10_woodbury: kernels' share vs the plain branch >= the "
+          "references' share - 0.02")
+    times["h10_woodbury"] = median_ms(lambda: pipeline.solve_packed_batch(wb, inputs), reps=3)
+    print(f"  h10_woodbury: {times['h10_woodbury']:.2f} ms per call (median of 3), "
+          f"{BATCH / times['h10_woodbury'] * 1e3:.0f} solves/s at batch {BATCH} ({name_power})")
+    del inputs, forces, cold, plain, ref_forces
+
+    # the same polish at the 256 tile, once: K2 there emits no ks, so every
+    # factorization takes the two-step build (K3) and the rounds K6 at 256
+    ms, pack, kind = LANES16["h16_full"]
+    inputs = lane_inputs(1, B16, H16, kind, dev)
+    kw = dict(max_stance=ms, pack=pack)
+    reset_counts()
+    forces = pipeline.solve_packed_batch(wb, inputs, **kw)
+    torch.cuda.synchronize()
+    c = counts()
+    print(f"  h16_full with polish_woodbury, batch {B16}: launches in one solve: {c}")
+    check(c == want(K1_256=1, K3_256=3, K6_256=2), "h16 Woodbury: launches K1=1, K3=3, K6=2 "
+          "at the 256 tile")
+    results["K6/256"].update(launches=c["K6/256"], counted_in="h16_full polish_woodbury")
+    check(bool(torch.isfinite(forces).all()), "h16 Woodbury: forces finite")
+    # At h=16 the Woodbury rounds cost the polish several N against the
+    # default config (a first run: median 7.3 N, max 43.4 N over 2048
+    # scenarios), beyond the JAX test's h=10 guard of 40 N. The kernels are
+    # held to what the same arithmetic gives with the references in place;
+    # phase 3c holds K6/256 itself on this lane's real operands.
+    cold = pipeline.solve_packed_batch(cfg, inputs, **kw)
+    with plain_kernels():
+        ref_forces = pipeline.solve_packed_batch(wb, inputs, use_kernels=True, **kw)
+    guard = (forces - cold).abs().amax(dim=(1, 2, 3))
+    guard_r = (ref_forces - cold).abs().amax(dim=(1, 2, 3))
+    print(f"  vs the default-config solve: median {float(guard.median()):.3e} N, max "
+          f"{float(guard.max()):.3e} N (references in place: median "
+          f"{float(guard_r.median()):.3e} N, max {float(guard_r.max()):.3e} N)")
+    check(float(guard.median()) <= float(guard_r.median()) + 1.0,
+          "h16 Woodbury: median distance to the default-config solve within 1 N of the "
+          "references'")
+    return times
+
+
 def phase_profile(cfg, label, inputs, **solve_kw) -> dict:
     """Device time by kernel and the device's idle share over one solve,
     from torch.profiler's CUDA activity (the profiler's own host overhead
@@ -682,21 +1007,28 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels(cfg, dev, results)
     phase_kernels16(cfg, dev, results)
+    phase_kernels_fused(cfg, dev, results)
     t1 = time.perf_counter()
     times = phase_main_path(cfg, dev, name_power, results)
     times16 = phase_lanes16(cfg, dev, name_power, results)
+    times.update(phase_fused_woodbury(cfg, dev, name_power, results))
     t2 = time.perf_counter()
     profile = phase_profile(cfg, "h10", pipeline.random_inputs(seed=0, batch=BATCH, h=H,
                                                                device=dev))
     ms, pack, kind = LANES16["h16_full"]
     profile16 = phase_profile(cfg, "h16_full", lane_inputs(1, B16, H16, kind, dev),
                               max_stance=ms, pack=pack)
+    profile_fused = phase_profile(cfg, "h10_fused", pipeline.random_inputs(
+        seed=0, batch=B_FUSED, h=H, device=dev), use_fused=True)
+    profile_wb = phase_profile(woodbury_config(cfg), "h10_woodbury", pipeline.random_inputs(
+        seed=0, batch=BATCH, h=H, device=dev))
     print(f"phase seconds: kernels {t1 - t0:.1f}, paths {t2 - t1:.1f}, profiles "
           f"{time.perf_counter() - t2:.1f}")
     print(name_power)       # again, near the end: the output's head may be cut
     print(json.dumps({"phase_ms": times, "batch": BATCH, "phase_ms_h16": times16,
-                      "batch_h16": B16, "profile": profile, "profile_h16_full": profile16,
-                      "card": name_power}))
+                      "batch_h16": B16, "batch_h10_fused": B_FUSED, "profile": profile,
+                      "profile_h16_full": profile16, "profile_h10_fused": profile_fused,
+                      "profile_h10_woodbury": profile_wb, "card": name_power}))
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -6,6 +6,8 @@
 // ns_inverse_scaled_build_256_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled_build
 //   (_kernel_scaled_build_il, npad 256, emit_ks False)
+// ns_inverse_refine_256_kernel replaces
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_refine (_kernel_refine, npad 256)
 //
 // The schedule, the bf16x3 split-on-read products and the fp32 tail are those
 // of the 128-tile core (ns_core.cuh), step for step; only the residency
@@ -251,6 +253,30 @@ ns_inverse_scaled_build_256_kernel(const float* __restrict__ hp, const float* __
   store_slab(X, inv + base + static_cast<size_t>(row0) * NC_N);
 }
 
+// Guard-free warm NS at the 256 tile, as ns_inverse_refine_kernel at 128: each
+// CTA loads its 64-row slabs of ks and of init (in place of alpha I), then
+// n_quad bf16x3 and n_hi fp32 quadratic steps on the cluster.
+__global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
+ns_inverse_refine_256_kernel(const float* __restrict__ ks, const float* __restrict__ init,
+                             float* __restrict__ inv, int n_quad, int n_hi) {
+  extern __shared__ float smem[];
+  float* K = smem;
+  float* X = K + NC_ROWS * NC_LD;
+  float* T = X + NC_ROWS * NC_LD;
+  float* S = T + NC_ROWS * NC_LD;
+  const int row0 = static_cast<int>(cg::this_cluster().block_rank()) * NC_ROWS;
+  const size_t base = static_cast<size_t>(blockIdx.x / NC_CTAS) * NC_N * NC_N +
+                      static_cast<size_t>(row0) * NC_N;
+  for (int idx = threadIdx.x; idx < NC_ROWS * NC_N; idx += NC_THREADS) {
+    K[(idx / NC_N) * NC_LD + idx % NC_N] = ks[base + idx];
+    X[(idx / NC_N) * NC_LD + idx % NC_N] = init[base + idx];
+  }
+  cg::this_cluster().sync();  // every slab of X is loaded before a peer reads it
+  for (int it = 0; it < n_quad; ++it) nc_step<true>(K, X, T, S, 1.f, row0);
+  for (int it = 0; it < n_hi; ++it) nc_step<false>(K, X, T, S, 1.f, row0);
+  store_slab(X, inv + base);
+}
+
 template <typename Kernel>
 cudaError_t allow_cluster_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -285,6 +311,17 @@ extern "C" int qct_ns_inverse_scaled_build_256(const float* hp, const float* g9,
                                             qct::NC_SMEM_BYTES,
                                             static_cast<cudaStream_t>(stream)>>>(
       hp, g9, nblk, inv, d_row, qct::make_schedule(mus, n_scaled, n_quad, n_hi));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qct_ns_inverse_refine_256(const float* ks, const float* init, float* inv, int b,
+                                         int n_quad, int n_hi, void* stream) {
+  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_refine_256_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_refine_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
+                                      static_cast<cudaStream_t>(stream)>>>(ks, init, inv,
+                                                                           n_quad, n_hi);
   return static_cast<int>(cudaGetLastError());
 }
 

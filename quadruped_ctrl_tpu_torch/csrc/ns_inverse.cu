@@ -4,6 +4,8 @@
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled (_kernel_scaled_il)
 // ns_inverse_scaled_build_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled_build (_kernel_scaled_build_il)
+// ns_inverse_refine_kernel replaces
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_refine (_kernel_refine)
 //
 // Both run the shared NS core (ns_core.cuh) at the 128 tile. The TPU kernels'
 // G = 8 grouping came from the TPU grid; here any batch size works. What bounds
@@ -82,6 +84,26 @@ ns_inverse_scaled_build_kernel(const float* __restrict__ hp, const float* __rest
   store_tile(X, inv + base);
 }
 
+// Guard-free warm NS: X starts from init (B, 128, 128), in the Jacobi scaling
+// of ks, instead of alpha I, and runs n_quad bf16x3 and n_hi fp32 quadratic
+// steps with no scaled phase: K3's steps on another start. The caller
+// guarantees ||I - ks init|| < 1 (each step squares it).
+__global__ void __launch_bounds__(NS_THREADS)
+ns_inverse_refine_kernel(const float* __restrict__ ks, const float* __restrict__ init,
+                         float* __restrict__ inv, int n_quad, int n_hi) {
+  extern __shared__ float smem[];
+  float* K = smem;
+  float* X = K + NS_N * NS_LD;
+  float* T = X + NS_N * NS_LD;
+  const size_t base = static_cast<size_t>(blockIdx.x) * NS_N * NS_N;
+  load_tile(ks + base, K);
+  load_tile(init + base, X);
+  __syncthreads();
+  for (int it = 0; it < n_quad; ++it) ns_step<true>(K, X, T, 1.f);
+  for (int it = 0; it < n_hi; ++it) ns_step<false>(K, X, T, 1.f);
+  store_tile(X, inv + base);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -115,5 +137,16 @@ extern "C" int qct_ns_inverse_scaled_build(const float* hp, const float* g9, int
   qct::ns_inverse_scaled_build_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
                                         static_cast<cudaStream_t>(stream)>>>(
       hp, g9, nblk, inv, ks, d_row, qct::make_schedule(mus, n_scaled, n_quad, n_hi));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qct_ns_inverse_refine(const float* ks, const float* init, float* inv, int b,
+                                     int n_quad, int n_hi, void* stream) {
+  cudaError_t err = qct::allow_smem(qct::ns_inverse_refine_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_refine_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream)>>>(ks, init, inv, n_quad,
+                                                                       n_hi);
   return static_cast<int>(cudaGetLastError());
 }

@@ -85,6 +85,7 @@ def random_inputs(seed: int, batch: int, h: int, device=None) -> MPCInputs:
 
 def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,
                        max_stance: int = 2, pack: int = 2,
+                       h: int | None = None,
                        iterations: int | None = None,
                        polish_rounds: int | None = None,
                        use_fused: bool | None = None,
@@ -93,16 +94,16 @@ def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,
     """Stance-compressed, pair-packed batched solve: `pack` compressed
     scenarios share one block-diagonal KKT system (a trot at h=10: 2 x 60
     variables in one 120-variable system). Returns forces (B, h, 4, 3) with
-    zeros on swing feet. `use_kernels` defaults to whether the inputs lie on
-    a CUDA device."""
+    zeros on swing feet. `h` defaults to the gait table's horizon.
+
+    `use_fused` solves each scenario alone (no packing; `pack` and
+    `form_only` are then ignored, as in the JAX function) through the
+    single-launch solve K5 (`solver/admm.admm_mpc_fused`). `use_kernels`
+    defaults to whether the inputs lie on a CUDA device."""
     b = inputs.rpy.shape[0]
     if b % pack:
         raise ValueError(f"batch {b} is not a multiple of pack={pack}")
-    if use_fused:
-        raise NotImplementedError(
-            "fused single-kernel solve (K5, fused_admm_solve): later PR; "
-            "see ROADMAP")
-    h = inputs.gait_table.shape[1]
+    h = inputs.gait_table.shape[1] if h is None else h
 
     adt, bdt = formation.srb_discrete(
         cfg.mpc, inputs.r_feet, inputs.rpy[:, 2], inputs.x_drag, cfg.dt_mpc)
@@ -112,6 +113,18 @@ def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,
                                                          max_stance)
     step_mask = torch.ones((b, h), dtype=torch.float32, device=adt.device)
     n_c = 3 * max_stance * h
+
+    if use_fused:
+        # the single-launch polish takes its best-iterate and violation
+        # reductions over the whole system, so each scenario gets its own
+        # (padded) tile instead of a packed one
+        hess, grad = formation.qp_cost_compressed_nil_sel(
+            cfg.mpc, adt, bdt, x0, inputs.traj, step_mask, sel)
+        xp = admm.admm_mpc_fused(cfg.solver, cfg.mpc, hess, grad, gait_red,
+                                 iterations=iterations,
+                                 polish_rounds=polish_rounds,
+                                 use_kernels=use_kernels)
+        return formation.scatter_forces(xp.reshape(b, n_c), foot_idx, h)
 
     kp, gp = formation.qp_cost_packed(cfg.mpc, adt, bdt, x0, inputs.traj,
                                       step_mask, sel, pack,

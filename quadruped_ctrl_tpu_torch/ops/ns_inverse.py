@@ -1,4 +1,4 @@
-"""Mixed-precision scaled Newton-Schulz SPD inversion (kernels K2 and K3).
+"""Mixed-precision scaled Newton-Schulz SPD inversion (kernels K2, K3, K6).
 
 The counterpart of `quadruped_ctrl_tpu/ops/ns_inverse.py` for the batched
 solve's factorizations:
@@ -7,6 +7,8 @@ solve's factorizations:
   tile-padded K;
 * `ns_inverse_scaled_build` (K2): builds K = hp + blockdiag3(g9), Jacobi-
   scales it and runs the same schedule, returning (inv, ks, d_row);
+* `ns_inverse_refine` (K6): the quadratic steps alone from a warm start
+  whose residual is below 1, for the Woodbury polish;
 * `ns_inverse_schur_scaled` (K4, no kernel of its own): the 2 x 2 block
   inverse at the 128 boundary for ADMM-grade 128 < n <= 192 systems, K3 on
   the leading block and plain fp32 products around it.
@@ -92,8 +94,15 @@ def mu_schedule(a0: float, n_scaled: int) -> list[float]:
 def _ns_schedule(ks: torch.Tensor, mus, n_quad: int, n_hi: int) -> torch.Tensor:
     """The NS schedule on a batch of Jacobi-scaled systems (B, npad, npad)."""
     eye = torch.eye(ks.shape[-1], dtype=torch.float32, device=ks.device)
-    k_hi, k_lo = _split(ks)
     x = (1.0 / ks.abs().sum(-1).amax(-1))[:, None, None] * eye
+    return _ns_steps(ks, x, mus, n_quad, n_hi)
+
+
+def _ns_steps(ks: torch.Tensor, x: torch.Tensor, mus, n_quad: int, n_hi: int) -> torch.Tensor:
+    """NS steps on ks from the iterate x: the scaled steps of `mus` and the
+    quadratic steps in bf16x3, then the fp32 tail."""
+    eye = torch.eye(ks.shape[-1], dtype=torch.float32, device=ks.device)
+    k_hi, k_lo = _split(ks)
     for mu in mus:                        # scaled, bf16x3
         kx = _mm3(k_hi, k_lo, x)
         x_hi, x_lo = _split(x)
@@ -220,6 +229,39 @@ def ns_inverse_scaled_build(hp, g9, a0: float = 1e-5, n_scaled: int = 9,
 
 
 _K2 = _launch.new_count(ns_inverse_scaled_build)
+
+
+def ns_inverse_refine_reference(ks, init, n_quad: int = 1, n_hi: int = 1):
+    """Plain PyTorch K6."""
+    return _ns_steps(ks, init, [], n_quad, n_hi)
+
+
+def ns_inverse_refine(ks, init, n_quad: int = 1, n_hi: int = 1):
+    """Warm NS refinement of init, an approximate inverse of ks (both
+    (B, npad, npad), npad in {128, 256}, any B) in the same Jacobi scaling,
+    with ||I - ks init|| comfortably below 1: n_quad bf16x3 and n_hi fp32
+    quadratic steps, each squaring the residual. There is no guard: the
+    caller guarantees the residual bound (the Woodbury correction does, up
+    to its fp32 floor)."""
+    b = ks.shape[0] if ks.dim() == 3 else None
+    npad = ks.shape[-1] if ks.dim() == 3 else None
+    _launch.check(ks, "ks", (b, npad, npad))
+    _launch.check(init, "init", (b, npad, npad), ks.device)
+    _check_tile(npad)
+    if not ks.is_cuda:
+        return ns_inverse_refine_reference(ks, init, n_quad, n_hi)
+    lib = _build.load()
+    entry = lib.qct_ns_inverse_refine if npad == N else lib.qct_ns_inverse_refine_256
+    inv = torch.empty_like(ks)
+    with torch.cuda.device(ks.device):
+        rc = entry(_launch.ptr(ks), _launch.ptr(init), _launch.ptr(inv), b, n_quad, n_hi,
+                   _launch.stream(ks))
+    _launch.raise_on_error(rc, f"ns_inverse_refine at the {npad} tile")
+    _launch.count(_K6, npad)
+    return inv
+
+
+_K6 = _launch.new_count(ns_inverse_refine)
 
 
 def _ns_small(ss: torch.Tensor, iters: int) -> torch.Tensor:

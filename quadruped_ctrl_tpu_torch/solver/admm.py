@@ -16,11 +16,19 @@ branches of the JAX function are here:
   iterations;
 * the plain branch: plain 25-step fp32 NS and the structural pyramid.
 
+With `polish_woodbury`, every polish round after the first updates the
+previous round's inverse by a rank-limited Woodbury correction and refines it
+with two NS steps: kernel K6 (`ops/ns_inverse.ns_inverse_refine`) on the
+kernel branch, plain fp32 steps on the plain branch.
+
+`admm_mpc_fused` is the single-launch solve (kernel K5,
+`ops/fused_admm.fused_admm_solve`) that `solve_packed_batch(use_fused=True)`
+runs.
+
 Where the JAX code updates an array with `.at[].set`, the port builds a fresh
 tensor (zeros or ones) and writes into it; no caller's tensor is modified.
-The `lax.scan` loops are Python loops. Left for later PRs: warm
-factorizations (K7) and the Woodbury polish (K6); each raises
-NotImplementedError where the JAX code would reach it.
+The `lax.scan` loops are Python loops. Not yet ported: warm factorizations
+(K7), which raise NotImplementedError where the JAX code would reach them.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from quadruped_ctrl_tpu_torch.config import MPCConfig, SolverConfig
 from quadruped_ctrl_tpu_torch import device
 from quadruped_ctrl_tpu_torch.mpc import formation
+from quadruped_ctrl_tpu_torch.ops import fused_admm as FA
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
 
 
@@ -94,6 +103,37 @@ def _pyramid_dense(mu: float, h: int, nf: int):
     for i in range(n_blk):
         a[5 * i:5 * i + 5, 3 * i:3 * i + 3] = block
     return a
+
+
+def _gj_inverse(c: torch.Tensor, pivot: bool = True) -> torch.Tensor:
+    """Batched (B, r, r) inverse by Gauss-Jordan elimination over the
+    (B, r, 2r) augmented system, r batched steps. With `pivot`, partial
+    pivoting picks the first row of largest |entry| at or below the
+    diagonal (torch.argmax returns the first maximum, as jnp.argmax does),
+    selected by a one-hot contraction as in the JAX function."""
+    r = c.shape[-1]
+    aug = torch.cat([c, torch.eye(r, dtype=c.dtype, device=c.device).expand(c.shape)], dim=-1)
+    rows = torch.arange(r, device=c.device)
+    for k in range(r):
+        if pivot:
+            col = torch.where(rows[None, :] >= k, aug[:, :, k].abs(), -1.0)
+            p = torch.argmax(col, dim=1)                          # (B,)
+            is_p = rows[None, :] == p[:, None]                    # (B,r)
+            rowp = torch.einsum("br,brc->bc", is_p.to(c.dtype), aug)
+            rowk = aug[:, k, :]
+            aug = torch.where(is_p[:, :, None], rowk[:, None, :], aug)
+            aug[:, k, :] = rowp
+        pivrow = aug[:, k, :] / aug[:, k, k][:, None]
+        aug = aug - aug[:, :, k][:, :, None] * pivrow[:, None, :]
+        aug[:, k, :] = pivrow
+    return aug[:, :, r:]
+
+
+def _top_k_indices(v: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of each row of v (B, m), ties broken
+    by the lower index first: `lax.top_k`'s order, which torch.topk does not
+    promise."""
+    return torch.sort(v, dim=-1, descending=True, stable=True).indices[:, :k]
 
 
 @dataclasses.dataclass
@@ -226,9 +266,6 @@ def admm_mpc_batched(
     `pack`: each system is `pack` independent scenarios stacked
     block-diagonally; the adaptive-rho ratio and the polish best-iterate
     selection are then taken per scenario."""
-    if cfg.polish_woodbury:
-        raise NotImplementedError(
-            "Woodbury polish (K6, ns_inverse_pallas_refine): later PR; see ROADMAP")
     n_iter = cfg.iterations if iterations is None else iterations
     polish_rounds = cfg.polish_rounds if polish_rounds is None else polish_rounds
     use_kernels = device.use_kernels(hess, use_kernels)
@@ -272,6 +309,12 @@ def admm_mpc_batched(
             hp_g = torch.cat([hp_g, torch.eye(npad_f, device=dev).expand(
                 pad_bf, npad_f, npad_f)], dim=0)
 
+    # the 256-tile K2 emits no ks; the Woodbury polish needs solve.ks, so
+    # there every factorization takes the two-step build (K3)
+    fused_ok = _FUSED_BUILD and not (
+        cfg.polish_woodbury and polish_rounds > 1 and use_kernels
+        and hp_g.shape[-1] > NI.N)
+
     def build_solver(w, schedule=None):
         # ADMM-grade factorizations (the only callers passing a schedule) of
         # 128 < n <= 160 systems take the Schur split (K4) at the 128 tile
@@ -279,7 +322,7 @@ def admm_mpc_batched(
         # 256-tile kernel
         schur = (cfg.ns_schur_split and use_kernels and schedule is not None
                  and 128 < n <= 160)
-        if use_kernels and _FUSED_BUILD and not schur:
+        if use_kernels and fused_ok and not schur:
             gram = formation.pyramid_gram(cfg_mpc, w.reshape(bsz, h, nf, 5))
             g9 = gram.reshape(bsz, h * nf, 9).transpose(1, 2)   # (B,9,hnf)
             return _batched_solver_fused(hp_g, g9, n, bsz, cfg, schedule=schedule)
@@ -473,14 +516,141 @@ def admm_mpc_batched(
         # active set, duals seeded from the ADMM iterate
         y_seed = torch.where(lo_act | hi_act, y, 0.0)
         w0p, bound0, y_act0 = rhs_parts(lo_act, hi_act, y_seed)
-        carry = apply_round(build_solver(w0p), w0p, bound0, y_act0,
+        solve_p0 = build_solver(w0p)
+        carry = apply_round(solve_p0, w0p, bound0, y_act0,
                             x, torch.clamp(viol(x), min=0.0), lo_act, hi_act)
-        for _ in range(polish_rounds - 1):
-            best_x, best_v, lo, hi, y_al = carry
-            w, bound, y_act = rhs_parts(lo, hi, y_al)
-            carry = apply_round(build_solver(w), w, bound, y_act,
-                                best_x, best_v, lo, hi)
+        if polish_rounds > 1 and cfg.polish_woodbury:
+            state = (lo_act, hi_act, solve_p0.inv, solve_p0.ks, solve_p0.scale)
+            a_dense = torch.as_tensor(_pyramid_dense(cfg_mpc.mu, h, nf), dtype=dtype,
+                                      device=dev)
+            rank = min(cfg.polish_woodbury_rank * pack, m_full)
+            for _ in range(polish_rounds - 1):
+                carry, state = _woodbury_round(
+                    cfg, carry, state, a_dense, rank, w_act, use_kernels,
+                    rhs_parts, apply_round)
+        else:
+            for _ in range(polish_rounds - 1):
+                best_x, best_v, lo, hi, y_al = carry
+                w, bound, y_act = rhs_parts(lo, hi, y_al)
+                carry = apply_round(build_solver(w), w, bound, y_act,
+                                    best_x, best_v, lo, hi)
         x = carry[0]
     if return_warm:
         return x * f_scale, warm_out
     return x * f_scale
+
+
+def _woodbury_round(cfg: SolverConfig, carry, state, a_dense, rank: int,
+                    w_act: float, use_kernels: bool, rhs_parts, apply_round):
+    """One Woodbury polish round (the JAX `wb_round`). The proposed working
+    set is clamped to at most `rank` constraint additions (removals and the
+    rest wait: the row keeps its previous bound), the previous round's
+    inverse takes the rank-`rank` Woodbury correction, and two NS steps
+    from that start refine it: K6 on the kernel branch (bf16x3 + fp32), plain
+    fp32 steps on the plain branch. Returns (carry, state) for the next
+    round; carry is apply_round's, state (lo, hi, inv, ks, scale) the
+    applied working set and its Jacobi-scaled factorization."""
+    best_x, best_v, lo_d, hi_d, y_al = carry
+    lo_p, hi_p, inv_p, ks_p, dd_p = state
+    n = dd_p.shape[1]
+    dtype = inv_p.dtype
+    act_d = lo_d | hi_d
+    act_p = lo_p | hi_p
+    flip_w = act_d != act_p
+    add_w = (act_d & ~act_p).to(dtype)
+    idx = _top_k_indices(add_w, rank)                        # (B, rank)
+    msel = torch.gather(add_w, 1, idx)                       # 1: an addition
+    applied = torch.zeros_like(add_w).scatter(1, idx, msel) > 0.5
+    keep = flip_w & ~applied
+    lo_n = torch.where(keep, lo_p, lo_d)
+    hi_n = torch.where(keep, hi_p, hi_d)
+    s_sel = torch.where(torch.gather(lo_n | hi_n, 1, idx), 1.0, -1.0).to(dtype)
+    sqrt_w = float(np.sqrt(np.float32(w_act)))
+    u_rows = (sqrt_w * msel)[:, :, None] * a_dense[idx] * dd_p[:, None, :]
+    v_rows = u_rows @ inv_p                                  # (B, rank, n)
+    cs = v_rows @ u_rows.transpose(1, 2) + s_sel[:, :, None] * torch.eye(
+        rank, dtype=dtype, device=dd_p.device)
+    cv_rows = _gj_inverse(cs) @ v_rows
+    m_wb = inv_p - v_rows.transpose(1, 2) @ cv_rows
+    ks1 = ks_p + (u_rows * s_sel[:, :, None]).transpose(1, 2) @ u_rows
+    # re-equilibrate by the new Jacobi scale: the update moves the changed
+    # rows' diagonals far from the previous unit diagonal
+    d1 = torch.rsqrt(torch.clamp(torch.diagonal(ks1, dim1=-2, dim2=-1), min=1e-30))
+    ks1s = ks1 * d1[:, :, None] * d1[:, None, :]
+    init = m_wb / (d1[:, :, None] * d1[:, None, :])
+    if use_kernels:
+        npad = NI.pad_sizes(n)
+        inv1 = NI.ns_inverse_refine(NI.pad_to(ks1s, n, npad), NI.pad_to(init, n, npad),
+                                    cfg.ns_wb_quad, cfg.ns_wb_hi)[:, :n, :n]
+    else:
+        inv1 = NI._ns_steps(ks1s, init, [], 0, cfg.ns_wb_quad + cfg.ns_wb_hi)
+    dd_n = dd_p * d1
+    wsolve = _Solver(inv=inv1, scale=dd_n, ks=ks1s, inv_padded=None)
+    w_n, bound_n, y_act_n = rhs_parts(lo_n, hi_n, y_al)
+    carry = apply_round(wsolve, w_n, bound_n, y_act_n, best_x, best_v, lo_n, hi_n)
+    return carry, (lo_n, hi_n, inv1, ks1s, dd_n)
+
+
+def admm_mpc_fused(
+    cfg: SolverConfig,
+    cfg_mpc: MPCConfig,
+    hess,            # (B, n, n) with n = 3*nf*h
+    grad,            # (B, n)
+    gait_table,      # (B, h, nf)
+    iterations: int | None = None,
+    polish_rounds: int | None = None,
+    use_kernels: bool | None = None,
+):
+    """`admm_mpc_batched` semantics at a fixed rho through the single-launch
+    solve K5 (`ops/fused_admm.fused_admm_solve`): K build, factorization,
+    every ADMM iteration and every polish round in one kernel. Returns forces
+    (B, n). The plain branch runs `fused_admm_solve_reference`."""
+    n_iter = cfg.iterations if iterations is None else iterations
+    if polish_rounds is None:
+        # the single-launch ADMM phase rounds differently from the batched
+        # path's bf16 iterate; its active-set seeds need one more polish
+        # round to land the knife-edge rows the batched path resolves in
+        # cfg.polish_rounds (the JAX function's default)
+        polish_rounds = cfg.polish_rounds + 1
+    use_kernels = device.use_kernels(hess, use_kernels)
+    bsz, h, nf = gait_table.shape
+    n = 3 * nf * h
+    m = 5 * nf * h
+    if n > FA.N or m > FA.M:
+        raise ValueError(f"{n} variables / {m} rows exceed the {FA.N} x {FA.M} tile")
+    dtype, dev = hess.dtype, hess.device
+
+    f_scale = float(cfg_mpc.f_max)
+    hess_n = hess * (f_scale * f_scale)
+    grad_n = grad * f_scale
+    u3 = torch.full((bsz, h, nf, 5), cfg_mpc.big_number, dtype=dtype, device=dev)
+    u3[..., 4] = gait_table * (cfg_mpc.f_max / f_scale)
+    l = torch.zeros((bsz, m), dtype=dtype, device=dev)
+    u = u3.reshape(bsz, -1)
+    rho = constraint_rho(cfg, l, u)
+
+    # pad to the kernel's tile: variables to N (identity diagonal), rows to M
+    # (zero A rows with l = u = 0, rho = 1: z pins to 0, the duals stay 0);
+    # the batch to a multiple of G with identity systems, as the JAX code
+    pad_b = (-bsz) % FA.G
+    bp = bsz + pad_b
+    hp = torch.eye(FA.N, dtype=torch.float32, device=dev).repeat(bp, 1, 1)
+    hp[:bsz, :n, :n] = hess_n
+    gp = torch.zeros((bp, FA.N), dtype=torch.float32, device=dev)
+    gp[:bsz, :n] = grad_n
+    lp = torch.zeros((bp, FA.M), dtype=torch.float32, device=dev)
+    lp[:bsz, :m] = l
+    up = torch.zeros((bp, FA.M), dtype=torch.float32, device=dev)
+    up[:bsz, :m] = u
+    rp = torch.ones((bp, FA.M), dtype=torch.float32, device=dev)
+    rp[:bsz, :m] = rho
+    a_pad = torch.zeros((FA.M, FA.N), dtype=torch.float32, device=dev)
+    a_pad[:m, :n] = torch.as_tensor(_pyramid_dense(cfg_mpc.mu, h, nf), device=dev)
+
+    solve = FA.fused_admm_solve if use_kernels else FA.fused_admm_solve_reference
+    x = solve(a_pad, hp, gp, lp, up, rp,
+              mus_a0=cfg.ns_a0, n_scaled=cfg.ns_scaled_iters,
+              n_quad=cfg.ns_quad_iters, n_hi=cfg.ns_hi_iters,
+              n_iter=n_iter, polish_rounds=polish_rounds, sigma=cfg.sigma,
+              alpha_rx=cfg.over_relax_alpha, infty=cfg.infty)
+    return x[:bsz, :n] * f_scale

@@ -19,6 +19,8 @@ from quadruped_ctrl_tpu.mpc import formation as JF
 from quadruped_ctrl_tpu_torch import default_config
 from quadruped_ctrl_tpu_torch.mpc import formation as TF
 from quadruped_ctrl_tpu_torch.ops import formation_pack as FP
+from tests.test_torch_package import _one_thread  # noqa: F401 (autouse)
+
 
 JCFG = jax_default_config()     # drives the JAX side
 CFG = default_config()          # the port's own

@@ -1,7 +1,7 @@
 """PyTorch port vs JAX package: the factorization kernels' references (K2
-`ns_inverse_scaled_build`, K3 `ns_inverse_scaled`) at the 128 and 256 tiles,
-the Schur split K4 (`ns_inverse_schur_scaled`) and their wrappers, on the
-CPU.
+`ns_inverse_scaled_build`, K3 `ns_inverse_scaled`, K6 `ns_inverse_refine`)
+at the 128 and 256 tiles, the Schur split K4 (`ns_inverse_schur_scaled`) and
+their wrappers, on the CPU.
 
 Residual gates are the JAX kernel tests' (test_pallas_kernels.py): ADMM
 schedule at cond 2.1e3 max |I - KX| < 1e-2; polish schedule row-sum residual
@@ -22,6 +22,8 @@ from quadruped_ctrl_tpu.mpc import formation as JF
 from quadruped_ctrl_tpu.ops import ns_inverse as JNI
 from quadruped_ctrl_tpu_torch import default_config
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
+from tests.test_torch_package import _one_thread  # noqa: F401 (autouse)
+
 
 SCFG = default_config().solver
 ADMM = (SCFG.ns_admm_a0, SCFG.ns_admm_scaled_iters, SCFG.ns_quad_iters, SCFG.ns_hi_iters)
@@ -208,3 +210,58 @@ def test_wrappers_route_cpu_to_reference_and_check_inputs():
         NI.ns_inverse_scaled_build(ks, torch.zeros((3, 9, 50)))   # too many blocks
     with pytest.raises(ValueError):
         NI.ns_inverse_scaled(ks, n_scaled=17)                    # mu table length
+
+
+def _warm_init(ks, seed=1, size=0.05):
+    """test_pallas_kernels.test_refine_kernel_from_warm_init's start: the
+    exact inverse right-multiplied by (I + E), ||E||_2 = size, so that the NS
+    residual ||I - ks init|| is ~size by construction."""
+    ks64 = ks.astype(np.float64)
+    b, npad = ks.shape[0], ks.shape[-1]
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal((b, npad, npad))
+    e *= size / np.linalg.norm(e, ord=2, axis=(-2, -1), keepdims=True)
+    init = np.linalg.inv(ks64) @ (np.eye(npad) + e)
+    r0 = np.abs(ks64 @ init - np.eye(npad)).sum(-1).max()
+    return init.astype(np.float32), r0
+
+
+@pytest.mark.parametrize("n,npad", [(96, 128), (192, 256)])
+def test_refine_reference_matches_jax_kernel(n, npad):
+    """K6's reference at both tiles (b = G) against the JAX kernel in
+    interpret mode, on the JAX test's construction (cond 1e4, ||E||_2 =
+    0.05; row-sum r0 0.28 at 128, 0.38 at 256), n_quad = n_hi = 1: the JAX
+    test's gates (row-sum residual < 5e-3 and < 0.1 r0; measured 1.4e-3 and
+    2.3e-3, JAX 1.4e-3 and 2.4e-3) and agreement with the JAX output to 1e-3
+    relative (measured 8.9e-5 and 6.7e-5)."""
+    ks = _spd_batch(7, NI.G, n, npad, 1e4)
+    init, r0 = _warm_init(ks)
+    assert 0.01 < r0 < 0.5, r0
+    out_t = NI.ns_inverse_refine(torch.from_numpy(ks), torch.from_numpy(init), 1, 1).numpy()
+    out_j = np.asarray(JNI.ns_inverse_pallas_refine(jnp.asarray(ks), jnp.asarray(init), 1, 1,
+                                                    interpret=True))
+    resid = _resid(ks, out_t)[1]
+    assert resid < 5e-3 and resid < 0.1 * r0, (resid, r0)
+    agree = np.abs(out_t - out_j).max() / np.abs(out_j).max()
+    assert agree < 1e-3, agree
+    # the reference is the quadratic steps of K3's schedule from init
+    np.testing.assert_array_equal(
+        out_t, NI._ns_steps(torch.from_numpy(ks), torch.from_numpy(init), [], 1, 1).numpy())
+
+
+def test_refine_wrapper_routes_cpu_to_reference_and_checks_inputs():
+    ks = torch.from_numpy(_spd_batch(6, 3, 120, 128, 100.0))
+    init = torch.eye(128).expand(3, 128, 128).contiguous()
+    NI.ns_inverse_refine.launches = 0
+    assert torch.equal(NI.ns_inverse_refine(ks, init, 2, 1),
+                       NI.ns_inverse_refine_reference(ks, init, 2, 1))
+    assert NI.ns_inverse_refine.launches == 0
+    with pytest.raises(TypeError):
+        NI.ns_inverse_refine(ks, init.double())
+    with pytest.raises(ValueError):
+        NI.ns_inverse_refine(ks, init[:2].contiguous())                  # batch mismatch
+    with pytest.raises(ValueError):
+        NI.ns_inverse_refine(ks[:, :120, :120].contiguous(),
+                             init[:, :120, :120].contiguous())           # not a tile
+    with pytest.raises(ValueError):
+        NI.ns_inverse_refine(ks, init.transpose(1, 2))                   # not contiguous

@@ -14,6 +14,18 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run a module's torch CPU ops on one thread: the solve is many small
+    ops, and with a thread pool in each of the test workers that share the
+    machine's cores one solve measured 60 s instead of 0.2 s. The other port
+    test modules import this fixture by name."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _run(code: str) -> subprocess.CompletedProcess:
     return subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
@@ -25,7 +37,8 @@ def test_package_and_chip_smoke_import_no_jax():
         "import quadruped_ctrl_tpu_torch\n"
         "from quadruped_ctrl_tpu_torch import config, device\n"
         "from quadruped_ctrl_tpu_torch.mpc import formation, pipeline\n"
-        "from quadruped_ctrl_tpu_torch.ops import _build, _launch, formation_pack, ns_inverse\n"
+        "from quadruped_ctrl_tpu_torch.ops import _build, _launch, formation_pack, fused_admm\n"
+        "from quadruped_ctrl_tpu_torch.ops import ns_inverse\n"
         "from quadruped_ctrl_tpu_torch.solver import admm\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -71,7 +84,8 @@ def test_build_module_without_nvcc(monkeypatch, tmp_path):
     from quadruped_ctrl_tpu_torch.ops import _build
 
     names = [p.name for p in _build.source_files()]
-    assert {"ns_core.cuh", "ns_inverse.cu", "ns_cluster.cu", "formation_pack.cu"} <= set(names)
+    assert {"ns_core.cuh", "ns_inverse.cu", "ns_cluster.cu", "formation_pack.cu",
+            "fused_admm.cu"} <= set(names)
     assert len(_build.source_hash()) == 16
     assert _build.library_path().parent == _build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -26,6 +26,8 @@ from quadruped_ctrl_tpu.solver import admm as JA
 from quadruped_ctrl_tpu_torch import default_config
 from quadruped_ctrl_tpu_torch.mpc import formation as TF
 from quadruped_ctrl_tpu_torch.mpc import pipeline as TP
+from tests.test_torch_package import _one_thread  # noqa: F401 (autouse)
+
 
 JCFG = jax_default_config()     # drives the JAX side
 CFG = default_config()          # the port's own
@@ -112,10 +114,33 @@ def test_inputs_round_trip_and_distributions():
 
 
 def test_unported_options_raise(inputs):
-    with pytest.raises(NotImplementedError, match="K5"):
-        TP.solve_packed_batch(CFG, inputs, use_fused=True)
-    with pytest.raises(ValueError):
-        TP.solve_packed_batch(CFG, TP.random_inputs(0, 3, H, device="cpu"))
+    """Every option of the JAX function is ported: use_fused runs (its
+    parity with JAX is test_torch_fused_admm.py's), and a batch that is not
+    a multiple of pack raises, under use_fused too (the JAX function
+    asserts it before it branches)."""
+    f = TP.solve_packed_batch(CFG, inputs, use_fused=True, iterations=20)
+    assert f.shape == (BATCH, H, 4, 3) and torch.isfinite(f).all()
+    odd = TP.random_inputs(0, 3, H, device="cpu")
+    for kw in ({}, dict(use_fused=True)):
+        with pytest.raises(ValueError):
+            TP.solve_packed_batch(CFG, odd, **kw)
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword"])
+def test_h_parameter_matches_jax(inputs, how):
+    """`h` is the fourth parameter, after pack, as in the JAX signature:
+    solve_packed_batch(cfg, inputs, 2, 2, 10, 30) is h=10, iterations=30 in
+    both packages, and so is the keyword call; the default is the gait
+    table's horizon. Tolerance 0.15 N as for the plain branch (measured
+    0.069 N)."""
+    if how == "positional":
+        f_t = TP.solve_packed_batch(CFG, inputs, 2, 2, H, 30).numpy()
+    else:
+        f_t = TP.solve_packed_batch(CFG, inputs, h=H, iterations=30).numpy()
+    inp = JP.MPCInputs(**{k: jnp.asarray(v) for k, v in inputs.to_numpy().items()})
+    f_j = np.asarray(jax.jit(lambda i: JP.solve_packed_batch(JCFG, i, 2, 2, H, 30))(inp))
+    np.testing.assert_allclose(f_t, f_j, rtol=0, atol=0.15)
+    assert torch.equal(torch.from_numpy(f_t), TP.solve_packed_batch(CFG, inputs, iterations=30))
 
 
 # bench.py's three h=16 lanes: (max_stance, pack, batch, seed). The solve's
