@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batched packed MPC solve once on one CUDA card.
+"""Drive the PyTorch port's MPC solves once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -17,6 +17,13 @@
    (ns_inverse_refine) at both tiles on 2048 SPD warm starts and on the
    operands of a real Woodbury solve (h=10 and h16_full, 2048 systems),
    against their references;
+3d. the plain NS K8/K9 through make_ns_inverse (K9 under torch.func.vmap on
+   the per-scenario path's 2048 ADMM-phase K at h=10 and on 2048 SPD systems
+   at the 256 tile, K8 on one matrix of each) against their references and
+   the plain NS, and the guarded warm NS K7 through
+   _batched_solver(prev_inv=...) on real warm pairs (an adaptive-rho
+   refactorization, a polish round) of the h=10 and h16_full solves, with
+   its guard share and K3 on the same systems, and on a garbage start;
 4. drives `solve_packed_batch` at batch 4096, h=10 (2048 packed systems of
    120 variables) through the kernels, counts their launches, checks the
    forces and compares them with the plain branch on the same inputs, then
@@ -26,8 +33,11 @@
 4c. drives the fused solve (h10_fused: use_fused=True, batch 2048, K5 alone)
    and the Woodbury polish (h10_woodbury: polish_woodbury=True, batch 4096,
    K6 for the polish rounds after the first) the same way;
-5. profiles one solve of h10, h16_full, h10_fused and h10_woodbury (device
-   time by kernel, device idle share);
+4d. drives the per-scenario path (solve_batch, solve_compressed_batch at
+   batch 1024, h=10; torch.func.vmap over admm_mpc, no kernel, as in JAX):
+   forces, and the share within 1 N of solve_packed_batch;
+5. profiles one solve of h10, h16_full, h10_fused, h10_woodbury and
+   scenario_full (device time by kernel, device idle share);
 6. prints a JSON line with the kernels (one entry per kernel and tile, with
    its bound on this card and the time of torch.linalg.inv beside K2/K3),
    then the result line.
@@ -68,7 +78,8 @@ LANES16 = {"h16_full": (4, 1, "trot"), "h16_trot": (2, 2, "trot"),
 B_FUSED = 2048                  # scenarios of the fused lane (one system each)
 WRAPPERS = {"K1": FP.form_packed, "K2": NI.ns_inverse_scaled_build,
             "K3": NI.ns_inverse_scaled, "K5": FA.fused_admm_solve,
-            "K6": NI.ns_inverse_refine}
+            "K6": NI.ns_inverse_refine, "K7": NI.ns_inverse_warm, "K8": NI.ns_inverse,
+            "K9": NI.ns_inverse_blocked}
 TILES = (128, 256)
 KERNEL_INFO = {
     "K1/128": dict(name="form_packed", source="quadruped_ctrl_tpu_torch/csrc/formation_pack.cu",
@@ -97,6 +108,24 @@ KERNEL_INFO = {
     "K6/256": dict(name="ns_inverse_refine (256 tile)",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:344"),
+    "K7/128": dict(name="ns_inverse_warm",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:448"),
+    "K7/256": dict(name="ns_inverse_warm (256 tile)",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:448"),
+    "K8/128": dict(name="ns_inverse",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:62"),
+    "K8/256": dict(name="ns_inverse (256 tile)",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:62"),
+    "K9/128": dict(name="ns_inverse_blocked",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:131"),
+    "K9/256": dict(name="ns_inverse_blocked (256 tile)",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:131"),
 }
 # Peak rates of one H100 SXM (data sheet, dense): the bf16 tensor cores, the
 # fp32 CUDA cores, device memory.
@@ -635,6 +664,265 @@ def phase_kernels_fused(cfg, dev, results):
         del calls
 
 
+def plain_ns_bound(b: int, npad: int, iters: int) -> tuple[float, str]:
+    """K8/K9: `iters` fp32 NS steps of two npad^3 products per system; bytes:
+    ks in, the inverse out."""
+    return bound(0.0, 2.0 * npad ** 3 * 2 * b * iters, 2 * b * npad * npad * 4.0)
+
+
+def warm_bound(n_warm: int, n_cold: int, npad: int, schedule, warm_kw) -> tuple[float, str]:
+    """K7 on this run's data: every system's guard product (one bf16x3
+    product); a system that passes completes that step (one more) and runs
+    n_wquad - 1 bf16x3 and n_whi fp32 steps; one that trips runs the cold
+    schedule. Bytes: ks and init in, the inverse out."""
+    _, n_scaled, n_quad, n_hi = schedule
+    prod = 2.0 * npad ** 3
+    bf16 = 3 * prod * ((n_warm + n_cold) + n_warm * (1 + 2 * (warm_kw["n_wquad"] - 1))
+                       + n_cold * 2 * (n_scaled + n_quad))
+    fp32 = prod * 2 * (n_warm * warm_kw["n_whi"] + n_cold * n_hi)
+    return bound(bf16, fp32, 3 * (n_warm + n_cold) * npad * npad * 4.0)
+
+
+def guard_r0(ks, init) -> torch.Tensor:
+    """K7's guard per system, as its reference computes it: the largest row
+    sum of |I - K X0| with the bf16x3 product."""
+    k_hi, k_lo = NI._split(ks)
+    eye = torch.eye(ks.shape[-1], device=ks.device)
+    return (eye - NI._mm3(k_hi, k_lo, init)).abs().sum(-1).amax(-1)
+
+
+def scenario_admm_ks(cfg, inputs) -> torch.Tensor:
+    """Per scenario, the Jacobi-scaled K of the first ADMM-phase
+    factorization that the per-scenario solve (pipeline.solve ->
+    admm.admm_mpc -> admm._make_solver) makes: (B, n, n), n = 12 h, taken
+    from the solver objects of one solve_batch without polish."""
+    real = admm._make_solver
+
+    def one(inp):
+        made = []
+
+        def record(*args, **kw):
+            made.append(real(*args, **kw))
+            return made[-1]
+
+        admm._make_solver = record
+        try:
+            pipeline.solve(cfg, inp, polish_rounds=0)
+        finally:
+            admm._make_solver = real
+        return made[0].ks
+
+    return pipeline._vmap_scenarios(one, inputs)
+
+
+def check_plain_ns(cfg, label, ks_log, npad, results):
+    """K9 through make_ns_inverse under torch.func.vmap and K8 through its
+    unbatched call, on ks_log (B, n, n) padded to npad, against their
+    references and against the plain fp32 NS (`admm._ns_inverse`, what the
+    per-scenario solver runs) at the logical size."""
+    iters = cfg.solver.ns_iters
+    b, n = ks_log.shape[0], ks_log.shape[-1]
+    ksp = NI.pad_to(ks_log, n, npad).contiguous()
+    f = NI.make_ns_inverse(iters)
+    reset_counts()
+    inv_k = torch.func.vmap(f)(ksp)
+    torch.cuda.synchronize()
+    c9 = counts()
+    check(c9 == want(**{f"K9_{npad}": 1}), f"K9/{npad} via make_ns_inverse under vmap: launches "
+          f"K9={c9[f'K9/{npad}']}, K8={c9[f'K8/{npad}']}, else 0")
+    reset_counts()
+    one_k = f(ksp[0])
+    torch.cuda.synchronize()
+    c8 = counts()
+    check(c8 == want(**{f"K8_{npad}": 1}), f"K8/{npad} via make_ns_inverse on one matrix: launches "
+          f"K8={c8[f'K8/{npad}']}, K9={c8[f'K9/{npad}']}, else 0")
+    inv_r = NI.ns_inverse_blocked_reference(ksp, iters)
+    one_r = NI.ns_inverse_reference(ksp[0], iters)
+    plain = admm._ns_inverse(ks_log, iters)
+    res_k, res_r = residuals(ksp, inv_k)[0], residuals(ksp, inv_r)[0]
+    err9 = float((inv_k - inv_r).abs().max())
+    err8 = float((one_k - one_r).abs().max())
+    rel_plain = rel(inv_k[:, :n, :n], plain)
+    print(f"  K9/{npad} {label} ({b} systems): max |I - K X| kernel {res_k:.3e} reference "
+          f"{res_r:.3e}; max |inv_k - inv_r| {err9:.3e}; relative to the plain _ns_inverse at "
+          f"n={n}: {rel_plain:.3e}; K8 on system 0: max |inv_k - inv_r| {err8:.3e}")
+    # the JAX kernel tests' residual gate (5e-4 at cond 1e3) and their
+    # agreement with the plain NS (1e-4 relative)
+    check(bool(torch.isfinite(inv_k).all()) and res_k < 5e-4 and res_k <= 2 * res_r + 1e-5,
+          f"K9/{npad} {label}: residual < 5e-4 and within 2x of the reference's")
+    check(rel_plain < 1e-4 and rel(one_k, inv_k[0]) < 1e-4,
+          f"K9/{npad} and K8/{npad}: within 1e-4 of the plain NS")
+    t9 = [median_ms(lambda: NI.ns_inverse_blocked(ksp, iters)),
+          median_ms(lambda: NI.ns_inverse_blocked_reference(ksp, iters)),
+          median_ms(lambda: torch.linalg.inv(ksp))]
+    k0 = ksp[0].contiguous()
+    t8 = [median_ms(lambda: NI.ns_inverse(k0, iters)),
+          median_ms(lambda: NI.ns_inverse_reference(k0, iters)),
+          median_ms(lambda: torch.linalg.inv(k0))]
+    b9, b8 = plain_ns_bound(b, npad, iters), plain_ns_bound(1, npad, iters)
+    results[f"K9/{npad}"].update(launches=c9[f"K9/{npad}"], max_abs_err=err9, ms=t9[0],
+                                 plain_ms=t9[1], library_ms=t9[2], bound_ms=b9[0], bound_by=b9[1],
+                                 counted_in=f"make_ns_inverse under vmap, {label}")
+    results[f"K8/{npad}"].update(launches=c8[f"K8/{npad}"], max_abs_err=err8, ms=t8[0],
+                                 plain_ms=t8[1], library_ms=t8[2], bound_ms=b8[0], bound_by=b8[1],
+                                 counted_in=f"make_ns_inverse on one matrix, {label}")
+    print(f"  K9/{npad} at {b} systems: kernel %.3f ms reference %.3f ms torch.linalg.inv %.3f ms; "
+          "bound %.3f ms (%s)" % (*t9, *b9))
+    print(f"  K8/{npad} on one system: kernel %.3f ms reference %.3f ms torch.linalg.inv %.3f ms; "
+          "bound %.4f ms (%s)" % (*t8, *b8))
+
+
+def warm_pairs(cfg, inputs, **solve_kw):
+    """K7's real operands: the K of the K2 calls of one packed solve (at the
+    logical n), paired as the JAX per-scenario solver warm-starts them:
+    (label, K cold, its schedule, K warm-started from it, its schedule)."""
+    calls = solve_operands(cfg, inputs, **solve_kw)
+    n = 3 * calls[0][1].shape[-1]
+    ks = [NI._build_k(hp, g9)[:, :n, :n] for hp, g9, _ in calls]
+    return [("ADMM: cold, then the adaptive-rho refactorization", ks[0], calls[0][2], ks[1],
+             calls[1][2]),
+            ("polish: round 0, then round 1", ks[2], calls[2][2], ks[3], calls[3][2])]
+
+
+def check_k7_pair(cfg, label, k1, sched1, k2, sched2, npad, gate, results=None, reps=10):
+    """K7 on a real warm pair: the second factorization through
+    _batched_solver(prev_inv=..., prev_scale=...) seeded from the first's
+    _Solver.inv_padded / .scale. Against its reference: the guard's pass
+    share, which systems return K3's result bit for bit (those that trip),
+    and residuals (metric as solve_cases: elementwise at the ADMM schedule,
+    the row sum at the polish one, under `gate` and within 2x of the
+    reference's). Times K7, its reference, K3 on the same systems with the
+    same schedule and torch.linalg.inv; with `results`, fills K7's entry."""
+    first = admm._batched_solver(k1, cfg.solver, True, schedule=sched1)
+    seen = []
+    real = NI.ns_inverse_warm
+
+    def record(ksp, init, *args, **kw):
+        seen.append((ksp, init, args, kw))
+        return real(ksp, init, *args, **kw)
+
+    NI.ns_inverse_warm = record
+    reset_counts()
+    try:
+        second = admm._batched_solver(k2, cfg.solver, True, schedule=sched2,
+                                      prev_inv=first.inv_padded, prev_scale=first.scale)
+        torch.cuda.synchronize()
+    finally:
+        NI.ns_inverse_warm = real
+    c = counts()
+    tag = f"K7/{npad} {label}"
+    check(c == want(**{f"K7_{npad}": 1}) and len(seen) == 1,
+          f"{tag}: _batched_solver(prev_inv=...) launches K7/{npad} once, nothing else")
+    ksp, init, sargs, skw = seen[0]
+    b = k2.shape[0]
+    out_k = second.inv_padded
+    out_r = NI.ns_inverse_warm_reference(ksp, init, *sargs, **skw)[:b]
+    cold_k = NI.ns_inverse_scaled(ksp, *sargs)[:b]
+    r0 = guard_r0(ksp, init)[:b]
+    warm = r0 < skw["guard"]
+    n_warm = int(warm.sum())
+    as_cold = (out_k == cold_k).all(-1).all(-1)
+    agree = float((as_cold == ~warm).float().mean())
+    polish = sched2 == schedules(cfg)[1]
+    ks_b = ksp[:b]
+    res_k = row_sums(ks_b, out_k) if polish else identity_gap(ks_b, out_k).amax(dim=(-2, -1))
+    res_r = row_sums(ks_b, out_r) if polish else identity_gap(ks_b, out_r).amax(dim=(-2, -1))
+    err = float((out_k - out_r).abs().max())
+    print(f"  {tag}: {n_warm} of {b} systems pass the guard (share {n_warm / b:.4f}; r0 median "
+          f"{float(r0.median()):.3e}, min {float(r0.min()):.3e}); the kernel returns K3's result "
+          f"bit for bit exactly where the reference's guard trips on {agree:.4f} of systems")
+    for name, sel in (("warm", warm), ("cold", ~warm)):
+        if bool(sel.any()):
+            print(f"    {name} systems: {'row-sum' if polish else 'max |I - K X|'} residual kernel "
+                  f"max {float(res_k[sel].max()):.3e} median {float(res_k[sel].median()):.3e}, "
+                  f"reference max {float(res_r[sel].max()):.3e} median "
+                  f"{float(res_r[sel].median()):.3e}")
+    print(f"    max |inv_k - inv_r| {err:.3e}")
+    check(bool(torch.isfinite(out_k).all()), f"{tag}: finite")
+    check(agree >= 0.999, f"{tag}: the tripped systems (and only they) return K3's result")
+    check(float(res_k.max()) < gate and float(res_k.max()) <= 2 * float(res_r.max()) + 1e-5,
+          f"{tag}: residual < {gate} and within 2x of the reference's")
+    if results is not None:
+        t = [median_ms(lambda: NI.ns_inverse_warm(ksp, init, *sargs, **skw), reps=reps),
+             median_ms(lambda: NI.ns_inverse_warm_reference(ksp, init, *sargs, **skw), reps=3),
+             median_ms(lambda: NI.ns_inverse_scaled(ksp, *sargs), reps=reps),
+             median_ms(lambda: torch.linalg.inv(ksp), reps=reps)]
+        b7 = warm_bound(n_warm, b - n_warm, npad, sargs, skw)
+        results[f"K7/{npad}"].update(launches=c[f"K7/{npad}"], max_abs_err=err, ms=t[0],
+                                     plain_ms=t[1], library_ms=t[3], bound_ms=b7[0],
+                                     bound_by=b7[1], guard_share=n_warm / b, k3_ms=t[2],
+                                     counted_in=f"_batched_solver(prev_inv=...), {label}")
+        print(f"  {tag} at {b} systems: K7 %.3f ms, reference %.3f ms, K3 on the same systems "
+              "and schedule %.3f ms, torch.linalg.inv %.3f ms (median); bound %.3f ms (%s)"
+              % (*t, *b7))
+    # a garbage start trips every system's guard: K3's result, bit for bit
+    garbage = torch.full_like(init, 17.0)
+    out_g = NI.ns_inverse_warm(ksp, garbage, *sargs, **skw)
+    check(bool((guard_r0(ksp, garbage) >= skw["guard"]).all())
+          and torch.equal(out_g, NI.ns_inverse_scaled(ksp, *sargs)),
+          f"{tag}: a start of 17.0 everywhere trips every guard and returns K3's result exactly")
+
+
+def phase_kernels_plain_warm(cfg, dev, results):
+    print("phase 3d: K7, K8, K9 vs references on the card (128 and 256 tiles)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    # K8/K9 on the per-scenario path's own ADMM-phase K (h=10, n=120) and on
+    # the JAX kernel test's SPD systems at the 256 tile (n=192, cond 1e3)
+    ks120 = scenario_admm_ks(cfg, pipeline.random_inputs(seed=0, batch=N_SYS, h=H, device=dev))
+    check_plain_ns(cfg, "per-scenario ADMM-phase K, h=10, n=120", ks120, NI.N, results)
+    del ks120
+    check_plain_ns(cfg, "SPD n=192 cond 1e3", spd_batch(gen, B16, 192, 192, 1e3, dev), NI.N_BIG,
+                   results)
+    # K7 on real warm pairs of the h=10 solve (2048 systems of n=120) and of
+    # h16_full (2048 of n=192), gates as solve_cases'
+    ms16, pack16, kind16 = LANES16["h16_full"]
+    for npad, inputs, kw, polish_gate, reps in (
+            (NI.N, pipeline.random_inputs(seed=2, batch=BATCH, h=H, device=dev), {}, 0.5, 10),
+            (NI.N_BIG, lane_inputs(2, B16, H16, kind16, dev),
+             dict(max_stance=ms16, pack=pack16), 1.0, 5)):
+        for i, (label, k1, s1, k2, s2) in enumerate(warm_pairs(cfg, inputs, **kw)):
+            check_k7_pair(cfg, label, k1, s1, k2, s2, npad,
+                          polish_gate if i else 1e-2, results if i == 0 else None, reps)
+
+
+B_SCN = 1024                    # scenarios of the per-scenario lanes (phase 4d)
+
+
+def phase_scenario_path(cfg, dev, name_power):
+    """The per-scenario solve (pipeline.solve_batch / solve_compressed_batch,
+    torch.func.vmap over admm.admm_mpc): forces, no kernel launched, and the
+    share within 1 N of solve_packed_batch on the same inputs."""
+    print(f"phase 4d: the per-scenario path, solve_batch and solve_compressed_batch at batch "
+          f"{B_SCN}, h={H}")
+    inputs = pipeline.random_inputs(seed=0, batch=B_SCN, h=H, device=dev)
+    packed = pipeline.solve_packed_batch(cfg, inputs)
+    times = {}
+    for label, max_stance, fn in (
+            ("scenario_full", 4, lambda: pipeline.solve_batch(cfg, inputs)),
+            ("scenario_compressed", MS, lambda: pipeline.solve_compressed_batch(cfg, inputs, MS))):
+        reset_counts()
+        forces = fn()
+        torch.cuda.synchronize()
+        c = counts()
+        check(c == want(), f"{label}: launches no kernel (the JAX per-scenario solve runs no "
+              "Pallas kernel either)")
+        force_checks(cfg, inputs, forces, max_stance)
+        diff = (forces - packed).abs().amax(dim=(1, 2, 3))
+        share = float((diff <= 1.0).float().mean())
+        print(f"  {label} vs solve_packed_batch: share of scenarios within 1 N {share:.4f}, "
+              f"median {float(diff.median()):.3e} N, max {float(diff.max()):.3e} N")
+        # the same comparison on the CPU (plain packed branch,
+        # random_inputs(seed=0, batch=256, h=10)): 0.9922 for both paths
+        check(share >= 0.9922 - 0.02, f"{label}: >= 0.9722 of scenarios within 1 N of "
+              "solve_packed_batch")
+        times[label] = median_ms(fn, reps=3)
+        print(f"  {label}: {times[label]:.2f} ms per call (median of 3), "
+              f"{B_SCN / times[label] * 1e3:.0f} solves/s at batch {B_SCN}, no kernel launched "
+              f"({name_power})")
+    return times
+
+
 def bound_violation(cfg, inputs, forces) -> torch.Tensor:
     """Per scenario, the largest violation of the friction pyramid and the
     normal-force box (0 <= fz <= f_max on stance feet, 0 on swing feet), N."""
@@ -686,7 +974,8 @@ def plain_kernels():
     """The kernel branch with every kernel replaced by its plain reference:
     the same solve arithmetic without the CUDA kernels."""
     swaps = ((FP, "form_packed"), (NI, "ns_inverse_scaled_build"), (NI, "ns_inverse_scaled"),
-             (NI, "ns_inverse_refine"), (FA, "fused_admm_solve"))
+             (NI, "ns_inverse_refine"), (NI, "ns_inverse_warm"), (NI, "ns_inverse"),
+             (NI, "ns_inverse_blocked"), (FA, "fused_admm_solve"))
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, f"{name}_reference"))
@@ -941,7 +1230,7 @@ def phase_fused_woodbury(cfg, dev, name_power, results):
     return times
 
 
-def phase_profile(cfg, label, inputs, **solve_kw) -> dict:
+def phase_profile(cfg, label, inputs, solve=pipeline.solve_packed_batch, **solve_kw) -> dict:
     """Device time by kernel and the device's idle share over one solve,
     from torch.profiler's CUDA activity (the profiler's own host overhead
     widens the span, so the idle share is an upper bound)."""
@@ -949,7 +1238,7 @@ def phase_profile(cfg, label, inputs, **solve_kw) -> dict:
 
     print(f"phase 5: torch.profiler over one {label} solve at batch {inputs.rpy.shape[0]}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipeline.solve_packed_batch(cfg, inputs, **solve_kw)
+        solve(cfg, inputs, **solve_kw)
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -1009,10 +1298,14 @@ def main() -> int:
     phase_kernels16(cfg, dev, results)
     phase_kernels_fused(cfg, dev, results)
     t1 = time.perf_counter()
+    phase_kernels_plain_warm(cfg, dev, results)
+    t1d = time.perf_counter()
     times = phase_main_path(cfg, dev, name_power, results)
     times16 = phase_lanes16(cfg, dev, name_power, results)
     times.update(phase_fused_woodbury(cfg, dev, name_power, results))
     t2 = time.perf_counter()
+    times.update(phase_scenario_path(cfg, dev, name_power))
+    t2d = time.perf_counter()
     profile = phase_profile(cfg, "h10", pipeline.random_inputs(seed=0, batch=BATCH, h=H,
                                                                device=dev))
     ms, pack, kind = LANES16["h16_full"]
@@ -1022,16 +1315,20 @@ def main() -> int:
         seed=0, batch=B_FUSED, h=H, device=dev), use_fused=True)
     profile_wb = phase_profile(woodbury_config(cfg), "h10_woodbury", pipeline.random_inputs(
         seed=0, batch=BATCH, h=H, device=dev))
-    print(f"phase seconds: kernels {t1 - t0:.1f}, paths {t2 - t1:.1f}, profiles "
-          f"{time.perf_counter() - t2:.1f}")
+    profile_scn = phase_profile(cfg, "scenario_full (solve_batch)", pipeline.random_inputs(
+        seed=0, batch=B_SCN, h=H, device=dev), solve=pipeline.solve_batch)
+    print(f"phase seconds: kernels {t1 - t0:.1f}, 3d {t1d - t1:.1f}, paths {t2 - t1d:.1f}, "
+          f"4d {t2d - t2:.1f}, profiles {time.perf_counter() - t2d:.1f}")
     print(name_power)       # again, near the end: the output's head may be cut
     print(json.dumps({"phase_ms": times, "batch": BATCH, "phase_ms_h16": times16,
                       "batch_h16": B16, "batch_h10_fused": B_FUSED, "profile": profile,
                       "profile_h16_full": profile16, "profile_h10_fused": profile_fused,
-                      "profile_h10_woodbury": profile_wb, "card": name_power}))
+                      "profile_h10_woodbury": profile_wb, "batch_scenario": B_SCN,
+                      "profile_scenario_full": profile_scn, "card": name_power}))
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        + (("guard_share", "k3_ms") if k.startswith("K7") else ())}
         for k in KERNEL_INFO]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
 """quadruped_ctrl_tpu_torch: the PyTorch / CUDA port of quadruped_ctrl_tpu.
 
-This slice covers the batched packed MPC solve
-(`mpc.pipeline.solve_packed_batch`) at h=10 and h=16: formation,
-factorization, ADMM iterate and polish, with hand-written CUDA kernels for
-Hopper (sm_90a) in `csrc/` wherever the JAX package runs a Pallas kernel.
+It covers the MPC solve: the batched packed solve
+(`mpc.pipeline.solve_packed_batch`) at h=10 and h=16 (formation,
+factorization, ADMM iterate and polish) and the per-scenario solve
+(`mpc.pipeline.solve`, `solve_compressed` and their vmapped batches), with
+hand-written CUDA kernels for Hopper (sm_90a) in `csrc/` wherever the JAX
+package runs a Pallas kernel.
 The configuration tree is the port's own copy (`config.py`); nothing here
 imports JAX or the JAX package.
 """

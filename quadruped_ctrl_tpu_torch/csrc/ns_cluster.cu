@@ -8,6 +8,11 @@
 //   (_kernel_scaled_build_il, npad 256, emit_ks False)
 // ns_inverse_refine_256_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_refine (_kernel_refine, npad 256)
+// ns_inverse_warm_256_kernel replaces
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm (_kernel_warm, npad 256)
+// qct_ns_inverse_plain_256 launches ns_inverse_scaled_256_kernel in place of
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas and
+//   ns_inverse_pallas_blocked (npad 256)
 //
 // The schedule, the bf16x3 split-on-read products and the fp32 tail are those
 // of the 128-tile core (ns_core.cuh), step for step; only the residency
@@ -277,6 +282,84 @@ ns_inverse_refine_256_kernel(const float* __restrict__ ks, const float* __restri
   store_slab(X, inv + base);
 }
 
+// Guarded warm NS at the 256 tile, as ns_inverse_warm_kernel at 128: each CTA
+// loads its 64-row slabs of ks and of init (straight into the X slab, so the
+// three slabs and the staging buffer are all the shared memory it needs),
+// forms its slab of T = 2I - K X0 (bf16x3) and the largest row sum of
+// |I - K X0| over its rows. r0 is the max over the cluster's 4 slabs, read over
+// DSMEM after the barrier that completes T, exactly as alpha is: every CTA
+// holds the same r0 and takes the same branch, which the cluster.sync() calls
+// inside the steps require. Below the guard the first warm step completes
+// from that T; otherwise nc_schedule runs, K3's own code.
+__global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
+ns_inverse_warm_256_kernel(const float* __restrict__ ks, const float* __restrict__ init,
+                           float* __restrict__ inv, NsSchedule s, int n_wquad, int n_whi,
+                           float guard) {
+  extern __shared__ float smem[];
+  float* K = smem;
+  float* X = K + NC_ROWS * NC_LD;
+  float* T = X + NC_ROWS * NC_LD;
+  float* S = T + NC_ROWS * NC_LD;
+  __shared__ float warp_max[NC_THREADS / 32];
+  __shared__ float slab_r0;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int tx = tid & 31;
+  const int ty = tid >> 5;
+  const int row0 = static_cast<int>(cluster.block_rank()) * NC_ROWS;
+  const size_t base = static_cast<size_t>(blockIdx.x / NC_CTAS) * NC_N * NC_N +
+                      static_cast<size_t>(row0) * NC_N;
+  for (int idx = tid; idx < NC_ROWS * NC_N; idx += NC_THREADS) {
+    K[(idx / NC_N) * NC_LD + idx % NC_N] = ks[base + idx];
+    X[(idx / NC_N) * NC_LD + idx % NC_N] = init[base + idx];
+  }
+  cluster.sync();  // every slab of X is loaded before a peer reads it
+  float acc[8][8];
+  mm_slab<true>(K, X, S, acc);
+  float rmax = 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = ty + 8 * r;
+    float row = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int j = tx + 32 * c;
+      row += fabsf((row0 + i == j ? 1.f : 0.f) - acc[r][c]);
+      T[i * NC_LD + j] = (row0 + i == j ? 2.f : 0.f) - acc[r][c];
+    }
+    // row i's 256 entries lie on the warp's 32 lanes
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) row += __shfl_xor_sync(0xffffffffu, row, off);
+    rmax = fmaxf(rmax, isnan(row) ? INFINITY : row);  // fmaxf drops NaN: a NaN start fails
+  }
+  if (tx == 0) warp_max[ty] = rmax;
+  __syncthreads();
+  if (tid == 0) {
+    float mx = warp_max[0];
+#pragma unroll
+    for (int w = 1; w < NC_THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
+    slab_r0 = mx;
+  }
+  cluster.sync();  // T and slab_r0 complete in every CTA; every read of X is done
+  float r0 = slab_r0;
+#pragma unroll
+  for (int p = 0; p < NC_CTAS; ++p) r0 = fmaxf(r0, *cluster.map_shared_rank(&slab_r0, p));
+  if (r0 < guard) {
+    mm_slab<true>(X, T, S, acc);
+    __syncthreads();  // this CTA's reads of its X slab are done
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) X[(ty + 8 * r) * NC_LD + tx + 32 * c] = acc[r][c];
+    cluster.sync();  // X complete in every CTA; every read of T is done
+    for (int it = 1; it < n_wquad; ++it) nc_step<true>(K, X, T, S, 1.f, row0);
+    for (int it = 0; it < n_whi; ++it) nc_step<false>(K, X, T, S, 1.f, row0);
+  } else {
+    nc_schedule(K, X, T, S, s, row0);
+  }
+  store_slab(X, inv + base);
+}
+
 template <typename Kernel>
 cudaError_t allow_cluster_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -322,6 +405,32 @@ extern "C" int qct_ns_inverse_refine_256(const float* ks, const float* init, flo
   qct::ns_inverse_refine_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
                                       static_cast<cudaStream_t>(stream)>>>(ks, init, inv,
                                                                            n_quad, n_hi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain fp32 NS at the 256 tile (ns_inverse_pallas / ns_inverse_pallas_blocked,
+// npad 256): the scaled kernel on a schedule of `iters` fp32 steps alone.
+extern "C" int qct_ns_inverse_plain_256(const float* ks, float* inv, int b, int iters,
+                                        void* stream) {
+  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_scaled_256_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_scaled_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      ks, inv, qct::make_schedule(nullptr, 0, 0, iters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qct_ns_inverse_warm_256(const float* ks, const float* init, float* inv, int b,
+                                       const float* mus, int n_scaled, int n_quad, int n_hi,
+                                       int n_wquad, int n_whi, float guard, void* stream) {
+  if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_warm_256_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_warm_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      ks, init, inv, qct::make_schedule(mus, n_scaled, n_quad, n_hi), n_wquad, n_whi, guard);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 namespace qct {
 
 constexpr int NS_N = 128;        // the tile one block factorizes (npad)

@@ -6,8 +6,13 @@
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled_build (_kernel_scaled_build_il)
 // ns_inverse_refine_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_refine (_kernel_refine)
+// ns_inverse_warm_kernel replaces
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm (_kernel_warm)
+// qct_ns_inverse_plain launches ns_inverse_scaled_kernel in place of
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas (_kernel) and
+//   ns_inverse_pallas_blocked (_kernel_blocked)
 //
-// Both run the shared NS core (ns_core.cuh) at the 128 tile. The TPU kernels'
+// All run the shared NS core (ns_core.cuh) at the 128 tile. The TPU kernels'
 // G = 8 grouping came from the TPU grid; here any batch size works. What bounds
 // them and what the design does about it: see ns_core.cuh.
 #include <cstdint>
@@ -104,6 +109,71 @@ ns_inverse_refine_kernel(const float* __restrict__ ks, const float* __restrict__
   store_tile(X, inv + base);
 }
 
+// Guarded warm NS: X0 = init (B, 128, 128), in the Jacobi scaling of ks. The
+// block forms T = 2I - K X0 with a bf16x3 product and the guard
+// r0 = max_i sum_j |I - K X0|_ij from the same product, reduced block-wide as
+// ns_schedule reduces alpha. r0 is one value per block, so the branch is
+// uniform and only one side runs: below the guard, the first warm step
+// completes from that T (X = X T, the K X0 product reused) and n_wquad - 1
+// bf16x3 and n_whi fp32 quadratic steps follow; otherwise (a NaN row sum
+// counts as infinite) ns_schedule runs on K, K3's own code, so a tripped guard
+// returns K3's result.
+__global__ void __launch_bounds__(NS_THREADS)
+ns_inverse_warm_kernel(const float* __restrict__ ks, const float* __restrict__ init,
+                       float* __restrict__ inv, NsSchedule s, int n_wquad, int n_whi,
+                       float guard) {
+  extern __shared__ float smem[];
+  float* K = smem;
+  float* X = K + NS_N * NS_LD;
+  float* T = X + NS_N * NS_LD;
+  __shared__ float warp_max[NS_THREADS / 32];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const size_t base = static_cast<size_t>(blockIdx.x) * NS_N * NS_N;
+  load_tile(ks + base, K);
+  load_tile(init + base, X);
+  __syncthreads();
+  float acc[8][8];
+  mm_tile<true>(K, X, acc);
+  float rmax = 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = ty + 16 * r;
+    float row = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int j = tx + 16 * c;
+      row += fabsf((i == j ? 1.f : 0.f) - acc[r][c]);
+      T[i * NS_LD + j] = (i == j ? 2.f : 0.f) - acc[r][c];
+    }
+    // row i's 128 entries lie on the 16 threads of this ty (lanes differing in bits 0-3)
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) row += __shfl_xor_sync(0xffffffffu, row, off);
+    rmax = fmaxf(rmax, isnan(row) ? INFINITY : row);  // fmaxf drops NaN: a NaN start fails
+  }
+  rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 16));  // the warp's other ty
+  if ((tid & 31) == 0) warp_max[tid >> 5] = rmax;
+  __syncthreads();  // also: T complete, every read of X done
+  float r0 = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < NS_THREADS / 32; ++w) r0 = fmaxf(r0, warp_max[w]);
+  if (r0 < guard) {
+    mm_tile<true>(X, T, acc);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) X[(ty + 16 * r) * NS_LD + tx + 16 * c] = acc[r][c];
+    __syncthreads();
+    for (int it = 1; it < n_wquad; ++it) ns_step<true>(K, X, T, 1.f);
+    for (int it = 0; it < n_whi; ++it) ns_step<false>(K, X, T, 1.f);
+  } else {
+    ns_schedule(K, X, T, s);
+  }
+  store_tile(X, inv + base);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -148,5 +218,32 @@ extern "C" int qct_ns_inverse_refine(const float* ks, const float* init, float* 
   qct::ns_inverse_refine_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
                                   static_cast<cudaStream_t>(stream)>>>(ks, init, inv, n_quad,
                                                                        n_hi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain fp32 NS (the TPU kernels ns_inverse_pallas and ns_inverse_pallas_blocked):
+// X0 = I / ||K||_inf and `iters` fp32 steps, K3's kernel on a schedule of
+// n_hi = iters fp32 steps alone. One system (b = 1) is the single-instance
+// kernel.
+extern "C" int qct_ns_inverse_plain(const float* ks, float* inv, int b, int iters, void* stream) {
+  cudaError_t err = qct::allow_smem(qct::ns_inverse_scaled_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_scaled_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      ks, inv, qct::make_schedule(nullptr, 0, 0, iters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qct_ns_inverse_warm(const float* ks, const float* init, float* inv, int b,
+                                   const float* mus, int n_scaled, int n_quad, int n_hi,
+                                   int n_wquad, int n_whi, float guard, void* stream) {
+  if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = qct::allow_smem(qct::ns_inverse_warm_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_warm_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
+                                static_cast<cudaStream_t>(stream)>>>(
+      ks, init, inv, qct::make_schedule(mus, n_scaled, n_quad, n_hi), n_wquad, n_whi, guard);
   return static_cast<int>(cudaGetLastError());
 }

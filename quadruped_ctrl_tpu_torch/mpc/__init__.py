@@ -1,1 +1,1 @@
-"""MPC formation and the batched packed pipeline."""
+"""MPC formation and the pipeline: the per-scenario and the batched packed solves."""

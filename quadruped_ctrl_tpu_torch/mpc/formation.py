@@ -1,9 +1,17 @@
-"""Condensed convex-MPC formation for the batched packed solve.
+"""Condensed convex-MPC formation.
 
-The counterpart of the batched subset of `quadruped_ctrl_tpu/mpc/formation.py`
-(same names, same layouts, batched over leading dimensions): the friction
-pyramid applied structurally, the closed-form SRB discretization, the sortless
-stance selection, the stance-compressed QP cost and its packed form.
+The counterpart of `quadruped_ctrl_tpu/mpc/formation.py` (same names, same
+layouts):
+
+* batched over leading dimensions, for the packed solve: the friction
+  pyramid applied structurally, the closed-form SRB discretization, the
+  sortless stance selection, the stance-compressed QP cost and its packed
+  form;
+* per scenario, for `pipeline.solve` and `solve_compressed` (and batched by
+  `torch.func.vmap` there): the continuous SRB dynamics, their exact
+  discretization, the prediction stacking and the condensed QP costs, full
+  and stance-compressed. These build every array out of place (no
+  `.at[].set` counterpart), so that vmap batches them.
 """
 
 from __future__ import annotations
@@ -26,9 +34,9 @@ def pyramid_bounds(cfg_mpc: MPCConfig, gait_table):
     """Bounds of the 5 pyramid rows per foot-step. gait_table (..., h, nf)
     in {0,1} -> l, u (..., h, nf, 5)."""
     shape = gait_table.shape + (5,)
-    u = torch.full(shape, cfg_mpc.big_number, dtype=gait_table.dtype,
-                   device=gait_table.device)
-    u[..., 4] = gait_table * cfg_mpc.f_max
+    big = torch.full(gait_table.shape + (4,), cfg_mpc.big_number, dtype=gait_table.dtype,
+                     device=gait_table.device)
+    u = torch.cat([big, (gait_table * cfg_mpc.f_max)[..., None]], dim=-1)
     l = torch.zeros(shape, dtype=gait_table.dtype, device=gait_table.device)
     return l, u
 
@@ -282,3 +290,179 @@ def scatter_forces(x_red, foot_idx, h: int):
     index = foot_idx.long()[..., None].expand(lead + (h, ms, 3))
     forces = torch.zeros(lead + (h, 4, 3), dtype=x_red.dtype, device=x_red.device)
     return forces.scatter(-2, index, src)
+
+
+# ---------------------------------------------------------------------------
+# Per-scenario formation (pipeline.solve / solve_compressed).
+
+def _skew_feet(r_feet):
+    """(4, 3) foot positions -> (4, 3, 3) cross-product matrices [r]x."""
+    rx_, ry_, rz_ = r_feet[..., 0], r_feet[..., 1], r_feet[..., 2]
+    zf = torch.zeros_like(rx_)
+    return torch.stack([
+        torch.stack([zf, -rz_, ry_], dim=-1),
+        torch.stack([rz_, zf, -rx_], dim=-1),
+        torch.stack([-ry_, rx_, zf], dim=-1),
+    ], dim=-2)
+
+
+def srb_ct_dynamics(cfg_mpc: MPCConfig, r_feet, yaw, x_drag):
+    """Continuous-time A (13, 13), B (13, 12) of the single rigid body
+    (SolverMPC.cpp:235-254). r_feet (4, 3): foot positions relative to the
+    CoM, world frame. I_world^-1 is a 3 x 3 `torch.linalg.inv`, as the JAX
+    function's `jnp.linalg.inv`."""
+    dtype, dev = r_feet.dtype, r_feet.device
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    r_yaw = torch.stack([torch.stack([c, -s, zero]), torch.stack([s, c, zero]),
+                         torch.stack([zero, zero, one])]).to(dtype)
+    i_body = torch.as_tensor(cfg_mpc.inertia_arr(), dtype=dtype, device=dev)
+    i_inv = torch.linalg.inv(r_yaw @ i_body @ r_yaw.T)
+
+    base = np.zeros((13, 13), np.float32)
+    base[3, 9] = base[4, 10] = base[5, 11] = 1.0
+    base[11, 12] = 1.0
+    drag = np.zeros((13, 13), np.float32)
+    drag[11, 9] = 1.0
+    a = (torch.as_tensor(base, dtype=dtype, device=dev)
+         + x_drag * torch.as_tensor(drag, dtype=dtype, device=dev)
+         + F.pad(r_yaw.T, (6, 4, 0, 10)))
+
+    torque = torch.einsum("ij,fjk->fik", i_inv, _skew_feet(r_feet))     # (4,3,3)
+    force = np.zeros((13, 12), np.float32)
+    force[9:12] = np.tile(np.eye(3, dtype=np.float32), (1, 4)) / np.float32(cfg_mpc.mass)
+    b = (torch.as_tensor(force, dtype=dtype, device=dev)
+         + F.pad(torque.transpose(0, 1).reshape(3, 12), (0, 0, 6, 4)))
+    return a, b
+
+
+def expm_fixed(m, scaling: int = 4, order: int = 10):
+    """Matrix exponential by fixed scaling and squaring with a Taylor series
+    of `order` terms (static control flow), batched over leading dims."""
+    ms = m / (2.0 ** scaling)
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device).expand(m.shape)
+    result = eye
+    term = eye
+    for k in range(1, order + 1):
+        term = (term @ ms) / k
+        result = result + term
+    for _ in range(scaling):
+        result = result @ result
+    return result
+
+
+def discretize(a_ct, b_ct, dt: float):
+    """Exact zero-order-hold discretization of the SRB dynamics, whose A is
+    nilpotent of index 3: Adt = I + dt A + dt^2/2 A^2,
+    Bdt = (dt I + dt^2/2 A + dt^3/6 A^2) B."""
+    eye = torch.eye(13, dtype=a_ct.dtype, device=a_ct.device)
+    a2 = a_ct @ a_ct
+    adt = eye + dt * a_ct + (dt * dt / 2.0) * a2
+    bdt = (dt * eye + (dt * dt / 2.0) * a_ct + (dt ** 3 / 6.0) * a2) @ b_ct
+    return adt, bdt
+
+
+def discretize_expm(a_ct, b_ct, dt: float):
+    """Generic discretization by the exponential of dt [[A, B], [0, 0]]
+    (for non-nilpotent dynamics; the test reference for `discretize`)."""
+    abc = torch.cat([torch.cat([a_ct, b_ct], dim=-1),
+                     torch.zeros((12, 25), dtype=a_ct.dtype, device=a_ct.device)], dim=-2)
+    em = expm_fixed(abc * dt)
+    return em[0:13, 0:13], em[0:13, 13:25]
+
+
+def condense(adt, bdt, h_max: int):
+    """Prediction stacking (SolverMPC.cpp:103-120): A_qp (h, 13, 13) =
+    Adt^(r+1); B_qp (h, h, 13, 12) lower block-Toeplitz of Adt^(r-c) Bdt."""
+    powers = [torch.eye(13, dtype=adt.dtype, device=adt.device)]
+    for _ in range(h_max):
+        powers.append(adt @ powers[-1])
+    powers = torch.stack(powers)                                # (h+1,13,13)
+    a_qp = powers[1:h_max + 1]
+    pow_b = torch.einsum("hij,jk->hik", powers[:h_max], bdt)
+    r = torch.arange(h_max, device=adt.device)[:, None]
+    c = torch.arange(h_max, device=adt.device)[None, :]
+    idx = torch.clamp(r - c, 0, h_max - 1)
+    mask = (r >= c).to(adt.dtype)[:, :, None, None]
+    return a_qp, pow_b[idx] * mask
+
+
+def _condensed_cost(cfg_mpc: MPCConfig, bq, ax0, x_d, step_mask):
+    """H = 2 (bq' S bq + alpha I), g = 2 bq' S (A x0 - x_d) with S the state
+    weights on the steps of step_mask; bq (13 h, n_c) in (step, state) rows."""
+    n_c = bq.shape[-1]
+    s_diag = _weights(cfg_mpc, bq)[None, :] * step_mask[:, None]            # (h,13)
+    sb = s_diag.reshape(-1, 1) * bq
+    hess = 2.0 * (bq.T @ sb + cfg_mpc.alpha * torch.eye(n_c, dtype=bq.dtype,
+                                                         device=bq.device))
+    grad = 2.0 * (bq.T @ ((ax0 - x_d) * s_diag).reshape(-1))
+    return hess, grad
+
+
+def qp_cost(cfg_mpc: MPCConfig, a_qp, b_qp, x0, x_d, step_mask):
+    """Hessian (12h, 12h) and gradient (12h,) of the condensed QP
+    (SolverMPC.cpp:335-399): H = 2 (B' S B + alpha I), g = 2 B' S (A x0 - X_d)."""
+    h = a_qp.shape[0]
+    bq = b_qp.permute(0, 2, 1, 3).reshape(h * 13, h * 12)
+    return _condensed_cost(cfg_mpc, bq, torch.einsum("hij,j->hi", a_qp, x0), x_d, step_mask)
+
+
+def _ax0_closed(n1, n2, x0, h: int):
+    """a_qp @ x0 without a_qp: Adt^(x+1) x0 = x0 + (x+1) N x0 + C(x+1, 2) N^2 x0."""
+    nx0 = n1 @ x0
+    n2x0 = n2 @ x0
+    k = torch.arange(1, h + 1, dtype=x0.dtype, device=x0.device)[:, None]
+    return x0[None, :] + k * nx0[None, :] + (0.5 * k * (k - 1.0)) * n2x0[None, :]
+
+
+def qp_cost_nil(cfg_mpc: MPCConfig, adt, bdt, x0, x_d, step_mask):
+    """`condense` + `qp_cost` through the closed-form nilpotent powers: the
+    Toeplitz blocks are Bdt + k (N Bdt) + C(k, 2) (N^2 Bdt), no power chain."""
+    h = x_d.shape[0]
+    n1, n2, bfam = _nil_family(adt, bdt)
+    phi = _phi_polys(h, adt.dtype, adt.device)
+    b_qp = torch.einsum("mxc,mpj->xcpj", phi, bfam)                       # (h,h,13,12)
+    bq = b_qp.permute(0, 2, 1, 3).reshape(h * 13, h * 12)
+    return _condensed_cost(cfg_mpc, bq, _ax0_closed(n1, n2, x0, h), x_d, step_mask)
+
+
+def compress_stance(gait_table, max_stance: int):
+    """Per-step stance-foot index map for swing-variable elimination
+    (SolverMPC.cpp:441-525 as a static-shape gather): each step keeps
+    `max_stance` foot slots, stance feet first (a stable argsort), padding
+    slots being swing feet pinned to zero by their bounds. gait_table (h, 4)
+    -> (foot_idx (h, max_stance) int32, gait_red (h, max_stance))."""
+    order = torch.argsort(-gait_table, dim=1, stable=True)
+    foot_idx = order[:, :max_stance]
+    return foot_idx.to(torch.int32), torch.take_along_dim(gait_table, foot_idx, dim=1)
+
+
+def _one_hot_feet(foot_idx, dtype):
+    """(h, ms) foot indices -> (h, ms, 4) one-hot selection."""
+    return (foot_idx.long()[..., None]
+            == torch.arange(4, device=foot_idx.device)).to(dtype)
+
+
+def qp_cost_compressed(cfg_mpc: MPCConfig, a_qp, b_qp, x0, x_d, step_mask, foot_idx):
+    """Hessian and gradient over the stance-foot variables of foot_idx
+    (h, max_stance) only: n_c = 3 max_stance h."""
+    h = a_qp.shape[0]
+    n_c = h * foot_idx.shape[1] * 3
+    b_red = torch.einsum("xsifz,sjf->xsijz", b_qp.reshape(h, h, 13, 4, 3),
+                         _one_hot_feet(foot_idx, a_qp.dtype))
+    bq = b_red.permute(0, 2, 1, 3, 4).reshape(h * 13, n_c)
+    return _condensed_cost(cfg_mpc, bq, torch.einsum("hij,j->hi", a_qp, x0), x_d, step_mask)
+
+
+def qp_cost_compressed_nil(cfg_mpc: MPCConfig, adt, bdt, x0, x_d, step_mask, foot_idx):
+    """`condense` + `qp_cost_compressed` through the closed-form powers: the
+    stance-column selection acts on the three 13 x 12 family matrices, then
+    the Toeplitz combination."""
+    h = x_d.shape[0]
+    n_c = h * foot_idx.shape[1] * 3
+    n1, n2, bfam = _nil_family(adt, bdt)
+    u = torch.einsum("mpfz,cjf->mcpjz", bfam.reshape(3, 13, 4, 3),
+                     _one_hot_feet(foot_idx, adt.dtype))                   # (3,h,13,ms,3)
+    b_red = torch.einsum("mxc,mcpjz->xcpjz", _phi_polys(h, adt.dtype, adt.device), u)
+    bq = b_red.permute(0, 2, 1, 3, 4).reshape(h * 13, n_c)
+    return _condensed_cost(cfg_mpc, bq, _ax0_closed(n1, n2, x0, h), x_d, step_mask)

@@ -1,7 +1,10 @@
-"""The batched packed MPC solve: formation -> packed QP -> ADMM -> forces.
+"""The MPC pipeline: formation -> QP -> ADMM -> forces.
 
-The counterpart of `quadruped_ctrl_tpu/mpc/pipeline.py` for
-`solve_packed_batch`, its inputs and its random scenario generator.
+The counterpart of `quadruped_ctrl_tpu/mpc/pipeline.py`: the per-scenario
+solves `solve` and `solve_compressed` with their `torch.func.vmap` batches
+`solve_batch` and `solve_compressed_batch`, the batched packed solve
+`solve_packed_batch`, the inputs and the random scenario generator. The
+work runs where the inputs lie.
 """
 
 from __future__ import annotations
@@ -81,6 +84,65 @@ def random_inputs(seed: int, batch: int, h: int, device=None) -> MPCInputs:
         rpy=rpy, position=position, omega_world=omega, v_world=v,
         r_feet=r_feet, traj=traj, gait_table=gait,
         x_drag=np.zeros((batch,), np.float32)), device=device)
+
+
+def _vmap_scenarios(fn, inputs: MPCInputs):
+    """torch.func.vmap of fn (one scenario's MPCInputs -> tensor) over the
+    leading batch axis of every field of `inputs`."""
+    names = [f.name for f in dataclasses.fields(MPCInputs)]
+    return torch.func.vmap(lambda *fields: fn(MPCInputs(*fields)))(
+        *(getattr(inputs, name) for name in names))
+
+
+def _dynamics(cfg: FrameworkConfig, inp: MPCInputs):
+    """One scenario's (Adt, Bdt, x0)."""
+    a_ct, b_ct = formation.srb_ct_dynamics(cfg.mpc, inp.r_feet, inp.rpy[2], inp.x_drag)
+    adt, bdt = formation.discretize(a_ct, b_ct, cfg.dt_mpc)
+    x0 = formation.build_x0(inp.rpy, inp.position, inp.omega_world, inp.v_world,
+                            cfg.mpc.gravity)
+    return adt, bdt, x0
+
+
+def solve(cfg: FrameworkConfig, inp: MPCInputs, h: int | None = None,
+          iterations: int | None = None, polish_rounds: int | None = None):
+    """One full MPC solve of one scenario (`inp` fields without a batch
+    axis): SRB dynamics, discretization, condensed QP, `admm.admm_mpc`.
+    Returns forces (h, 4, 3), world frame."""
+    h = inp.gait_table.shape[0] if h is None else h
+    adt, bdt, x0 = _dynamics(cfg, inp)
+    step_mask = torch.ones((h,), dtype=torch.float32, device=adt.device)
+    hess, grad = formation.qp_cost_nil(cfg.mpc, adt, bdt, x0, inp.traj, step_mask)
+    forces = admm.admm_mpc(cfg.solver, cfg.mpc, hess, grad, inp.gait_table,
+                           iterations=iterations, polish_rounds=polish_rounds)
+    return forces.reshape(h, 4, 3)
+
+
+def solve_batch(cfg: FrameworkConfig, inputs: MPCInputs, **kw):
+    """`solve` vmapped over the leading batch axis: forces (B, h, 4, 3)."""
+    return _vmap_scenarios(lambda i: solve(cfg, i, **kw), inputs)
+
+
+def solve_compressed(cfg: FrameworkConfig, inp: MPCInputs, max_stance: int,
+                     h: int | None = None, iterations: int | None = None,
+                     polish_rounds: int | None = None):
+    """One scenario's MPC solve over its stance-foot variables only (the
+    reference's swing-variable elimination, SolverMPC.cpp:441-525, as a
+    static-shape gather of `max_stance` slots per step). Returns forces
+    (h, 4, 3) with zeros on the dropped swing feet."""
+    h = inp.gait_table.shape[0] if h is None else h
+    adt, bdt, x0 = _dynamics(cfg, inp)
+    foot_idx, gait_red = formation.compress_stance(inp.gait_table, max_stance)
+    step_mask = torch.ones((h,), dtype=torch.float32, device=adt.device)
+    hess, grad = formation.qp_cost_compressed_nil(cfg.mpc, adt, bdt, x0, inp.traj,
+                                                  step_mask, foot_idx)
+    x_red = admm.admm_mpc(cfg.solver, cfg.mpc, hess, grad, gait_red,
+                          iterations=iterations, polish_rounds=polish_rounds)
+    return formation.scatter_forces(x_red, foot_idx, h)
+
+
+def solve_compressed_batch(cfg: FrameworkConfig, inputs: MPCInputs, max_stance: int, **kw):
+    """`solve_compressed` vmapped over the leading batch axis."""
+    return _vmap_scenarios(lambda i: solve_compressed(cfg, i, max_stance, **kw), inputs)
 
 
 def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,

@@ -41,6 +41,10 @@ _SIGNATURES = {
         (_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P), _I),
     "qct_ns_inverse_refine": ((_P, _P, _P, _I, _I, _I, _P), _I),
     "qct_ns_inverse_refine_256": ((_P, _P, _P, _I, _I, _I, _P), _I),
+    "qct_ns_inverse_plain": ((_P, _P, _I, _I, _P), _I),
+    "qct_ns_inverse_plain_256": ((_P, _P, _I, _I, _P), _I),
+    "qct_ns_inverse_warm": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P), _I),
+    "qct_ns_inverse_warm_256": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P), _I),
     "qct_fused_admm_solve": (
         (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P), _I),
     "qct_ns_cluster_max_active": ((_P,), _I),

@@ -1,7 +1,6 @@
-"""Mixed-precision scaled Newton-Schulz SPD inversion (kernels K2, K3, K6).
+"""Newton-Schulz SPD inversion (kernels K2, K3, K6, K7, K8, K9).
 
-The counterpart of `quadruped_ctrl_tpu/ops/ns_inverse.py` for the batched
-solve's factorizations:
+The counterpart of `quadruped_ctrl_tpu/ops/ns_inverse.py`:
 
 * `ns_inverse_scaled` (K3): the NS schedule on a prebuilt Jacobi-scaled,
   tile-padded K;
@@ -9,6 +8,13 @@ solve's factorizations:
   scales it and runs the same schedule, returning (inv, ks, d_row);
 * `ns_inverse_refine` (K6): the quadratic steps alone from a warm start
   whose residual is below 1, for the Woodbury polish;
+* `ns_inverse_warm` (K7): a warm start held to a per-system residual guard,
+  the short quadratic schedule below it and K3's cold schedule above it, for
+  `solver/admm._batched_solver(prev_inv=...)`;
+* `ns_inverse` (K8, one system) and `ns_inverse_blocked` (K9, a batch): plain
+  fp32 NS, `iters` steps from I / ||K||_inf; `make_ns_inverse` returns a
+  function that runs K8 on one matrix and K9 on a batch or under
+  `torch.func.vmap`;
 * `ns_inverse_schur_scaled` (K4, no kernel of its own): the 2 x 2 block
   inverse at the 128 boundary for ADMM-grade 128 < n <= 192 systems, K3 on
   the leading block and plain fp32 products around it.
@@ -262,6 +268,177 @@ def ns_inverse_refine(ks, init, n_quad: int = 1, n_hi: int = 1):
 
 
 _K6 = _launch.new_count(ns_inverse_refine)
+
+
+def ns_inverse_warm_reference(ks, init, a0: float = 1e-5, n_scaled: int = 9, n_quad: int = 2,
+                              n_hi: int = 1, n_wquad: int = 3, n_whi: int = 1,
+                              guard: float = 0.5):
+    """Plain PyTorch K7, line for line with the TPU kernel: the guard
+    r0 = max row sum of |I - K X0| from a bf16x3 product, the warm branch's
+    first step reusing that product, and the cold branch K3's schedule,
+    chosen per system. A NaN r0 fails the guard."""
+    eye = torch.eye(ks.shape[-1], dtype=torch.float32, device=ks.device)
+    k_hi, k_lo = _split(ks)
+    kx0 = _mm3(k_hi, k_lo, init)
+    r0 = (eye - kx0).abs().sum(-1).amax(-1)
+    x0_hi, x0_lo = _split(init)
+    warm = _mm3(x0_hi, x0_lo, 2.0 * eye - kx0)              # reuses K X0
+    warm = _ns_steps(ks, warm, [], n_wquad - 1, n_whi)
+    cold = _ns_schedule(ks, mu_schedule(a0, n_scaled), n_quad, n_hi)
+    return torch.where((r0 < guard)[:, None, None], warm, cold)
+
+
+def ns_inverse_warm(ks, init, a0: float = 1e-5, n_scaled: int = 9, n_quad: int = 2,
+                    n_hi: int = 1, n_wquad: int = 3, n_whi: int = 1, guard: float = 0.5):
+    """Warm-started NS inverse with a per-system divergence guard. ks, init
+    (B, npad, npad), npad in {128, 256}, any B; init in the same Jacobi
+    scaling as ks. A system whose start has row-sum residual
+    r0 = max_i sum_j |I - ks init|_ij below `guard` runs max(n_wquad, 1)
+    bf16x3 and n_whi fp32 quadratic steps from init; the others run the cold
+    schedule (a0, n_scaled, n_quad, n_hi) of `ns_inverse_scaled`, so the
+    result is factorization-grade either way. One CUDA block (a 4-CTA
+    cluster at 256) owns a system and takes one branch."""
+    b = ks.shape[0] if ks.dim() == 3 else None
+    npad = ks.shape[-1] if ks.dim() == 3 else None
+    _launch.check(ks, "ks", (b, npad, npad))
+    _launch.check(init, "init", (b, npad, npad), ks.device)
+    _check_tile(npad)
+    _check_schedule(n_scaled)
+    if not ks.is_cuda:
+        return ns_inverse_warm_reference(ks, init, a0, n_scaled, n_quad, n_hi, n_wquad, n_whi,
+                                         guard)
+    lib = _build.load()
+    entry = lib.qct_ns_inverse_warm if npad == N else lib.qct_ns_inverse_warm_256
+    inv = torch.empty_like(ks)
+    with torch.cuda.device(ks.device):
+        rc = entry(_launch.ptr(ks), _launch.ptr(init), _launch.ptr(inv), b,
+                   _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, n_wquad, n_whi, guard,
+                   _launch.stream(ks))
+    _launch.raise_on_error(rc, f"ns_inverse_warm at the {npad} tile")
+    _launch.count(_K7, npad)
+    return inv
+
+
+_K7 = _launch.new_count(ns_inverse_warm)
+
+
+def ns_inverse_blocked_reference(ks, iters: int = 25):
+    """Plain PyTorch K9: `iters` fp32 NS steps from I / ||K||_inf."""
+    return _ns_schedule(ks, [], 0, iters)
+
+
+def ns_inverse_reference(ks, iters: int = 25):
+    """Plain PyTorch K8: K9's reference on one system."""
+    return ns_inverse_blocked_reference(ks[None], iters)[0]
+
+
+def _launch_plain(ks, inv, b: int, iters: int, npad: int, what: str):
+    lib = _build.load()
+    entry = lib.qct_ns_inverse_plain if npad == N else lib.qct_ns_inverse_plain_256
+    with torch.cuda.device(ks.device):
+        rc = entry(_launch.ptr(ks), _launch.ptr(inv), b, iters, _launch.stream(ks))
+    _launch.raise_on_error(rc, f"{what} at the {npad} tile")
+
+
+def ns_inverse(ks, iters: int = 25):
+    """Plain fp32 NS inverse of one Jacobi-scaled SPD system ks, exactly
+    (128, 128) or (256, 256) with identity on the pad: X0 = I / ||K||_inf,
+    then `iters` steps X <- X (2I - K X). On the card one block (one 4-CTA
+    cluster at 256) runs it."""
+    npad = ks.shape[-1] if ks.dim() == 2 else None
+    _launch.check(ks, "ks", (npad, npad))
+    _check_tile(npad)
+    if not ks.is_cuda:
+        return ns_inverse_reference(ks, iters)
+    inv = torch.empty_like(ks)
+    _launch_plain(ks, inv, 1, iters, npad, "ns_inverse")
+    _launch.count(_K8, npad)
+    return inv
+
+
+_K8 = _launch.new_count(ns_inverse)
+
+
+def ns_inverse_blocked(ks, iters: int = 25):
+    """`ns_inverse` on a batch ks (B, npad, npad), npad in {128, 256}, any B
+    (the JAX kernel's multiple of G is the caller's padding contract)."""
+    b = ks.shape[0] if ks.dim() == 3 else None
+    npad = ks.shape[-1] if ks.dim() == 3 else None
+    _launch.check(ks, "ks", (b, npad, npad))
+    _check_tile(npad)
+    if not ks.is_cuda:
+        return ns_inverse_blocked_reference(ks, iters)
+    inv = torch.empty_like(ks)
+    _launch_plain(ks, inv, b, iters, npad, "ns_inverse_blocked")
+    _launch.count(_K9, npad)
+    return inv
+
+
+_K9 = _launch.new_count(ns_inverse_blocked)
+
+
+# make_ns_inverse: the counterpart of the JAX package's custom_vmap. The
+# unbatched operator runs K8; its vmap rule flattens the batch, pads it to a
+# multiple of G with identity systems, as the JAX rule does, and runs the
+# batched operator (K9), whose own vmap rule folds any outer vmap level into
+# its batch, so nested vmaps still make one K9 launch. The operator bodies
+# look the wrappers up at call time.
+
+@torch.library.custom_op("qct::ns_inverse", mutates_args=())
+def _ns_inverse_op(ks: torch.Tensor, iters: int) -> torch.Tensor:
+    return ns_inverse(ks, iters)
+
+
+@torch.library.custom_op("qct::ns_inverse_blocked", mutates_args=())
+def _ns_inverse_blocked_op(ks: torch.Tensor, iters: int) -> torch.Tensor:
+    return ns_inverse_blocked(ks, iters)
+
+
+@_ns_inverse_op.register_fake
+@_ns_inverse_blocked_op.register_fake
+def _(ks, iters):
+    return torch.empty_like(ks)
+
+
+def _ns_inverse_padded(ks: torch.Tensor, iters: int) -> torch.Tensor:
+    """K9 on ks (..., npad, npad): leading dims flattened, the batch padded
+    to a multiple of G with identity systems, the padding sliced off."""
+    lead, npad = ks.shape[:-2], ks.shape[-1]
+    flat = ks.reshape(-1, npad, npad)
+    b = flat.shape[0]
+    pad = (-b) % G
+    if pad:
+        eye = torch.eye(npad, dtype=ks.dtype, device=ks.device)
+        flat = torch.cat([flat, eye.expand(pad, npad, npad)], dim=0)
+    return _ns_inverse_blocked_op(flat.contiguous(), iters)[:b].reshape(lead + (npad, npad))
+
+
+# (ks is each operator's only tensor, so a vmap rule sees it batched)
+@_ns_inverse_op.register_vmap
+def _(info, in_dims, ks, iters):
+    return _ns_inverse_padded(ks.movedim(in_dims[0], 0), iters), 0
+
+
+@_ns_inverse_blocked_op.register_vmap
+def _(info, in_dims, ks, iters):
+    ks = ks.movedim(in_dims[0], 0)
+    npad = ks.shape[-1]
+    out = _ns_inverse_blocked_op(ks.reshape(-1, npad, npad).contiguous(), iters)
+    return out.reshape(ks.shape), 0
+
+
+def make_ns_inverse(iters: int = 25):
+    """f(ks) -> the plain fp32 NS inverse of ks, Jacobi-scaled SPD padded to
+    a tile: one (npad, npad) system runs K8 (`ns_inverse`); a batch
+    (..., npad, npad), or one system under `torch.func.vmap`, runs K9
+    (`ns_inverse_blocked`) once on the flattened batch padded to a multiple
+    of G."""
+    def f(ks):
+        if ks.dim() > 2:
+            return _ns_inverse_padded(ks, iters)
+        return _ns_inverse_op(ks, iters)
+
+    return f
 
 
 def _ns_small(ss: torch.Tensor, iters: int) -> torch.Tensor:

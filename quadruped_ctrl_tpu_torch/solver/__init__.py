@@ -1,1 +1,1 @@
-"""Batched ADMM QP solver."""
+"""ADMM QP solver (per-scenario and batched) and the float64 reference IPM."""

@@ -1,10 +1,20 @@
-"""Batched ADMM QP solver with active-set polish, for the packed MPC solve.
+"""ADMM QP solver with active-set polish (OSQP/JCQP-style splitting).
 
-The counterpart of the batched path of `quadruped_ctrl_tpu/solver/admm.py`:
-`admm_mpc_batched` solves  min 0.5 x'Hx + g'x  s.t.  l <= Ax <= u  with A the
-friction pyramid, over the Schur-complement KKT matrix
-K = H + sigma I + A' diag(rho) A, factorized by Newton-Schulz inversion. Both
-branches of the JAX function are here:
+The counterpart of `quadruped_ctrl_tpu/solver/admm.py`: min 0.5 x'Hx + g'x
+s.t. l <= Ax <= u over the Schur-complement KKT matrix
+K = H + sigma I + A' diag(rho) A, factorized by Newton-Schulz inversion.
+
+The per-scenario solver: `admm_dense` (a dense A) and `admm_mpc` (A the
+friction pyramid, applied structurally), each on one problem, written so that
+`torch.func.vmap` batches them (`mpc/pipeline.solve_batch`): every update is
+out of place and every data-dependent choice a `torch.where`. Its
+factorization (`_make_solver`) is the plain fp32 NS `_ns_inverse`; the
+adaptive-rho refactorization and the polish rounds after the first
+warm-start it from the previous inverse behind a residual guard, as the JAX
+code does. It launches no kernel, as the JAX function runs no Pallas kernel.
+
+The batched solve `admm_mpc_batched` (A the friction pyramid, a batch axis
+carried explicitly). Both branches of the JAX function are here:
 
 * the kernel branch (`use_kernels`, the default for CUDA tensors): every cold
   factorization runs the fused K-build + NS kernel K2
@@ -25,10 +35,14 @@ kernel branch, plain fp32 steps on the plain branch.
 `ops/fused_admm.fused_admm_solve`) that `solve_packed_batch(use_fused=True)`
 runs.
 
-Where the JAX code updates an array with `.at[].set`, the port builds a fresh
-tensor (zeros or ones) and writes into it; no caller's tensor is modified.
-The `lax.scan` loops are Python loops. Not yet ported: warm factorizations
-(K7), which raise NotImplementedError where the JAX code would reach them.
+`_batched_solver(prev_inv=..., prev_scale=...)` warm-starts a batched
+factorization from a nearby system's inverse through kernel K7
+(`ops/ns_inverse.ns_inverse_warm`), whose per-system guard falls back to the
+cold schedule; as in JAX, `admm_mpc_batched` never passes `prev_inv`.
+
+Where the batched JAX code updates an array with `.at[].set`, the port builds
+a fresh tensor (zeros or ones) and writes into it; no caller's tensor is
+modified. The `lax.scan` loops are Python loops.
 """
 
 from __future__ import annotations
@@ -65,15 +79,80 @@ def constraint_rho(cfg: SolverConfig, l, u):
     return torch.where(infinite, cfg.rho_infty, inner).to(l.dtype)
 
 
-def _ns_inverse(ks, iters: int):
-    """Plain fp32 Newton-Schulz inverse of a batch of SPD, Jacobi-scaled
-    matrices (B, n, n): X0 = I / ||K||_inf, X <- X (2I - K X)."""
+def _ns_inverse(ks, iters: int, init=None):
+    """Plain fp32 Newton-Schulz inverse of SPD, Jacobi-scaled matrices
+    (..., n, n), each on its own: X <- X (2I - K X) from X0 = I / ||K||_inf,
+    or from `init` (the inverse of a nearby matrix) where its residual
+    max_i sum_j |I - K init|_ij is below 0.9, the divergence guard."""
     eye = torch.eye(ks.shape[-1], dtype=ks.dtype, device=ks.device)
-    x = (1.0 / ks.abs().sum(-1).amax(-1))[:, None, None] * eye
+    x = (1.0 / ks.abs().sum(-1).amax(-1))[..., None, None] * eye
+    if init is not None:
+        resid = (eye - ks @ init).abs().sum(-1).amax(-1)
+        x = torch.where((resid < 0.9)[..., None, None], init, x)
     for _ in range(iters):
         kx = ks @ x
         x = x @ (2.0 * eye - kx)
     return x
+
+
+@dataclasses.dataclass
+class _ScenarioSolver:
+    """One problem's factorization (the JAX `_make_solver`'s `solve`):
+    K^-1 = D scaled_inv D with D = diag(scale), solve(b) with iterative
+    refinement against the scaled K."""
+
+    scaled_inv: torch.Tensor           # (n,n) Jacobi-scaled inverse
+    scale: torch.Tensor                # (n,) Jacobi scale d
+    ks: torch.Tensor                   # (n,n) Jacobi-scaled K
+
+    def solve(self, b, refine: int = 2):
+        """The NS inverse is accurate to ~eps cond; each refinement pass
+        squares the error at the cost of two matvecs."""
+        d = self.scale
+        bs = d * b
+        x = self.scaled_inv @ bs
+        for _ in range(refine):
+            x = x + self.scaled_inv @ (bs - self.ks @ x)
+        return d * x
+
+    __call__ = solve
+
+
+def _make_solver(k, ns_iters: int = 25, prev_inv=None, prev_scale=None):
+    """Jacobi-prescaled NS solver for one SPD k (n, n). (prev_inv,
+    prev_scale), a previous solver's `.scaled_inv` / `.scale` for a nearby
+    system, warm-start the NS iteration, rescaled across the two Jacobi
+    scalings and guarded by `_ns_inverse`."""
+    d = torch.rsqrt(torch.clamp(torch.diagonal(k, dim1=-2, dim2=-1), min=1e-30))
+    ks = k * d[..., :, None] * d[..., None, :]
+    init = None
+    if prev_inv is not None:
+        r = prev_scale / d
+        init = r[..., :, None] * prev_inv * r[..., None, :]
+    return _ScenarioSolver(scaled_inv=_ns_inverse(ks, ns_iters, init=init), scale=d, ks=ks)
+
+
+def _iterate(cfg: SolverConfig, solve, apply_a, apply_at, g, l, u, rho, n_iter: int,
+             init=None):
+    """The ADMM loop on one problem. apply_a: x -> Ax, apply_at: y -> A'y;
+    init: (x, z, y), zeros when None. Returns (x, z, y)."""
+    alpha = cfg.over_relax_alpha
+    sigma = cfg.sigma
+    inv_rho = 1.0 / rho
+    if init is None:
+        z0 = torch.zeros_like(rho).to(g.dtype)
+        init = (torch.zeros_like(g), z0, z0)
+    x, z, y = init
+    for _ in range(n_iter):
+        rhs = sigma * x - g + apply_at(rho * z - y)
+        x_t = solve(rhs)
+        z_t = apply_a(x_t)
+        z_relax = alpha * z_t + (1.0 - alpha) * z
+        x = alpha * x_t + (1.0 - alpha) * x
+        z_new = torch.minimum(torch.maximum(z_relax + inv_rho * y, l), u)
+        y = y + rho * (z_relax - z_new)
+        z = z_new
+    return x, z, y
 
 
 def _adapt_rho_factor(cfg: SolverConfig, ax, z, hx, grad_n, aty):
@@ -136,6 +215,150 @@ def _top_k_indices(v: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(v, dim=-1, descending=True, stable=True).indices[:, :k]
 
 
+def _polish(cfg: SolverConfig, build_solver, apply_a, apply_at, grad, l, u, finite_u,
+            x, z, y, rounds: int, w_act: float = 1e4, act_tol: float = 1e-4):
+    """Active-set polish on one problem: enforce the ADMM-identified active
+    constraints with penalty w_act and re-solve, carrying augmented-
+    Lagrangian multiplier estimates; each round drops wrong-sign multipliers
+    and adds violated rows, and the least-infeasible iterate is kept. Round
+    0 factorizes cold; each later round warm-starts from the previous
+    round's inverse (build_solver(w, prev_inv, prev_scale))."""
+    dtype = x.dtype
+    lo_act = (z - l) < act_tol
+    hi_act = finite_u & ((u - z) < act_tol)
+
+    def viol(v):
+        av = apply_a(v)
+        return torch.maximum(l - av, torch.where(finite_u, av - u, -1.0)).amax()
+
+    def one_round(best_x, best_v, lo, hi, y_al, prev_inv, prev_scale):
+        act = lo | hi
+        bound = torch.where(lo, l, torch.where(hi & finite_u, u, 0.0))
+        w = torch.where(act, w_act, 0.0).to(dtype)
+        solve = build_solver(w, prev_inv=prev_inv, prev_scale=prev_scale)
+        y_act = torch.where(act, y_al, 0.0)
+        x_p = solve(-grad + apply_at(w * bound - y_act))
+        ax = apply_a(x_p)
+        y_new = y_act + w * (ax - bound)
+        v_p = torch.where(torch.isfinite(x_p).all(), viol(x_p), torch.inf)
+        take = v_p < best_v
+        best_x = torch.where(take, x_p, best_x)
+        best_v = torch.where(take, v_p, best_v)
+        lo = (lo & (y_new <= 1e-9)) | (ax < l - 1e-6)
+        hi = (hi & (y_new >= -1e-9)) | (finite_u & (ax > u + 1e-6))
+        y_al = torch.where(lo | hi, y_new, 0.0)
+        return best_x, best_v, lo, hi, y_al, solve.scaled_inv, solve.scale
+
+    y_seed = torch.where(lo_act | hi_act, y, 0.0)
+    carry = one_round(x, torch.clamp(viol(x), min=0.0), lo_act, hi_act, y_seed, None, None)
+    for _ in range(rounds - 1):
+        carry = one_round(*carry)
+    return carry[0]
+
+
+def kkt_residuals(hess, grad, a_mat, l, u, x, y):
+    """(primal, dual) infinity-norm residuals (QpProblem.cpp residual check)."""
+    ax = a_mat @ x
+    primal = (torch.clamp(ax - u, min=0.0) + torch.clamp(l - ax, min=0.0)).amax()
+    dual = (hess @ x + grad + a_mat.T @ y).abs().amax()
+    return primal, dual
+
+
+def admm_dense(cfg: SolverConfig, hess, grad, a_mat, l, u, iterations: int | None = None,
+               polish_rounds: int = 0):
+    """ADMM on one QP with a dense constraint matrix a_mat (m, n). Returns
+    (x, z, y)."""
+    n_iter = cfg.iterations if iterations is None else iterations
+    rho = constraint_rho(cfg, l, u)
+    eye = torch.eye(hess.shape[-1], dtype=hess.dtype, device=hess.device)
+
+    def build_solver(w, prev_inv=None, prev_scale=None):
+        k = hess + cfg.sigma * eye
+        k = k + (a_mat.T * w[None, :]) @ a_mat
+        return _make_solver(k, cfg.ns_iters, prev_inv, prev_scale)
+
+    def apply_a(v):
+        return a_mat @ v
+
+    def apply_at(w):
+        return a_mat.T @ w
+
+    x, z, y = _iterate(cfg, build_solver(rho), apply_a, apply_at, grad, l, u, rho, n_iter)
+    if polish_rounds > 0:
+        x = _polish(cfg, build_solver, apply_a, apply_at, grad, l, u, u < cfg.infty,
+                    x, z, y, polish_rounds)
+    return x, z, y
+
+
+def admm_mpc(cfg: SolverConfig, cfg_mpc: MPCConfig, hess, grad, gait_table,
+             iterations: int | None = None, polish_rounds: int | None = None,
+             warm=None, return_warm: bool = False):
+    """The MPC QP of one scenario with the structural friction pyramid:
+    hess (n, n), grad (n,), gait_table (h, nf) contact flags (nf = 4, or a
+    stance-compressed table with its matching Hessian), n = 3 nf h. Swing
+    feet get fz bounds [0, 0]. Returns forces (n,).
+
+    `warm`: an (x_hat, z_hat, y_hat) triple in force-normalized units (what
+    `return_warm=True` returned); zeros are exactly the cold start. With
+    `return_warm`, returns (forces, (x_hat, z_hat, y_hat)), the pre-polish
+    ADMM iterate."""
+    n_iter = cfg.iterations if iterations is None else iterations
+    polish_rounds = cfg.polish_rounds if polish_rounds is None else polish_rounds
+    h, nf = gait_table.shape
+    n = 3 * nf * h
+    dtype, dev = hess.dtype, hess.device
+
+    # forces normalized by f_max: the SI problem's Hessian (diag ~1e-4)
+    # against O(100 N) forces is hopeless in fp32; normalized, all is O(1)
+    f_scale = float(cfg_mpc.f_max)
+    hess_n = hess * (f_scale * f_scale)
+    grad_n = grad * f_scale
+    l3, u3 = formation.pyramid_bounds(cfg_mpc, gait_table.to(dtype))
+    l = l3.reshape(-1) / f_scale
+    u_raw = u3.reshape(-1)
+    u = torch.where(u_raw > cfg.infty, u_raw, u_raw / f_scale)
+    rho = constraint_rho(cfg, l, u)
+
+    k0 = hess_n + cfg.sigma * torch.eye(n, dtype=dtype, device=dev)
+    sel = torch.eye(h * nf, dtype=dtype, device=dev)
+
+    def build_solver(w, prev_inv=None, prev_scale=None):
+        # the 3 x 3 gram blocks added on K's block diagonal
+        gram = formation.pyramid_gram(cfg_mpc, w.reshape(h, nf, 5)).reshape(h * nf, 3, 3)
+        k = k0 + (gram[:, :, None, :] * sel[:, None, :, None]).reshape(n, n)
+        ns = cfg.ns_iters if prev_inv is None else cfg.ns_warm_iters
+        return _make_solver(k, ns, prev_inv, prev_scale)
+
+    def apply_a(v):
+        return formation.pyramid_apply(cfg_mpc, v.reshape(h, nf, 3)).reshape(-1)
+
+    def apply_at(w):
+        return formation.pyramid_apply_t(cfg_mpc, w.reshape(h, nf, 5)).reshape(-1)
+
+    segs = max(int(cfg.rho_adapt), 0) + 1
+    seg_n = n_iter // segs
+    rho_c = rho
+    solver_c = build_solver(rho)
+    carry = warm
+    for s_i in range(segs):
+        last = s_i == segs - 1
+        n_seg = n_iter - seg_n * (segs - 1) if last else seg_n
+        x, z, y = _iterate(cfg, solver_c, apply_a, apply_at, grad_n, l, u, rho_c, n_seg,
+                           init=carry)
+        carry = (x, z, y)
+        if not last:
+            fac = _adapt_rho_factor(cfg, apply_a(x), z, hess_n @ x, grad_n, apply_at(y))
+            rho_c = rho * fac
+            solver_c = build_solver(rho_c, prev_inv=solver_c.scaled_inv,
+                                    prev_scale=solver_c.scale)
+    if polish_rounds > 0:
+        x = _polish(cfg, build_solver, apply_a, apply_at, grad_n, l, u, u < cfg.infty,
+                    x, z, y, polish_rounds)
+    if return_warm:
+        return x * f_scale, carry
+    return x * f_scale
+
+
 @dataclasses.dataclass
 class _Solver:
     """A batched factorization: solve(b) -> x for K x = b, Jacobi-prescaled
@@ -168,8 +391,11 @@ class _Solver:
 def _batched_solver(k, cfg: SolverConfig, use_kernels: bool, schedule=None,
                     prev_inv=None, prev_scale=None, schur: bool = False):
     """k (B,n,n) SPD -> a _Solver, Jacobi-prescaled. The kernel branch pads
-    to the kernel tile and runs K3 on the scaled K (the two-step build);
-    the plain branch runs the plain 25-step NS."""
+    to the kernel tile and runs K3 on the scaled K (the two-step build), or
+    with `prev_inv`/`prev_scale` (a previous solver's `.inv_padded` and
+    `.scale` for a nearby system) K7 from the rescaled previous inverse,
+    whose per-system guard falls back to the cold `schedule`; the plain
+    branch runs the plain 25-step NS."""
     n = k.shape[-1]
     d = torch.rsqrt(torch.clamp(torch.diagonal(k, dim1=-2, dim2=-1), min=1e-30))
     ks = k * d[:, :, None] * d[:, None, :]
@@ -183,18 +409,26 @@ def _batched_solver(k, cfg: SolverConfig, use_kernels: bool, schedule=None,
         inv = NI.ns_inverse_schur_scaled(ks, *schedule)
         inv_padded = NI.pad_to(inv, n)   # identity padding, as the kernels'
     elif use_kernels:
-        if prev_inv is not None:
-            raise NotImplementedError(
-                "warm factorization (K7, ns_inverse_pallas_warm): later PR; "
-                "see ROADMAP")
         b = ks.shape[0]
         npad = NI.pad_sizes(n)
         ksp = NI.pad_to(ks, n, npad)
         pad_b = (-b) % NI.G
+        eye_pad = torch.eye(npad, device=ks.device).expand(pad_b, npad, npad)
         if pad_b:
-            ksp = torch.cat([ksp, torch.eye(npad, device=ks.device).expand(
-                pad_b, npad, npad)], dim=0)
-        inv_padded = NI.ns_inverse_scaled(ksp, *schedule)[:b]
+            ksp = torch.cat([ksp, eye_pad], dim=0)
+        if prev_inv is not None:
+            # the previous inverse rescaled across the two Jacobi scalings;
+            # the padded systems start from their exact inverse (r0 = 0)
+            r = torch.ones((b, npad), dtype=ks.dtype, device=ks.device)
+            r[:, :n] = prev_scale / d
+            init = prev_inv * r[:, :, None] * r[:, None, :]
+            if pad_b:
+                init = torch.cat([init, eye_pad], dim=0)
+            inv_padded = NI.ns_inverse_warm(
+                ksp, init.contiguous(), *schedule, n_wquad=cfg.ns_warm_quad,
+                n_whi=cfg.ns_warm_hi, guard=cfg.ns_warm_guard)[:b]
+        else:
+            inv_padded = NI.ns_inverse_scaled(ksp, *schedule)[:b]
         inv = inv_padded[:, :n, :n]
     else:
         inv = _ns_inverse(ks, cfg.ns_iters)

@@ -173,18 +173,25 @@ def test_helpers_match_jax():
                                inv_j, rtol=0, atol=1e-4 * np.abs(inv_j).max())
 
 
-def test_unported_paths_raise():
-    """K7 (warm factorizations) still raises; the Woodbury polish (K6) runs
-    on both branches, finite, at a batch (b = 2) that is not a multiple of
-    the JAX kernels' group G: K6 takes any batch."""
+def test_woodbury_and_warm_paths_run():
+    """The Woodbury polish (K6) runs on both branches, finite, at a batch
+    (b = 2) that is not a multiple of the JAX kernels' group G: K6 takes any
+    batch. So does the warm factorization (K7, `_batched_solver(prev_inv=...)`
+    seeded from a cold one): its inverse and its solve are finite and the
+    solve answers K x = b (parity with JAX: test_torch_warm_ns.py)."""
     prob = _problem(4, 2, 1, 3)
     wood = dataclasses.replace(CFG.solver, polish_woodbury=True)
     for use_kernels in (True, False):
         x = _port_solve(prob, use_kernels=use_kernels, cfg=wood)
         assert x.shape == (2, 48) and torch.isfinite(x).all()
-    ks = torch.eye(8).expand(2, 8, 8).contiguous()
-    with pytest.raises(NotImplementedError, match="K7"):
-        TA._batched_solver(ks, CFG.solver, True, prev_inv=ks, prev_scale=torch.ones(2, 8))
+    k = 2.0 * torch.eye(8) + 0.1 * torch.ones(8, 8)
+    k = torch.stack([k, 1.5 * k])
+    cold = TA._batched_solver(k, CFG.solver, True)
+    warm = TA._batched_solver(1.1 * k, CFG.solver, True, prev_inv=cold.inv_padded,
+                              prev_scale=cold.scale)
+    x = warm(torch.ones(2, 8))
+    assert warm.inv_padded.shape == (2, 128, 128) and torch.isfinite(warm.inv_padded).all()
+    torch.testing.assert_close(1.1 * k @ x[:, :, None], torch.ones(2, 8, 1))
 
 
 @pytest.mark.parametrize("pivot", [True, False])

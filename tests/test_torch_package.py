@@ -39,7 +39,7 @@ def test_package_and_chip_smoke_import_no_jax():
         "from quadruped_ctrl_tpu_torch.mpc import formation, pipeline\n"
         "from quadruped_ctrl_tpu_torch.ops import _build, _launch, formation_pack, fused_admm\n"
         "from quadruped_ctrl_tpu_torch.ops import ns_inverse\n"
-        "from quadruped_ctrl_tpu_torch.solver import admm\n"
+        "from quadruped_ctrl_tpu_torch.solver import admm, ipm, problem_generator\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'quadruped_ctrl_tpu'))\n"
