@@ -10,8 +10,9 @@
    ns_inverse_scaled) against its plain PyTorch reference on the card at the
    128 tile, at the h=10 path's shapes, and times both;
 3b. the same at the h=16 shapes: K1 above 128 variables, K2 and K3 at the 256
-   tile (one 4-CTA cluster per system), and the Schur split K4 (K3 at the
-   128 tile inside) against its plain version;
+   tile (one 4-CTA cluster per system, the NS products on the tensor cores;
+   with their share of the bound and their bf16x3 rate), and the Schur split
+   K4 (K3 at the 128 tile inside) against its plain version;
 3c. the single-launch solve K5 (fused_admm_solve) at batch 2048, h=10, on the
    operands the fused path builds, and the warm NS refinement K6
    (ns_inverse_refine) at both tiles on 2048 SPD warm starts and on the
@@ -127,9 +128,9 @@ KERNEL_INFO = {
                    source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:131"),
 }
-# Peak rates of one H100 SXM (data sheet, dense): the bf16 tensor cores, the
-# fp32 CUDA cores, device memory.
-PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# Peak rates of one H100 SXM (data sheet, dense): the bf16 and tf32 tensor
+# cores, the fp32 CUDA cores, device memory.
+PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 
 
 def check(ok: bool, what: str):
@@ -171,21 +172,30 @@ def want(**launches) -> dict:
     return out
 
 
-def bound(ops_bf16: float, ops_fp32: float, nbytes: float) -> tuple[float, str]:
+def bound(ops_bf16: float, ops_fp32: float, nbytes: float,
+          ops_tf32: float = 0.0) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
-    operations over their peak (bf16 tensor-core passes plus fp32 CUDA-core
-    operations) and the bytes moved once over the memory rate."""
-    t_ops = ops_bf16 / PEAK_BF16 + ops_fp32 / PEAK_FP32
+    operations over their peak (bf16 and tf32 tensor-core passes plus fp32
+    CUDA-core operations) and the bytes moved once over the memory rate."""
+    t_ops = ops_bf16 / PEAK_BF16 + ops_tf32 / PEAK_TF32 + ops_fp32 / PEAK_FP32
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def tail_ops(npad: int, ops: float) -> tuple[float, float]:
+    """(fp32, tf32) operations of `ops` worth of fp32 NS products: 3 tf32
+    passes on the tensor cores at the 256 tile (3xTF32), fp32 FMAs on the
+    CUDA cores at 128."""
+    return (0.0, 3 * ops) if npad == NI.N_BIG else (ops, 0.0)
+
+
 def ns_bound(b: int, npad: int, schedule, nbytes: float) -> tuple[float, str]:
     """K2/K3: per NS step two npad^3 products (2 npad^3 operations each); the
-    bf16x3 steps count 3 bf16 passes, the fp32 tail one fp32 product."""
+    bf16x3 steps count 3 bf16 passes, the fp32 tail as tail_ops counts it."""
     _, n_scaled, n_quad, n_hi = schedule
     prod = 2.0 * npad ** 3 * 2 * b
-    return bound(3 * prod * (n_scaled + n_quad), prod * n_hi, nbytes)
+    fp32, tf32 = tail_ops(npad, prod * n_hi)
+    return bound(3 * prod * (n_scaled + n_quad), fp32, nbytes, tf32)
 
 
 def form_bound(b: int, h: int, ms: int, pack: int) -> tuple[float, str]:
@@ -270,6 +280,12 @@ def ns_results(results, npad, hp, g9, sched, times, err2, err3):
     results[f"K3/{npad}"].update(max_abs_err=err3, ms=times[2], plain_ms=times[3],
                                  library_ms=times[4], bound_ms=k3[0], bound_by=k3[1])
     print(f"  bounds at the {npad} tile: K2 %.3f ms (%s), K3 %.3f ms (%s)" % (*k2, *k3))
+    _, n_scaled, n_quad, _ = sched
+    passes = 3 * 2 * 2.0 * npad ** 3 * b * (n_scaled + n_quad)     # the bf16x3 steps' passes
+    for key, ms, bound_ms in ((f"K2/{npad}", times[0], k2[0]), (f"K3/{npad}", times[2], k3[0])):
+        print(f"  {key}: share of the bound {bound_ms / ms:.4f}; the bf16x3 products at "
+              f"{passes / (ms * 1e-3) / 1e12:.1f} bf16-pass TFLOP/s over the whole call "
+              "(fp32 tail not counted)")
 
 
 def gait_table(kind: str, b: int, h: int, dev) -> torch.Tensor | None:
@@ -667,7 +683,8 @@ def phase_kernels_fused(cfg, dev, results):
 def plain_ns_bound(b: int, npad: int, iters: int) -> tuple[float, str]:
     """K8/K9: `iters` fp32 NS steps of two npad^3 products per system; bytes:
     ks in, the inverse out."""
-    return bound(0.0, 2.0 * npad ** 3 * 2 * b * iters, 2 * b * npad * npad * 4.0)
+    fp32, tf32 = tail_ops(npad, 2.0 * npad ** 3 * 2 * b * iters)
+    return bound(0.0, fp32, 2 * b * npad * npad * 4.0, tf32)
 
 
 def warm_bound(n_warm: int, n_cold: int, npad: int, schedule, warm_kw) -> tuple[float, str]:
@@ -679,8 +696,8 @@ def warm_bound(n_warm: int, n_cold: int, npad: int, schedule, warm_kw) -> tuple[
     prod = 2.0 * npad ** 3
     bf16 = 3 * prod * ((n_warm + n_cold) + n_warm * (1 + 2 * (warm_kw["n_wquad"] - 1))
                        + n_cold * 2 * (n_scaled + n_quad))
-    fp32 = prod * 2 * (n_warm * warm_kw["n_whi"] + n_cold * n_hi)
-    return bound(bf16, fp32, 3 * (n_warm + n_cold) * npad * npad * 4.0)
+    fp32, tf32 = tail_ops(npad, prod * 2 * (n_warm * warm_kw["n_whi"] + n_cold * n_hi))
+    return bound(bf16, fp32, 3 * (n_warm + n_cold) * npad * npad * 4.0, tf32)
 
 
 def guard_r0(ks, init) -> torch.Tensor:

@@ -1,5 +1,5 @@
 // Factorization kernels at the 256 tile: one thread-block cluster of 4 CTAs
-// per system.
+// per system, the Newton-Schulz products on the tensor cores.
 //
 // ns_inverse_scaled_256_kernel replaces the TPU kernel
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled (_kernel_scaled_il, npad 256)
@@ -14,40 +14,83 @@
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas and
 //   ns_inverse_pallas_blocked (npad 256)
 //
-// The schedule, the bf16x3 split-on-read products and the fp32 tail are those
-// of the 128-tile core (ns_core.cuh), step for step; only the residency
-// differs. The TPU kernels keep K, X and T of a 256 system in VMEM. Here K, X
-// and one scratch tile T at 256 x 257 floats each would take 789,504 bytes,
-// over the 232,448 one block may use. So each system runs on a cluster of 4
-// CTAs on 4 SMs (chosen over a single block streaming K and X from L2, which
-// would re-read 512 KB from L2 per product): CTA q owns rows [64q, 64q+64)
-// of K, X and T, 3 x 64 x 257 floats = 197,376 bytes, the budget of the
-// 128-tile kernel at one block per SM, and K, X and T never leave the
-// cluster's shared memory for the whole schedule. One NS step:
+// The schedule is the 128-tile core's (ns_core.cuh), step for step: alpha,
+// the mu table, n_scaled + n_quad bf16x3 steps, n_hi fp32 steps. Residency:
+// K, X and one scratch tile T at 256 x 256 floats take 786,432 bytes, over
+// the 232,448 one block may use, so each system runs on a cluster of 4 CTAs
+// on 4 SMs. CTA q owns rows [64q, 64q+64) of K, X and T (3 x 64 KB), and K,
+// X and T never leave the cluster's shared memory for the whole schedule.
+// One NS step:
 //
-//   T_q = 2I - mu K_q X     reads the 4 slabs of X over distributed shared
-//                           memory (DSMEM), then cluster.sync()
-//   X_q = mu X_q T          reads the 4 slabs of T the same way, then
-//                           cluster.sync(), so no peer reads X or T while
-//                           they are replaced
+//   T_q = 2I - mu K_q X     B = X: its 4 slabs, 3 of them over distributed
+//                           shared memory (DSMEM), then cluster.sync()
+//   X_q = mu X_q T          B = T the same way, then cluster.sync(), so no
+//                           peer reads X or T while they are replaced
 //
 // and alpha = 1 / max_i sum_j |K_ij| is a cluster-wide max over DSMEM.
 //
-// What bounds it on an H100: each CTA does the 64 x 256 x 256 products of its
-// slab with fp32 FMAs on the CUDA cores (3 per bf16x3 product), 2x the work of
-// a 128-tile block, so the kernel is FMA-issue bound as the 128 kernel is,
-// plus the DSMEM reads of 3/4 of every B operand and two cluster barriers per
-// step. At 8 warps per SM a DSMEM load per product step left the FMAs
-// waiting (K2 at 2048 systems of n = 192, ADMM schedule: 195.4 ms on an H100
-// 80GB HBM3 at 700 W, chip_smoke.py): the B operand is copied 32 rows at a
-// time into a 32 KB staging buffer, the shared memory left beside the slabs,
-// with 32 loads in flight per thread (149.3 ms); the sums still run over k
-// in order, so the result is unchanged. Each thread keeps an 8 x 8 output
-// grid (rows ty + 8i, cols tx + 32j): a warp reads one broadcast A value and
-// 32 consecutive B values per k. Only 30 clusters fit on the card at once
-// (120 of 132 SMs). The tensor cores (mma / wgmma on pre-split hi/lo
-// operands) are a later step.
+// The product (mm_slab). Each CTA computes its 64 x 256 slab of A B on the
+// tensor cores; 8 warps, each a 32 x 64 tile (2 x 8 mma fragments of 16 x
+// 8), k in chunks of 16. A bf16x3 product splits both operands into bf16 hi
+// and lo (round to nearest, split_bf16's arithmetic) and runs hi*hi, hi*lo
+// and lo*hi as three mma.sync m16n8k16 bf16 mmas into one fp32 accumulator.
+// The fp32 tail runs as 3xTF32: hi = tf32(a), lo = tf32(a - hi) (cvt.rna),
+// the same three passes as m16n8k8 tf32 mmas, into a fresh accumulator per
+// chunk that one fp32 add takes into the total. Accumulated in the mmas over
+// all 256 terms, the tail read ~4x the reference's residual on the polish
+// schedule, over chip_smoke.py's 2x rule (PERF.md): the tensor cores' fp32
+// accumulation is coarser than fmaf's over long sums, not over 16 terms.
+// The sums run in another order than the reference's, so results differ
+// from it by rounding (tests/test_torch_ns_inverse.py holds this order to
+// the reference's residual gates on the CPU).
+//
+// B is staged through a double-buffered ring of two 16-row chunks (16 KB
+// each): every thread keeps its 4 float4 of the next two chunks in flight
+// from the owning CTAs (ld.shared::cluster; those of chunk c + 2 start as
+// soon as chunk c is staged), so the DSMEM traffic runs under the mmas and
+// the staging, with one __syncthreads per chunk. The
+// CTAs start on their own slab and walk the peers in turn, so each slab
+// serves one peer at a time. A bf16x3 chunk is stored split, as hi and lo
+// bf16 planes in an XOR-swizzled layout that ldmatrix.trans reads free of
+// bank conflicts: each element of B is split once per CTA and product. A
+// tail chunk stays fp32 and is split as it is read. A is the CTA's own slab,
+// fp32, split as its fragments are read (each warp reads 32 rows). K, X and
+// T stay fp32 in shared memory: the tail needs all 24 bits, and bf16 hi/lo
+// planes would take the same 4 bytes an element. Their columns are
+// XOR-swizzled by 8 (row % 4), so the fragment loads and the epilogue's
+// stores are free of bank conflicts without padding. Shared memory:
+// 3 x 65,536 bytes of slabs + 2 x 16,384 of staging = 229,376 bytes a CTA.
+//
+// What bounds it, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md;
+// chip_smoke.py and probes/ns_cluster_probe.cu): a bf16x3 product of a CTA's
+// slab takes ~11.7 us. Its parts alone: 6,144 bf16 mmas, ~5.3 us at the 621
+// TFLOP/s mma.sync reaches over 132 SMs at 8 warps each; 3/4 of B (196,608
+// bytes) over DSMEM, 6.8-7.7 us, ~8 us staged; and ~1.3 MB through the SM's
+// shared memory (A fragments read by 4 warps, the B planes by 2, the staging
+// stores, the peers' DSMEM reads), ~5.3 us at 128 bytes a clock. One barrier
+// per chunk keeps every warp in the same phase, so they overlap only in
+// part. K2 at 2048 systems of n = 192 takes 18.2 ms (ADMM schedule; 149.4 ms
+// with the products on the CUDA cores) and 23.1 ms (polish), 0.23 of the
+// bound at the tensor cores' dense 989 TFLOP/s, under torch.linalg.inv on
+// the same matrices. The four limits of the CUDA-core kernel and what this
+// design does about each:
+//   1. bf16x3 as 3 fp32 FMAs per multiply-add: mma.sync on bf16 hi/lo, and
+//      the tail on tf32 hi/lo;
+//   2. both operands split on every read, 16 splits per thread per k: B is
+//      split once per CTA as it is staged, A once per warp column (512
+//      splits per thread per bf16x3 product in place of 4,096);
+//   3. B copied from the peers in 32-row chunks between two __syncthreads,
+//      overlapping nothing: two chunks' DSMEM loads stay in flight under the
+//      mmas and the staging, one barrier per chunk;
+//   4. one CTA per SM, 30 clusters on 120 of 132 SMs: unchanged. K, X and T
+//      at 192 KB a CTA leave no room for a second CTA, and the 4-CTA
+//      clusters do not tile every GPC.
+// Next: producer warps that stage B while the mma warps compute (mbarriers,
+// setmaxnreg: the 8 mma warps already hold 255 registers a thread), then
+// wgmma and a 2 x 2 quadrant split of K, X and T (2 x 64 KB of DSMEM a
+// product).
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -60,101 +103,317 @@ namespace qct {
 constexpr int NC_N = 256;                  // the tile
 constexpr int NC_CTAS = 4;                 // CTAs per system: one cluster
 constexpr int NC_ROWS = NC_N / NC_CTAS;    // rows of K, X and T per CTA
-constexpr int NC_LD = NC_N + 1;            // shared-memory row stride
-constexpr int NC_THREADS = 256;            // 8 x 32 threads
-constexpr int NC_CHUNK = 32;               // rows of a B operand staged at a time
-// K, X, T slabs and the staging buffer: 197,376 + 32,768 bytes
-constexpr size_t NC_SMEM_BYTES = (3 * NC_ROWS * NC_LD + NC_CHUNK * NC_N) * sizeof(float);
+constexpr int NC_THREADS = 256;            // 8 warps: 2 x 4 warp tiles of 32 x 64
+constexpr int NC_KC = 16;                  // rows of B per staged chunk
+constexpr int NC_CHUNKS = NC_N / NC_KC;    // chunks per product
+constexpr int NC_SLAB = NC_ROWS * NC_N;    // floats per slab
+constexpr int NC_STAGE = NC_KC * NC_N;     // 32-bit words per staging buffer
+// K, X, T slabs and the two staging buffers: 196,608 + 32,768 bytes
+constexpr size_t NC_SMEM_BYTES = (3 * NC_SLAB + 2 * NC_STAGE) * sizeof(float);
 
-// acc = A_q @ B for the calling thread's 8 x 8 grid of this CTA's 64 x 256
-// output. A_q (64 x 256) is this CTA's slab; B (256 x 256) is distributed:
-// its rows [64p, 64p+64) are the slab at offset `b_slab` in CTA p's shared
-// memory. B is read in chunks of NC_CHUNK rows, each first copied into the
-// CTA's staging buffer S: 32 loads in flight per thread instead of one
-// DSMEM round trip per product step. The sum runs over k in order, as
-// without staging.
+// Slab element (r, c): the columns of row r are XOR-swizzled by 8 (r % 4),
+// which keeps float2 and float4 groups whole.
+__device__ __forceinline__ int sw(int r, int c) { return r * NC_N + (c ^ ((r & 3) << 3)); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of `addr` (a shared::cta address) in CTA `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) -> bf16x2 hi and lo, x in the low half: split_bf16 on each.
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// a -> tf32 hi and lo, hi = tf32(a), lo = tf32(a - hi).
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(a);
+  lo = to_tf32(a - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The calling thread's place in the mma layouts: fragment row g and column
+// pair t, and its warp's 32 x 64 tile (rows 32 wm, columns 64 wn).
+struct Lane {
+  int g, t, wm, wn;
+  __device__ __forceinline__ Lane()
+      : g((threadIdx.x & 31) >> 2), t(threadIdx.x & 3), wm(threadIdx.x >> 7),
+        wn((threadIdx.x >> 5) & 3) {}
+  // row of accumulator entries acc[mt][*][2h, 2h+1]; column of acc[*][nt][0]
+  __device__ __forceinline__ int row(int mt, int h) const { return 32 * wm + 16 * mt + g + 8 * h; }
+  __device__ __forceinline__ int col(int nt) const { return 64 * wn + 8 * nt + 2 * t; }
+};
+
+using Acc = float[2][8][4];
+
+// Store the 4 float4 of one chunk a thread loaded (rows si + 4s, columns
+// 4 sj..4 sj+3) into a staging buffer. bf16x3: hi and lo planes of 16 x 256
+// bf16, row k's 16-byte groups XOR-swizzled by k % 8 (ldmatrix.trans). fp32:
+// 16 x 256 floats, columns XOR-swizzled by 8 (k % 4) (the tf32 fragments).
 template <bool kBf16x3>
-__device__ __forceinline__ void mm_slab(const float* __restrict__ A, float* b_slab,
-                                        float* __restrict__ S, float (&acc)[8][8]) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
+__device__ __forceinline__ void stage_store(uint32_t* st, const float4 (&v)[4], int si, int sj) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int s = 0; s < 4; ++s) {
+    const int k = si + 4 * s;
+    if (kBf16x3) {
+      uint2 hi, lo;
+      split_pair(v[s].x, v[s].y, hi.x, lo.x);
+      split_pair(v[s].z, v[s].w, hi.y, lo.y);
+      const int off = k * (NC_N / 2) + (((sj >> 1) ^ (k & 7)) << 2) + ((sj & 1) << 1);
+      *reinterpret_cast<uint2*>(st + off) = hi;
+      *reinterpret_cast<uint2*>(st + NC_STAGE / 2 + off) = lo;
+    } else {
+      *reinterpret_cast<float4*>(st + k * NC_N + ((4 * sj) ^ (si << 3))) = v[s];
+    }
+  }
+}
+
+// acc += A[:, kg:kg+16] @ (staged chunk) for the warp's tile, bf16x3.
+__device__ __forceinline__ void mma_chunk_bf16(const float* __restrict__ A, const uint32_t* st,
+                                               int kg, const Lane& ln, Acc& acc) {
+  uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  for (int p = 0; p < NC_CTAS; ++p) {
-    const float* B = cluster.map_shared_rank(b_slab, p);
-    for (int k0 = 0; k0 < NC_ROWS; k0 += NC_CHUNK) {
-      __syncthreads();  // every read of the previous chunk is done
-#pragma unroll 8
-      for (int idx = threadIdx.x; idx < NC_CHUNK * NC_N; idx += NC_THREADS) {
-        S[idx] = B[(k0 + idx / NC_N) * NC_LD + idx % NC_N];
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int kk = 0; kk < NC_CHUNK; ++kk) {
-        const int k = p * NC_ROWS + k0 + kk;
-        float a[8], b[8];
+  for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-        for (int r = 0; r < 8; ++r) a[r] = A[(ty + 8 * r) * NC_LD + k];
+    for (int f = 0; f < 4; ++f) {  // a0..a3: rows g, g+8 of columns 2t and 2t+8
+      const int r = ln.row(mt, f & 1), c = kg + 2 * ln.t + 8 * (f >> 1);
+      const float2 x = *reinterpret_cast<const float2*>(A + sw(r, c));
+      split_pair(x.x, x.y, ah[mt][f], al[mt][f]);
+    }
+  }
+  // ldmatrix.x4.trans: lanes 8m..8m+7 address rows k = lane % 8 + 8 (m % 2) of
+  // columns 8 (m / 2) on: b0, b1 of two neighbouring 8-column tiles
+  const int lane = threadIdx.x & 31;
+  const int k = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t plane = smem_addr(st) + k * NC_N * 2;   // bytes: 256 bf16 a row
 #pragma unroll
-        for (int c = 0; c < 8; ++c) b[c] = S[kk * NC_N + tx + 32 * c];
-        if (kBf16x3) {
-          float ah[8], al[8], bh[8], bl[8];
+  for (int np = 0; np < 4; ++np) {
+    const int grp = (64 * ln.wn + 16 * np) / 8 + (lane >> 4);
+    const uint32_t off = ((grp ^ (k & 7)) << 4);
+    uint32_t bh[4], bl[4];
+    ldsm_x4_trans(plane + off, bh);
+    ldsm_x4_trans(plane + NC_STAGE * 2 + off, bl);
 #pragma unroll
-          for (int r = 0; r < 8; ++r) split_bf16(a[r], ah[r], al[r]);
+    for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-          for (int c = 0; c < 8; ++c) split_bf16(b[c], bh[c], bl[c]);
-#pragma unroll
-          for (int r = 0; r < 8; ++r)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-              acc[r][c] = fmaf(ah[r], bh[c], acc[r][c]);
-              acc[r][c] = fmaf(ah[r], bl[c], acc[r][c]);
-              acc[r][c] = fmaf(al[r], bh[c], acc[r][c]);
-            }
-        } else {
-#pragma unroll
-          for (int r = 0; r < 8; ++r)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-        }
+      for (int h = 0; h < 2; ++h) {
+        float(&d)[4] = acc[mt][2 * np + h];
+        mma_bf16(d, ah[mt], bh[2 * h], bh[2 * h + 1]);
+        mma_bf16(d, ah[mt], bl[2 * h], bl[2 * h + 1]);
+        mma_bf16(d, al[mt], bh[2 * h], bh[2 * h + 1]);
       }
     }
   }
 }
 
+// acc += A[:, kg:kg+16] @ (staged chunk) for the warp's tile, 3xTF32: per 8
+// k the passes hi*hi, hi*lo, lo*hi of tf32 parts (m16n8k8 mmas) into a fresh
+// accumulator, which one fp32 add per entry takes into acc. Accumulating a
+// whole product in the mmas' accumulator loses ~4x fmaf's accuracy over 256
+// terms; 16 terms per add do not (PERF.md, the probe). One 16-row fragment
+// row at a time, which keeps the fresh accumulator at 32 registers.
+__device__ __forceinline__ void mma_chunk_tf32(const float* __restrict__ A, const uint32_t* st,
+                                               int kg, const Lane& ln, Acc& acc) {
+  const float* sf = reinterpret_cast<const float*>(st);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    float part[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NC_KC; kk += 8) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {  // a0..a3: rows g, g+8 of columns t and t+4
+        const float x = A[sw(ln.row(mt, f & 1), kg + kk + ln.t + 4 * (f >> 1))];
+        split_tf32(x, ah[f], al[f]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        // b0, b1: rows kk + t and kk + t + 4 (both t mod 4) of column n
+        const int sn = (64 * ln.wn + 8 * nt + ln.g) ^ (ln.t << 3);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(sf[(kk + ln.t) * NC_N + sn], bh0, bl0);
+        split_tf32(sf[(kk + ln.t + 4) * NC_N + sn], bh1, bl1);
+        mma_tf32(part[nt], ah, bh0, bh1);
+        mma_tf32(part[nt], ah, bl0, bl1);
+        mma_tf32(part[nt], al, bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
+  }
+}
+
+// acc = A_q @ B for the calling warp's 32 x 64 tile of this CTA's 64 x 256
+// output. A_q (64 x 256) is this CTA's slab; B (256 x 256) is distributed:
+// its rows [64p, 64p+64) are the slab at `b_slab` in CTA p's shared memory.
+// B goes through the two staging buffers at S in chunks of 16 rows. Each
+// thread keeps two chunks' DSMEM loads in flight (v0, v1): the loads of
+// chunk c + 2 start as soon as chunk c is staged, so the DSMEM traffic,
+// which takes longer than a chunk's mmas, never waits on the staging.
+template <bool kBf16x3>
+__device__ __forceinline__ void mm_slab(const float* __restrict__ A, const float* b_slab,
+                                        uint32_t* S, Acc& acc) {
+  const Lane ln;
+  const int q = static_cast<int>(cg::this_cluster().block_rank());
+  const int si = threadIdx.x >> 6, sj = threadIdx.x & 63;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  // this thread's float4 of a chunk: rows si + 4s (row % 4 == si), columns 4 sj..
+  const uint32_t b_own = smem_addr(b_slab) + (si * NC_N + ((4 * sj) ^ (si << 3))) * 4;
+  auto load = [&](int c, float4 (&v)[4]) {
+    const uint32_t base = map_rank(b_own, (q + c / 4) & 3) + (c & 3) * NC_KC * NC_N * 4;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) v[s] = ld_cluster(base + s * 4 * NC_N * 4);
+  };
+  auto chunk = [&](int c, float4 (&v)[4]) {
+    uint32_t* st = S + (c & 1) * NC_STAGE;
+    stage_store<kBf16x3>(st, v, si, sj);
+    __syncthreads();  // chunk c staged; every read of chunk c - 2's buffer is done
+    if (c + 2 < NC_CHUNKS) load(c + 2, v);
+    const int kg = ((q + c / 4) & 3) * NC_ROWS + (c & 3) * NC_KC;  // B's first row in chunk c
+    if (kBf16x3) {
+      mma_chunk_bf16(A, st, kg, ln, acc);
+    } else {
+      mma_chunk_tf32(A, st, kg, ln, acc);
+    }
+  };
+  float4 v0[4], v1[4];
+  load(0, v0);
+  load(1, v1);
+  for (int c = 0; c < NC_CHUNKS; c += 2) {
+    chunk(c, v0);
+    chunk(c + 1, v1);
+  }
+}
+
+// T = (2I - mu acc) on this CTA's rows (row0 on), the first half of a step.
+__device__ __forceinline__ void store_t(float* T, const Acc& acc, float mu, int row0) {
+  const Lane ln;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = ln.row(mt, h), j = ln.col(nt);
+        float2 v;
+        v.x = (row0 + i == j ? 2.f : 0.f) - mu * acc[mt][nt][2 * h];
+        v.y = (row0 + i == j + 1 ? 2.f : 0.f) - mu * acc[mt][nt][2 * h + 1];
+        *reinterpret_cast<float2*>(T + sw(i, j)) = v;
+      }
+}
+
+// X = mu acc, the second half of a step.
+__device__ __forceinline__ void store_x(float* X, const Acc& acc, float mu) {
+  const Lane ln;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = make_float2(mu * acc[mt][nt][2 * h], mu * acc[mt][nt][2 * h + 1]);
+        *reinterpret_cast<float2*>(X + sw(ln.row(mt, h), ln.col(nt))) = v;
+      }
+}
+
 // One NS step on the cluster: T = 2I - mu K X, then X = mu X T. row0 is the
 // first global row of this CTA's slab.
 template <bool kBf16x3>
-__device__ __forceinline__ void nc_step(const float* K, float* X, float* T, float* S, float mu,
+__device__ __forceinline__ void nc_step(const float* K, float* X, float* T, uint32_t* S, float mu,
                                         int row0) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  float acc[8][8];
+  Acc acc;
   mm_slab<kBf16x3>(K, X, S, acc);
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = ty + 8 * r, j = tx + 32 * c;
-      T[i * NC_LD + j] = (row0 + i == j ? 2.f : 0.f) - mu * acc[r][c];
-    }
+  store_t(T, acc, mu, row0);
   cluster.sync();  // T complete in every CTA; every read of X is done
   mm_slab<kBf16x3>(X, T, S, acc);
   __syncthreads();  // this CTA's reads of its X slab are done
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) X[(ty + 8 * r) * NC_LD + tx + 32 * c] = mu * acc[r][c];
+  store_x(X, acc, mu);
   cluster.sync();  // X complete in every CTA; every read of T is done
+}
+
+// The largest over all threads of the CTA of v, in every thread.
+__device__ __forceinline__ float block_max(float v, float* warp_max) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();  // warp_max is free
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float mx = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < NC_THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
+  return mx;
+}
+
+// The largest of `slab_v` over the cluster's 4 CTAs, in every thread. Each
+// CTA writes its own slab_v before the barrier.
+__device__ __forceinline__ float cluster_max(float* slab_v) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  float mx = *slab_v;
+#pragma unroll
+  for (int p = 0; p < NC_CTAS; ++p) mx = fmaxf(mx, *cluster.map_shared_rank(slab_v, p));
+  return mx;
 }
 
 // The whole schedule on the cluster's K slabs into its X slabs. Every thread
 // of every CTA of the cluster must call it.
-__device__ __forceinline__ void nc_schedule(const float* K, float* X, float* T, float* S,
+__device__ __forceinline__ void nc_schedule(const float* K, float* X, float* T, uint32_t* S,
                                             const NsSchedule& s, int row0) {
   cg::cluster_group cluster = cg::this_cluster();
   __shared__ float warp_max[NC_THREADS / 32];
@@ -164,58 +423,56 @@ __device__ __forceinline__ void nc_schedule(const float* K, float* X, float* T, 
   // then the max over the cluster's 4 slabs
   float row = 0.f;
   if (tid < NC_ROWS) {
-    for (int j = 0; j < NC_N; ++j) row += fabsf(K[tid * NC_LD + j]);
+    for (int j = 0; j < NC_N; ++j) row += fabsf(K[sw(tid, j)]);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, off));
-  if ((tid & 31) == 0) warp_max[tid >> 5] = row;
-  __syncthreads();
-  if (tid == 0) {
-    float mx = warp_max[0];
-#pragma unroll
-    for (int w = 1; w < NC_THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-    slab_max = mx;
-  }
-  cluster.sync();
-  float mx = 0.f;
-#pragma unroll
-  for (int p = 0; p < NC_CTAS; ++p) mx = fmaxf(mx, *cluster.map_shared_rank(&slab_max, p));
-  const float alpha = 1.f / mx;
-  for (int idx = tid; idx < NC_ROWS * NC_N; idx += NC_THREADS) {
+  const float mx = block_max(row, warp_max);
+  if (tid == 0) slab_max = mx;
+  const float alpha = 1.f / cluster_max(&slab_max);
+  for (int idx = tid; idx < NC_SLAB; idx += NC_THREADS) {
     const int i = idx / NC_N, j = idx % NC_N;
-    X[i * NC_LD + j] = (row0 + i == j) ? alpha : 0.f;
+    X[sw(i, j)] = (row0 + i == j) ? alpha : 0.f;
   }
-  cluster.sync();
+  cluster.sync();  // X complete; every peer has read slab_max
   for (int it = 0; it < s.n_scaled; ++it) nc_step<true>(K, X, T, S, s.mu[it], row0);
   for (int it = 0; it < s.n_quad; ++it) nc_step<true>(K, X, T, S, 1.f, row0);
   for (int it = 0; it < s.n_hi; ++it) nc_step<false>(K, X, T, S, 1.f, row0);
 }
 
-__device__ __forceinline__ void store_slab(const float* X, float* __restrict__ dst) {
-  for (int idx = threadIdx.x; idx < NC_ROWS * NC_N; idx += NC_THREADS) {
-    dst[idx] = X[(idx / NC_N) * NC_LD + idx % NC_N];
+__device__ __forceinline__ void load_slab(const float* __restrict__ src, float* dst) {
+  for (int idx = threadIdx.x; idx < NC_SLAB; idx += NC_THREADS) {
+    dst[sw(idx / NC_N, idx % NC_N)] = src[idx];
   }
 }
+
+__device__ __forceinline__ void store_slab(const float* X, float* __restrict__ dst) {
+  for (int idx = threadIdx.x; idx < NC_SLAB; idx += NC_THREADS) {
+    dst[idx] = X[sw(idx / NC_N, idx % NC_N)];
+  }
+}
+
+// The three slabs and the staging ring in dynamic shared memory.
+struct Slabs {
+  float *K, *X, *T;
+  uint32_t* S;
+  __device__ __forceinline__ explicit Slabs(float* smem)
+      : K(smem), X(smem + NC_SLAB), T(smem + 2 * NC_SLAB),
+        S(reinterpret_cast<uint32_t*>(smem + 3 * NC_SLAB)) {}
+};
 
 // ks (B, 256, 256) Jacobi-scaled, identity on the pad -> inv (B, 256, 256).
 // Grid: 4 CTAs per system, the 4 CTAs of system b are blocks 4b..4b+3.
 __global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
 ns_inverse_scaled_256_kernel(const float* __restrict__ ks, float* __restrict__ inv,
                              NsSchedule s) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + NC_ROWS * NC_LD;
-  float* T = X + NC_ROWS * NC_LD;
-  float* S = T + NC_ROWS * NC_LD;
+  extern __shared__ __align__(128) float smem[];
+  const Slabs m(smem);
   const int row0 = static_cast<int>(cg::this_cluster().block_rank()) * NC_ROWS;
   const size_t base = static_cast<size_t>(blockIdx.x / NC_CTAS) * NC_N * NC_N +
                       static_cast<size_t>(row0) * NC_N;
-  for (int idx = threadIdx.x; idx < NC_ROWS * NC_N; idx += NC_THREADS) {
-    K[(idx / NC_N) * NC_LD + idx % NC_N] = ks[base + idx];
-  }
+  load_slab(ks + base, m.K);
   __syncthreads();
-  nc_schedule(K, X, T, S, s, row0);
-  store_slab(X, inv + base);
+  nc_schedule(m.K, m.X, m.T, m.S, s, row0);
+  store_slab(m.X, inv + base);
 }
 
 // K = hp + blockdiag3(g9), d = rsqrt(max(diag K, 1e-30)), ks = D K D, then the
@@ -227,11 +484,8 @@ __global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
 ns_inverse_scaled_build_256_kernel(const float* __restrict__ hp, const float* __restrict__ g9,
                                    int nblk, float* __restrict__ inv,
                                    float* __restrict__ d_row, NsSchedule s) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + NC_ROWS * NC_LD;
-  float* T = X + NC_ROWS * NC_LD;
-  float* S = T + NC_ROWS * NC_LD;
+  extern __shared__ __align__(128) float smem[];
+  const Slabs m(smem);
   __shared__ float d[NC_N];
   const int row0 = static_cast<int>(cg::this_cluster().block_rank()) * NC_ROWS;
   const size_t sys = blockIdx.x / NC_CTAS;
@@ -245,17 +499,17 @@ ns_inverse_scaled_build_256_kernel(const float* __restrict__ hp, const float* __
   }
   __syncthreads();
   if (threadIdx.x < NC_ROWS) d_row[sys * NC_N + row0 + threadIdx.x] = d[row0 + threadIdx.x];
-  for (int idx = threadIdx.x; idx < NC_ROWS * NC_N; idx += NC_THREADS) {
+  for (int idx = threadIdx.x; idx < NC_SLAB; idx += NC_THREADS) {
     const int i = idx / NC_N, c = idx % NC_N;
     const int r = row0 + i;
     float v = hp[base + static_cast<size_t>(r) * NC_N + c];
     const int blk = c / 3;
     if (r / 3 == blk && blk < nblk) v += g[(3 * (r % 3) + c % 3) * nblk + blk];
-    K[i * NC_LD + c] = v * d[r] * d[c];
+    m.K[sw(i, c)] = v * d[r] * d[c];
   }
   __syncthreads();
-  nc_schedule(K, X, T, S, s, row0);
-  store_slab(X, inv + base + static_cast<size_t>(row0) * NC_N);
+  nc_schedule(m.K, m.X, m.T, m.S, s, row0);
+  store_slab(m.X, inv + base + static_cast<size_t>(row0) * NC_N);
 }
 
 // Guard-free warm NS at the 256 tile, as ns_inverse_refine_kernel at 128: each
@@ -264,27 +518,22 @@ ns_inverse_scaled_build_256_kernel(const float* __restrict__ hp, const float* __
 __global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
 ns_inverse_refine_256_kernel(const float* __restrict__ ks, const float* __restrict__ init,
                              float* __restrict__ inv, int n_quad, int n_hi) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + NC_ROWS * NC_LD;
-  float* T = X + NC_ROWS * NC_LD;
-  float* S = T + NC_ROWS * NC_LD;
+  extern __shared__ __align__(128) float smem[];
+  const Slabs m(smem);
   const int row0 = static_cast<int>(cg::this_cluster().block_rank()) * NC_ROWS;
   const size_t base = static_cast<size_t>(blockIdx.x / NC_CTAS) * NC_N * NC_N +
                       static_cast<size_t>(row0) * NC_N;
-  for (int idx = threadIdx.x; idx < NC_ROWS * NC_N; idx += NC_THREADS) {
-    K[(idx / NC_N) * NC_LD + idx % NC_N] = ks[base + idx];
-    X[(idx / NC_N) * NC_LD + idx % NC_N] = init[base + idx];
-  }
+  load_slab(ks + base, m.K);
+  load_slab(init + base, m.X);
   cg::this_cluster().sync();  // every slab of X is loaded before a peer reads it
-  for (int it = 0; it < n_quad; ++it) nc_step<true>(K, X, T, S, 1.f, row0);
-  for (int it = 0; it < n_hi; ++it) nc_step<false>(K, X, T, S, 1.f, row0);
-  store_slab(X, inv + base);
+  for (int it = 0; it < n_quad; ++it) nc_step<true>(m.K, m.X, m.T, m.S, 1.f, row0);
+  for (int it = 0; it < n_hi; ++it) nc_step<false>(m.K, m.X, m.T, m.S, 1.f, row0);
+  store_slab(m.X, inv + base);
 }
 
 // Guarded warm NS at the 256 tile, as ns_inverse_warm_kernel at 128: each CTA
 // loads its 64-row slabs of ks and of init (straight into the X slab, so the
-// three slabs and the staging buffer are all the shared memory it needs),
+// three slabs and the staging ring are all the shared memory it needs),
 // forms its slab of T = 2I - K X0 (bf16x3) and the largest row sum of
 // |I - K X0| over its rows. r0 is the max over the cluster's 4 slabs, read over
 // DSMEM after the barrier that completes T, exactly as alpha is: every CTA
@@ -295,69 +544,70 @@ __global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
 ns_inverse_warm_256_kernel(const float* __restrict__ ks, const float* __restrict__ init,
                            float* __restrict__ inv, NsSchedule s, int n_wquad, int n_whi,
                            float guard) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + NC_ROWS * NC_LD;
-  float* T = X + NC_ROWS * NC_LD;
-  float* S = T + NC_ROWS * NC_LD;
+  extern __shared__ __align__(128) float smem[];
+  const Slabs m(smem);
   __shared__ float warp_max[NC_THREADS / 32];
   __shared__ float slab_r0;
   cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
+  const Lane ln;
   const int row0 = static_cast<int>(cluster.block_rank()) * NC_ROWS;
   const size_t base = static_cast<size_t>(blockIdx.x / NC_CTAS) * NC_N * NC_N +
                       static_cast<size_t>(row0) * NC_N;
-  for (int idx = tid; idx < NC_ROWS * NC_N; idx += NC_THREADS) {
-    K[(idx / NC_N) * NC_LD + idx % NC_N] = ks[base + idx];
-    X[(idx / NC_N) * NC_LD + idx % NC_N] = init[base + idx];
-  }
+  load_slab(ks + base, m.K);
+  load_slab(init + base, m.X);
   cluster.sync();  // every slab of X is loaded before a peer reads it
-  float acc[8][8];
-  mm_slab<true>(K, X, S, acc);
-  float rmax = 0.f;
+  Acc acc;
+  mm_slab<true>(m.K, m.X, m.S, acc);
+  store_t(m.T, acc, 1.f, row0);
+  // row sums of |I - acc|: this thread's 4 rows over its 16 columns, then the
+  // 4 lanes of a row (xor 1, 2), then the 4 warps of a row through the
+  // staging buffer, which the product no longer reads after this barrier
+  float part[2][2];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = ty + 8 * r;
-    float row = 0.f;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = tx + 32 * c;
-      row += fabsf((row0 + i == j ? 1.f : 0.f) - acc[r][c]);
-      T[i * NC_LD + j] = (row0 + i == j ? 2.f : 0.f) - acc[r][c];
+    for (int h = 0; h < 2; ++h) {
+      const int i = ln.row(mt, h);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sum += fabsf((row0 + i == ln.col(nt) + e ? 1.f : 0.f) - acc[mt][nt][2 * h + e]);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      part[mt][h] = sum;
     }
-    // row i's 256 entries lie on the warp's 32 lanes
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) row += __shfl_xor_sync(0xffffffffu, row, off);
-    rmax = fmaxf(rmax, isnan(row) ? INFINITY : row);  // fmaxf drops NaN: a NaN start fails
-  }
-  if (tx == 0) warp_max[ty] = rmax;
   __syncthreads();
-  if (tid == 0) {
-    float mx = warp_max[0];
+  float* rows = reinterpret_cast<float*>(m.S);  // [4 warp columns][64 rows]
+  if (ln.t == 0) {
 #pragma unroll
-    for (int w = 1; w < NC_THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-    slab_r0 = mx;
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rows[ln.wn * NC_ROWS + ln.row(mt, h)] = part[mt][h];
   }
-  cluster.sync();  // T and slab_r0 complete in every CTA; every read of X is done
-  float r0 = slab_r0;
-#pragma unroll
-  for (int p = 0; p < NC_CTAS; ++p) r0 = fmaxf(r0, *cluster.map_shared_rank(&slab_r0, p));
+  __syncthreads();
+  float row = 0.f;
+  if (threadIdx.x < NC_ROWS) {
+    row = rows[threadIdx.x] + rows[NC_ROWS + threadIdx.x] + rows[2 * NC_ROWS + threadIdx.x] +
+          rows[3 * NC_ROWS + threadIdx.x];
+    if (isnan(row)) row = INFINITY;  // fmaxf drops NaN: a NaN start fails
+  }
+  const float mx = block_max(row, warp_max);
+  if (threadIdx.x == 0) slab_r0 = mx;
+  // T and slab_r0 complete in every CTA; every read of X is done
+  const float r0 = cluster_max(&slab_r0);
   if (r0 < guard) {
-    mm_slab<true>(X, T, S, acc);
+    mm_slab<true>(m.X, m.T, m.S, acc);
     __syncthreads();  // this CTA's reads of its X slab are done
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) X[(ty + 8 * r) * NC_LD + tx + 32 * c] = acc[r][c];
+    store_x(m.X, acc, 1.f);
     cluster.sync();  // X complete in every CTA; every read of T is done
-    for (int it = 1; it < n_wquad; ++it) nc_step<true>(K, X, T, S, 1.f, row0);
-    for (int it = 0; it < n_whi; ++it) nc_step<false>(K, X, T, S, 1.f, row0);
+    for (int it = 1; it < n_wquad; ++it) nc_step<true>(m.K, m.X, m.T, m.S, 1.f, row0);
+    for (int it = 0; it < n_whi; ++it) nc_step<false>(m.K, m.X, m.T, m.S, 1.f, row0);
   } else {
-    nc_schedule(K, X, T, S, s, row0);
+    nc_schedule(m.K, m.X, m.T, m.S, s, row0);
   }
-  store_slab(X, inv + base);
+  store_slab(m.X, inv + base);
 }
 
 template <typename Kernel>

@@ -74,6 +74,69 @@ def test_scaled_reference_residual(cond, sched, metric, gate):
     assert _resid(ks, inv)[metric] < gate
 
 
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest tf32 value, ties away from zero (cvt.rna.tf32.f32)."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tc_mm(a: torch.Tensor, b: torch.Tensor, bf16x3: bool) -> torch.Tensor:
+    """a @ b (B, 256, 256) summed as csrc/ns_cluster.cu's mm_slab sums it: the
+    rows in 4 slabs of 64, each slab's k in chunks of 16 starting at its own
+    slab of k and walking the others in turn. bf16x3: per chunk the three
+    bf16 passes hi*hi, hi*lo, lo*hi, each a 16-term sum added in turn to one
+    fp32 accumulator (an m16n8k16 mma). Otherwise (the fp32 tail) 3xTF32:
+    per 8 k the passes of tf32 parts (m16n8k8 mmas) into a chunk sum, which
+    one fp32 add takes into the accumulator."""
+    if bf16x3:
+        (ah, al), (bh, bl) = ([t.float() for t in NI._split(x)] for x in (a, b))
+    else:
+        ah, bh = _tf32(a), _tf32(b)
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+    passes = ((ah, bh), (ah, bl), (al, bh))
+    step = 16 if bf16x3 else 8
+    out = torch.empty_like(a)
+    for q in range(4):
+        rows = slice(64 * q, 64 * q + 64)
+        acc = torch.zeros_like(a[:, rows])
+        for c in range(16):
+            k0 = (q + c // 4) % 4 * 64 + c % 4 * 16
+            part = acc if bf16x3 else torch.zeros_like(acc)
+            for kc in range(k0, k0 + 16, step):
+                for pa, pb in passes:
+                    part = part + pa[:, rows, kc:kc + step] @ pb[:, kc:kc + step]
+            acc = part if bf16x3 else acc + part
+        out[:, rows] = acc
+    return out
+
+
+def _tc_schedule(ks, a0, n_scaled, n_quad, n_hi):
+    """The NS schedule of ns_inverse_scaled_reference with _tc_mm's sums."""
+    eye = torch.eye(ks.shape[-1])
+    x = (1.0 / ks.abs().sum(-1).amax(-1))[:, None, None] * eye
+    for mu in NI.mu_schedule(a0, n_scaled) + [1.0] * n_quad:
+        x = mu * _tc_mm(x, 2.0 * eye - mu * _tc_mm(ks, x, True), True)
+    for _ in range(n_hi):
+        x = _tc_mm(x, 2.0 * eye - _tc_mm(ks, x, False), False)
+    return x
+
+
+@pytest.mark.parametrize("n", [192, 144])
+@pytest.mark.parametrize("cond,sched,metric,gate", [
+    (2.1e3, ADMM, 0, 1e-2),
+    (1e4, POLISH, 1, 5e-3),
+])
+def test_tensor_core_summation_order_holds_the_gates(cond, sched, metric, gate, n):
+    """The 256-tile kernel's order of summation (bf16x3 mmas over k-chunks of
+    16, the tail in 3xTF32 with one fp32 add per chunk) on SPD n = 192 and
+    144, b = 8: the residual gates of test_scaled_reference_residual and
+    within 2x of the reference's (chip_smoke.py's rule)."""
+    ks = _spd_batch(3, 8, n, 256, cond)
+    ref = NI.ns_inverse_scaled_reference(torch.from_numpy(ks), *sched).numpy()
+    tc = _tc_schedule(torch.from_numpy(ks), *sched).numpy()
+    r_tc, r_ref = _resid(ks, tc)[metric], _resid(ks, ref)[metric]
+    assert r_tc < gate and r_ref < gate and r_tc <= 2 * r_ref + 1e-5, (r_tc, r_ref)
+
+
 def _build_operands(seed, b, hv, nf, npad):
     """(hp, g9, k, n): a random SPD hess_n + sigma I padded to npad, the gram
     blocks of random pyramid weights from JAX's pyramid_gram, and the
