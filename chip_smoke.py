@@ -5,13 +5,15 @@
 
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds the CUDA kernels from quadruped_ctrl_tpu_torch/csrc (one nvcc per
-   source, in parallel);
+   source, in parallel) and checks with cuobjdump that the factorization
+   kernels of both tiles hold tensor-core code (HMMA in their SASS);
 3. holds each kernel (K1 form_packed, K2 ns_inverse_scaled_build, K3
    ns_inverse_scaled) against its plain PyTorch reference on the card at the
-   128 tile, at the h=10 path's shapes, and times both;
+   128 tile, at the h=10 path's shapes, and times both (K2 and K3 with their
+   share of the bound and their bf16x3 rate);
 3b. the same at the h=16 shapes: K1 above 128 variables, K2 and K3 at the 256
-   tile (one 4-CTA cluster per system, the NS products on the tensor cores;
-   with their share of the bound and their bf16x3 rate), and the Schur split
+   tile (one 4-CTA cluster per system; the NS products on the tensor cores
+   at both tiles), and the Schur split
    K4 (K3 at the 128 tile inside) against its plain version;
 3c. the single-launch solve K5 (fused_admm_solve) at batch 2048, h=10, on the
    operands the fused path builds, and the warm NS refinement K6
@@ -58,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -133,6 +136,14 @@ KERNEL_INFO = {
 PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 
 
+# The factorization kernels whose NS products must run on the tensor cores,
+# at the 128 tile (ns_inverse.cu) and at the 256 tile (ns_cluster.cu).
+NS_KERNELS = ("ns_inverse_scaled_kernel", "ns_inverse_scaled_build_kernel",
+              "ns_inverse_refine_kernel", "ns_inverse_warm_kernel",
+              "ns_inverse_scaled_256_kernel", "ns_inverse_scaled_build_256_kernel",
+              "ns_inverse_refine_256_kernel", "ns_inverse_warm_256_kernel")
+
+
 def check(ok: bool, what: str):
     if not ok:
         raise AssertionError(what)
@@ -151,6 +162,24 @@ def median_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def check_tensor_core_sass(lib_path):
+    """cuobjdump -sass of the built library: every NS_KERNELS kernel holds
+    HMMA instructions (mma.sync on the tensor cores); K5, which keeps the
+    CUDA-core products, is printed beside them."""
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    hmma = {}
+    for body in sass.split("Function : ")[1:]:
+        hmma[body.split()[0]] = body.count("HMMA")
+    for name in NS_KERNELS + ("fused_admm_kernel",):
+        found = [n for n in hmma if n.startswith(f"_ZN3qct{len(name)}{name}E")]
+        print(f"  sass: {name}: {hmma[found[0]] if found else 'not found'} HMMA")
+        if name in NS_KERNELS:
+            check(len(found) == 1 and hmma[found[0]] > 0,
+                  f"{name} runs its NS products on the tensor cores (HMMA in its SASS)")
 
 
 def reset_counts():
@@ -182,20 +211,13 @@ def bound(ops_bf16: float, ops_fp32: float, nbytes: float,
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def tail_ops(npad: int, ops: float) -> tuple[float, float]:
-    """(fp32, tf32) operations of `ops` worth of fp32 NS products: 3 tf32
-    passes on the tensor cores at the 256 tile (3xTF32), fp32 FMAs on the
-    CUDA cores at 128."""
-    return (0.0, 3 * ops) if npad == NI.N_BIG else (ops, 0.0)
-
-
 def ns_bound(b: int, npad: int, schedule, nbytes: float) -> tuple[float, str]:
     """K2/K3: per NS step two npad^3 products (2 npad^3 operations each); the
-    bf16x3 steps count 3 bf16 passes, the fp32 tail as tail_ops counts it."""
+    bf16x3 steps count 3 bf16 passes, the fp32 tail 3 tf32 passes (3xTF32 on
+    the tensor cores at both tiles)."""
     _, n_scaled, n_quad, n_hi = schedule
     prod = 2.0 * npad ** 3 * 2 * b
-    fp32, tf32 = tail_ops(npad, prod * n_hi)
-    return bound(3 * prod * (n_scaled + n_quad), fp32, nbytes, tf32)
+    return bound(3 * prod * (n_scaled + n_quad), 0.0, nbytes, 3 * prod * n_hi)
 
 
 def form_bound(b: int, h: int, ms: int, pack: int) -> tuple[float, str]:
@@ -681,10 +703,9 @@ def phase_kernels_fused(cfg, dev, results):
 
 
 def plain_ns_bound(b: int, npad: int, iters: int) -> tuple[float, str]:
-    """K8/K9: `iters` fp32 NS steps of two npad^3 products per system; bytes:
-    ks in, the inverse out."""
-    fp32, tf32 = tail_ops(npad, 2.0 * npad ** 3 * 2 * b * iters)
-    return bound(0.0, fp32, 2 * b * npad * npad * 4.0, tf32)
+    """K8/K9: `iters` fp32 NS steps of two npad^3 products per system, each
+    3 tf32 passes; bytes: ks in, the inverse out."""
+    return bound(0.0, 0.0, 2 * b * npad * npad * 4.0, 3 * 2.0 * npad ** 3 * 2 * b * iters)
 
 
 def warm_bound(n_warm: int, n_cold: int, npad: int, schedule, warm_kw) -> tuple[float, str]:
@@ -696,8 +717,8 @@ def warm_bound(n_warm: int, n_cold: int, npad: int, schedule, warm_kw) -> tuple[
     prod = 2.0 * npad ** 3
     bf16 = 3 * prod * ((n_warm + n_cold) + n_warm * (1 + 2 * (warm_kw["n_wquad"] - 1))
                        + n_cold * 2 * (n_scaled + n_quad))
-    fp32, tf32 = tail_ops(npad, prod * 2 * (n_warm * warm_kw["n_whi"] + n_cold * n_hi))
-    return bound(bf16, fp32, 3 * (n_warm + n_cold) * npad * npad * 4.0, tf32)
+    tf32 = 3 * prod * 2 * (n_warm * warm_kw["n_whi"] + n_cold * n_hi)
+    return bound(bf16, 0.0, 3 * (n_warm + n_cold) * npad * npad * 4.0, tf32)
 
 
 def guard_r0(ks, init) -> torch.Tensor:
@@ -1301,6 +1322,7 @@ def main() -> int:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    check_tensor_core_sass(lib_path)
 
     clusters = ctypes.c_int(-1)
     rc = _build.load().qct_ns_cluster_max_active(ctypes.byref(clusters))

@@ -4,23 +4,32 @@
 //   quadruped_ctrl_tpu/ops/fused_admm.py: fused_admm_solve (_kernel)
 //
 // Per system: K = H + sigma I + A' diag(rho) A, Jacobi scale, the NS schedule
-// of ns_core.cuh (unchanged), unscale; n_iter over-relaxed ADMM iterations
+// (fa_ns_schedule below), unscale; n_iter over-relaxed ADMM iterations
 // against that inverse; polish_rounds active-set rounds, each building,
 // scaling and inverting its own penalty matrix kp = H + sigma I + A' diag(w) A
 // and solving with two refinement passes against kp. The arithmetic is the
 // TPU kernel's (and fused_admm_solve_reference's) with every matvec and the
 // gram in fp32 FMAs and the NS products in bf16x3 as in K2.
 //
-// Residency. The three 128 x 129 float tiles of the NS core (198,144 bytes)
+// The NS products. K5 still runs the CUDA-core product that K2/K3 ran at the
+// 128 tile before they moved to the tensor cores (ns_core.cuh): fa_mm_tile,
+// fa_ns_step and fa_ns_schedule below, unchanged but for their names and the
+// tile stride, kept here because only K5 runs them. Each bf16x3 product is
+// 128^3 x 3 fp32 FMAs on the CUDA cores, operands split on every read, each
+// thread an 8 x 8 grid of outputs. They need the 128 x 129 padded tiles
+// below, which is also where K5 stages A. Moving K5 onto the tensor cores
+// (with its own layout for A) is the next kernel PR (ROADMAP).
+//
+// Residency. The three 128 x 129 float tiles of the NS products (198,144 bytes)
 // are the block's shared memory, with the vectors beside them. Their roles
 // rotate: K (the matrix being inverted), the inverse, and scratch, which holds
 // the constraint matrix A (256 x 128, shared by every system and hot in L2)
 // staged from global memory whenever a tile is free:
 //   build    A in X|T            -> K = H + sigma I + gram(rho), scaled in K
-//   NS       ns_schedule(K, X, T) -> X = inverse, unscaled in place
+//   NS       fa_ns_schedule(K, X, T) -> X = inverse, unscaled in place
 //   ADMM     A in K|T, inverse in X; every matvec reads shared memory
 //   round    A in K|T -> b = -g + A'(w bound - y); kp built into X, scaled;
-//            ns_schedule(X, K, T) -> K = inverse, unscaled; kp rebuilt
+//            fa_ns_schedule(X, K, T) -> K = inverse, unscaled; kp rebuilt
 //            unscaled into X with A staged through T half by half; the
 //            refinement matvecs read K and X; A's first half is staged into
 //            K again, so A is in K|T for Ax and for the next round.
@@ -31,10 +40,12 @@
 // threads per output row, each summing half the columns.
 //
 // What bounds it on an H100: the five factorizations (12 NS steps each, three
-// fp32 FMAs per bf16x3 term on the CUDA cores, as in K2) are ~90% of the
+// fp32 FMAs per bf16x3 term on the CUDA cores) are ~90% of the
 // operations; the ADMM iterate is ~80K FMAs per iteration from shared memory
 // behind four block barriers, bound by latency more than by FMA throughput at
-// one block per SM. The tensor cores for the NS products are the same later step as for K2.
+// one block per SM.
+#include <cuda_bf16.h>
+
 #include <cstdint>
 
 #include "ns_core.cuh"
@@ -43,8 +54,8 @@ namespace qct {
 
 constexpr int FA_N = NS_N;        // padded variable count
 constexpr int FA_M = 256;         // padded constraint-row count
-constexpr int FA_LD = NS_LD;
-constexpr int FA_TILE = NS_N * NS_LD;
+constexpr int FA_LD = NS_N + 1;   // tile row stride: rows fall in distinct banks
+constexpr int FA_TILE = NS_N * FA_LD;
 constexpr float FLT_MAX_F = 3.402823466e38f;  // |v| <= it: v is finite
 static_assert(NS_THREADS == FA_M, "one thread per constraint row");
 
@@ -70,6 +81,107 @@ struct FaVecs {
   float red[NS_THREADS / 32];
 };
 constexpr size_t FA_SMEM_BYTES = 3 * FA_TILE * sizeof(float) + sizeof(FaVecs);
+
+__device__ __forceinline__ void split_bf16(float a, float& hi, float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(a));
+  lo = __bfloat162float(__float2bfloat16_rn(a - hi));
+}
+
+// acc = A @ B for the calling thread's 8 x 8 output grid; A and B are
+// NS_N x NS_N tiles in shared memory with row stride FA_LD.
+template <bool kBf16x3>
+__device__ __forceinline__ void fa_mm_tile(const float* __restrict__ A,
+                                           const float* __restrict__ B,
+                                           float (&acc)[8][8]) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < NS_N; ++k) {
+    float a[8], b[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) a[r] = A[(ty + 16 * r) * FA_LD + k];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) b[c] = B[k * FA_LD + tx + 16 * c];
+    if (kBf16x3) {
+      float ah[8], al[8], bh[8], bl[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) split_bf16(a[r], ah[r], al[r]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) split_bf16(b[c], bh[c], bl[c]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          acc[r][c] = fmaf(ah[r], bh[c], acc[r][c]);
+          acc[r][c] = fmaf(ah[r], bl[c], acc[r][c]);
+          acc[r][c] = fmaf(al[r], bh[c], acc[r][c]);
+        }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+  }
+}
+
+// One NS step: T = 2I - mu K X, then X = mu X T. mu = 1 gives the quadratic
+// step exactly (1.0f * v == v).
+template <bool kBf16x3>
+__device__ __forceinline__ void fa_ns_step(const float* K, float* X, float* T, float mu) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  float acc[8][8];
+  fa_mm_tile<kBf16x3>(K, X, acc);
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int i = ty + 16 * r, j = tx + 16 * c;
+      T[i * FA_LD + j] = (i == j ? 2.f : 0.f) - mu * acc[r][c];
+    }
+  __syncthreads();
+  fa_mm_tile<kBf16x3>(X, T, acc);
+  __syncthreads();  // every read of X is done before it is overwritten
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) X[(ty + 16 * r) * FA_LD + tx + 16 * c] = mu * acc[r][c];
+  __syncthreads();
+}
+
+// Runs the whole schedule on K (read only) into X; T is scratch. Every
+// thread of the block must call it.
+__device__ __forceinline__ void fa_ns_schedule(const float* K, float* X, float* T,
+                                               const NsSchedule& s) {
+  __shared__ float warp_max[NS_THREADS / 32];
+  const int tid = threadIdx.x;
+  // alpha = 1 / max_i sum_j |K_ij|: rows on the first NS_N threads
+  float row = 0.f;
+  if (tid < NS_N) {
+    for (int j = 0; j < NS_N; ++j) row += fabsf(K[tid * FA_LD + j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, off));
+  if ((tid & 31) == 0) warp_max[tid >> 5] = row;
+  __syncthreads();
+  float mx = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < NS_THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
+  const float alpha = 1.f / mx;
+  for (int idx = tid; idx < NS_N * NS_N; idx += NS_THREADS) {
+    const int i = idx / NS_N, j = idx % NS_N;
+    X[i * FA_LD + j] = (i == j) ? alpha : 0.f;
+  }
+  __syncthreads();
+  for (int it = 0; it < s.n_scaled; ++it) fa_ns_step<true>(K, X, T, s.mu[it]);
+  for (int it = 0; it < s.n_quad; ++it) fa_ns_step<true>(K, X, T, 1.f);
+  for (int it = 0; it < s.n_hi; ++it) fa_ns_step<false>(K, X, T, 1.f);
+}
 
 // Rows [row0, row0 + 128) of A (M x N, row-major, global) into dst.
 __device__ __forceinline__ void stage_rows(const float* __restrict__ a, int row0, float* dst) {
@@ -230,7 +342,7 @@ fused_admm_kernel(const float* __restrict__ a, const float* __restrict__ hess_al
   write_k(hess, p.sigma, acc, K);
   __syncthreads();
   jacobi_scale(K, v.d);
-  ns_schedule(K, X, T, p.s);
+  fa_ns_schedule(K, X, T, p.s);
   unscale(X, v.d);
 
   // ---- ADMM iterations: A in K|T, the inverse in X
@@ -286,7 +398,7 @@ fused_admm_kernel(const float* __restrict__ a, const float* __restrict__ hess_al
     write_k(hess, p.sigma, acc, X);
     __syncthreads();
     jacobi_scale(X, v.d);
-    ns_schedule(X, K, T, p.s);
+    fa_ns_schedule(X, K, T, p.s);
     unscale(K, v.d);
     // the unscaled kp again, into X, A staged through T half by half
     zero_acc(acc);

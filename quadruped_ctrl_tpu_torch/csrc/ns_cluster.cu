@@ -42,7 +42,9 @@
 // accumulation is coarser than fmaf's over long sums, not over 16 terms.
 // The sums run in another order than the reference's, so results differ
 // from it by rounding (tests/test_torch_ns_inverse.py holds this order to
-// the reference's residual gates on the CPU).
+// the reference's residual gates on the CPU). The splits, the mmas, ldmatrix
+// and each thread's place in the mma layouts (Lane) are mma.cuh's, shared
+// with the 128 tile (ns_core.cuh).
 //
 // B is staged through a double-buffered ring of two 16-row chunks (16 KB
 // each): every thread keeps its 4 float4 of the next two chunks in flight
@@ -94,6 +96,7 @@
 
 #include <cstdint>
 
+#include "mma.cuh"
 #include "ns_core.cuh"
 
 namespace cg = cooperative_groups;
@@ -104,20 +107,11 @@ constexpr int NC_N = 256;                  // the tile
 constexpr int NC_CTAS = 4;                 // CTAs per system: one cluster
 constexpr int NC_ROWS = NC_N / NC_CTAS;    // rows of K, X and T per CTA
 constexpr int NC_THREADS = 256;            // 8 warps: 2 x 4 warp tiles of 32 x 64
-constexpr int NC_KC = 16;                  // rows of B per staged chunk
-constexpr int NC_CHUNKS = NC_N / NC_KC;    // chunks per product
+constexpr int NC_CHUNKS = NC_N / KC;       // chunks of 16 rows per product
 constexpr int NC_SLAB = NC_ROWS * NC_N;    // floats per slab
-constexpr int NC_STAGE = NC_KC * NC_N;     // 32-bit words per staging buffer
+constexpr int NC_STAGE = KC * NC_N;        // 32-bit words per staging buffer
 // K, X, T slabs and the two staging buffers: 196,608 + 32,768 bytes
 constexpr size_t NC_SMEM_BYTES = (3 * NC_SLAB + 2 * NC_STAGE) * sizeof(float);
-
-// Slab element (r, c): the columns of row r are XOR-swizzled by 8 (r % 4),
-// which keeps float2 and float4 groups whole.
-__device__ __forceinline__ int sw(int r, int c) { return r * NC_N + (c ^ ((r & 3) << 3)); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // The shared::cluster address of `addr` (a shared::cta address) in CTA `rank`.
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
@@ -135,64 +129,7 @@ __device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) -> bf16x2 hi and lo, x in the low half: split_bf16 on each.
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
-  return r;
-}
-
-// a -> tf32 hi and lo, hi = tf32(a), lo = tf32(a - hi).
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(a);
-  lo = to_tf32(a - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// The calling thread's place in the mma layouts: fragment row g and column
-// pair t, and its warp's 32 x 64 tile (rows 32 wm, columns 64 wn).
-struct Lane {
-  int g, t, wm, wn;
-  __device__ __forceinline__ Lane()
-      : g((threadIdx.x & 31) >> 2), t(threadIdx.x & 3), wm(threadIdx.x >> 7),
-        wn((threadIdx.x >> 5) & 3) {}
-  // row of accumulator entries acc[mt][*][2h, 2h+1]; column of acc[*][nt][0]
-  __device__ __forceinline__ int row(int mt, int h) const { return 32 * wm + 16 * mt + g + 8 * h; }
-  __device__ __forceinline__ int col(int nt) const { return 64 * wn + 8 * nt + 2 * t; }
-};
-
-using Acc = float[2][8][4];
+using NcLane = Lane<NC_N>;
 
 // Store the 4 float4 of one chunk a thread loaded (rows si + 4s, columns
 // 4 sj..4 sj+3) into a staging buffer. bf16x3: hi and lo planes of 16 x 256
@@ -204,92 +141,10 @@ __device__ __forceinline__ void stage_store(uint32_t* st, const float4 (&v)[4], 
   for (int s = 0; s < 4; ++s) {
     const int k = si + 4 * s;
     if (kBf16x3) {
-      uint2 hi, lo;
-      split_pair(v[s].x, v[s].y, hi.x, lo.x);
-      split_pair(v[s].z, v[s].w, hi.y, lo.y);
-      const int off = k * (NC_N / 2) + (((sj >> 1) ^ (k & 7)) << 2) + ((sj & 1) << 1);
-      *reinterpret_cast<uint2*>(st + off) = hi;
-      *reinterpret_cast<uint2*>(st + NC_STAGE / 2 + off) = lo;
+      stage_split<NC_N>(st, v[s], k, sj);
     } else {
       *reinterpret_cast<float4*>(st + k * NC_N + ((4 * sj) ^ (si << 3))) = v[s];
     }
-  }
-}
-
-// acc += A[:, kg:kg+16] @ (staged chunk) for the warp's tile, bf16x3.
-__device__ __forceinline__ void mma_chunk_bf16(const float* __restrict__ A, const uint32_t* st,
-                                               int kg, const Lane& ln, Acc& acc) {
-  uint32_t ah[2][4], al[2][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {  // a0..a3: rows g, g+8 of columns 2t and 2t+8
-      const int r = ln.row(mt, f & 1), c = kg + 2 * ln.t + 8 * (f >> 1);
-      const float2 x = *reinterpret_cast<const float2*>(A + sw(r, c));
-      split_pair(x.x, x.y, ah[mt][f], al[mt][f]);
-    }
-  }
-  // ldmatrix.x4.trans: lanes 8m..8m+7 address rows k = lane % 8 + 8 (m % 2) of
-  // columns 8 (m / 2) on: b0, b1 of two neighbouring 8-column tiles
-  const int lane = threadIdx.x & 31;
-  const int k = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const uint32_t plane = smem_addr(st) + k * NC_N * 2;   // bytes: 256 bf16 a row
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    const int grp = (64 * ln.wn + 16 * np) / 8 + (lane >> 4);
-    const uint32_t off = ((grp ^ (k & 7)) << 4);
-    uint32_t bh[4], bl[4];
-    ldsm_x4_trans(plane + off, bh);
-    ldsm_x4_trans(plane + NC_STAGE * 2 + off, bl);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float(&d)[4] = acc[mt][2 * np + h];
-        mma_bf16(d, ah[mt], bh[2 * h], bh[2 * h + 1]);
-        mma_bf16(d, ah[mt], bl[2 * h], bl[2 * h + 1]);
-        mma_bf16(d, al[mt], bh[2 * h], bh[2 * h + 1]);
-      }
-    }
-  }
-}
-
-// acc += A[:, kg:kg+16] @ (staged chunk) for the warp's tile, 3xTF32: per 8
-// k the passes hi*hi, hi*lo, lo*hi of tf32 parts (m16n8k8 mmas) into a fresh
-// accumulator, which one fp32 add per entry takes into acc. Accumulating a
-// whole product in the mmas' accumulator loses ~4x fmaf's accuracy over 256
-// terms; 16 terms per add do not (PERF.md, the probe). One 16-row fragment
-// row at a time, which keeps the fresh accumulator at 32 registers.
-__device__ __forceinline__ void mma_chunk_tf32(const float* __restrict__ A, const uint32_t* st,
-                                               int kg, const Lane& ln, Acc& acc) {
-  const float* sf = reinterpret_cast<const float*>(st);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    float part[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < NC_KC; kk += 8) {
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {  // a0..a3: rows g, g+8 of columns t and t+4
-        const float x = A[sw(ln.row(mt, f & 1), kg + kk + ln.t + 4 * (f >> 1))];
-        split_tf32(x, ah[f], al[f]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        // b0, b1: rows kk + t and kk + t + 4 (both t mod 4) of column n
-        const int sn = (64 * ln.wn + 8 * nt + ln.g) ^ (ln.t << 3);
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(sf[(kk + ln.t) * NC_N + sn], bh0, bl0);
-        split_tf32(sf[(kk + ln.t + 4) * NC_N + sn], bh1, bl1);
-        mma_tf32(part[nt], ah, bh0, bh1);
-        mma_tf32(part[nt], ah, bl0, bl1);
-        mma_tf32(part[nt], al, bh0, bh1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
   }
 }
 
@@ -303,7 +158,7 @@ __device__ __forceinline__ void mma_chunk_tf32(const float* __restrict__ A, cons
 template <bool kBf16x3>
 __device__ __forceinline__ void mm_slab(const float* __restrict__ A, const float* b_slab,
                                         uint32_t* S, Acc& acc) {
-  const Lane ln;
+  const NcLane ln;
   const int q = static_cast<int>(cg::this_cluster().block_rank());
   const int si = threadIdx.x >> 6, sj = threadIdx.x & 63;
 #pragma unroll
@@ -315,7 +170,7 @@ __device__ __forceinline__ void mm_slab(const float* __restrict__ A, const float
   // this thread's float4 of a chunk: rows si + 4s (row % 4 == si), columns 4 sj..
   const uint32_t b_own = smem_addr(b_slab) + (si * NC_N + ((4 * sj) ^ (si << 3))) * 4;
   auto load = [&](int c, float4 (&v)[4]) {
-    const uint32_t base = map_rank(b_own, (q + c / 4) & 3) + (c & 3) * NC_KC * NC_N * 4;
+    const uint32_t base = map_rank(b_own, (q + c / 4) & 3) + (c & 3) * KC * NC_N * 4;
 #pragma unroll
     for (int s = 0; s < 4; ++s) v[s] = ld_cluster(base + s * 4 * NC_N * 4);
   };
@@ -324,11 +179,11 @@ __device__ __forceinline__ void mm_slab(const float* __restrict__ A, const float
     stage_store<kBf16x3>(st, v, si, sj);
     __syncthreads();  // chunk c staged; every read of chunk c - 2's buffer is done
     if (c + 2 < NC_CHUNKS) load(c + 2, v);
-    const int kg = ((q + c / 4) & 3) * NC_ROWS + (c & 3) * NC_KC;  // B's first row in chunk c
+    const int kg = ((q + c / 4) & 3) * NC_ROWS + (c & 3) * KC;  // B's first row in chunk c
     if (kBf16x3) {
       mma_chunk_bf16(A, st, kg, ln, acc);
     } else {
-      mma_chunk_tf32(A, st, kg, ln, acc);
+      mma_chunk_tf32(A, reinterpret_cast<const float*>(st), 0, kg, ln, acc);
     }
   };
   float4 v0[4], v1[4];
@@ -340,37 +195,6 @@ __device__ __forceinline__ void mm_slab(const float* __restrict__ A, const float
   }
 }
 
-// T = (2I - mu acc) on this CTA's rows (row0 on), the first half of a step.
-__device__ __forceinline__ void store_t(float* T, const Acc& acc, float mu, int row0) {
-  const Lane ln;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = ln.row(mt, h), j = ln.col(nt);
-        float2 v;
-        v.x = (row0 + i == j ? 2.f : 0.f) - mu * acc[mt][nt][2 * h];
-        v.y = (row0 + i == j + 1 ? 2.f : 0.f) - mu * acc[mt][nt][2 * h + 1];
-        *reinterpret_cast<float2*>(T + sw(i, j)) = v;
-      }
-}
-
-// X = mu acc, the second half of a step.
-__device__ __forceinline__ void store_x(float* X, const Acc& acc, float mu) {
-  const Lane ln;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 v = make_float2(mu * acc[mt][nt][2 * h], mu * acc[mt][nt][2 * h + 1]);
-        *reinterpret_cast<float2*>(X + sw(ln.row(mt, h), ln.col(nt))) = v;
-      }
-}
-
 // One NS step on the cluster: T = 2I - mu K X, then X = mu X T. row0 is the
 // first global row of this CTA's slab.
 template <bool kBf16x3>
@@ -379,25 +203,12 @@ __device__ __forceinline__ void nc_step(const float* K, float* X, float* T, uint
   cg::cluster_group cluster = cg::this_cluster();
   Acc acc;
   mm_slab<kBf16x3>(K, X, S, acc);
-  store_t(T, acc, mu, row0);
+  store_t<NC_N>(T, acc, mu, row0);
   cluster.sync();  // T complete in every CTA; every read of X is done
   mm_slab<kBf16x3>(X, T, S, acc);
   __syncthreads();  // this CTA's reads of its X slab are done
-  store_x(X, acc, mu);
+  store_x<NC_N>(X, acc, mu);
   cluster.sync();  // X complete in every CTA; every read of T is done
-}
-
-// The largest over all threads of the CTA of v, in every thread.
-__device__ __forceinline__ float block_max(float v, float* warp_max) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // warp_max is free
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float mx = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < NC_THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-  return mx;
 }
 
 // The largest of `slab_v` over the cluster's 4 CTAs, in every thread. Each
@@ -423,14 +234,14 @@ __device__ __forceinline__ void nc_schedule(const float* K, float* X, float* T, 
   // then the max over the cluster's 4 slabs
   float row = 0.f;
   if (tid < NC_ROWS) {
-    for (int j = 0; j < NC_N; ++j) row += fabsf(K[sw(tid, j)]);
+    for (int j = 0; j < NC_N; ++j) row += fabsf(K[sw<NC_N>(tid, j)]);
   }
-  const float mx = block_max(row, warp_max);
+  const float mx = cta_max(row, warp_max);
   if (tid == 0) slab_max = mx;
   const float alpha = 1.f / cluster_max(&slab_max);
   for (int idx = tid; idx < NC_SLAB; idx += NC_THREADS) {
     const int i = idx / NC_N, j = idx % NC_N;
-    X[sw(i, j)] = (row0 + i == j) ? alpha : 0.f;
+    X[sw<NC_N>(i, j)] = (row0 + i == j) ? alpha : 0.f;
   }
   cluster.sync();  // X complete; every peer has read slab_max
   for (int it = 0; it < s.n_scaled; ++it) nc_step<true>(K, X, T, S, s.mu[it], row0);
@@ -440,13 +251,13 @@ __device__ __forceinline__ void nc_schedule(const float* K, float* X, float* T, 
 
 __device__ __forceinline__ void load_slab(const float* __restrict__ src, float* dst) {
   for (int idx = threadIdx.x; idx < NC_SLAB; idx += NC_THREADS) {
-    dst[sw(idx / NC_N, idx % NC_N)] = src[idx];
+    dst[sw<NC_N>(idx / NC_N, idx % NC_N)] = src[idx];
   }
 }
 
 __device__ __forceinline__ void store_slab(const float* X, float* __restrict__ dst) {
   for (int idx = threadIdx.x; idx < NC_SLAB; idx += NC_THREADS) {
-    dst[idx] = X[sw(idx / NC_N, idx % NC_N)];
+    dst[idx] = X[sw<NC_N>(idx / NC_N, idx % NC_N)];
   }
 }
 
@@ -505,7 +316,7 @@ ns_inverse_scaled_build_256_kernel(const float* __restrict__ hp, const float* __
     float v = hp[base + static_cast<size_t>(r) * NC_N + c];
     const int blk = c / 3;
     if (r / 3 == blk && blk < nblk) v += g[(3 * (r % 3) + c % 3) * nblk + blk];
-    m.K[sw(i, c)] = v * d[r] * d[c];
+    m.K[sw<NC_N>(i, c)] = v * d[r] * d[c];
   }
   __syncthreads();
   nc_schedule(m.K, m.X, m.T, m.S, s, row0);
@@ -549,7 +360,7 @@ ns_inverse_warm_256_kernel(const float* __restrict__ ks, const float* __restrict
   __shared__ float warp_max[NC_THREADS / 32];
   __shared__ float slab_r0;
   cg::cluster_group cluster = cg::this_cluster();
-  const Lane ln;
+  const NcLane ln;
   const int row0 = static_cast<int>(cluster.block_rank()) * NC_ROWS;
   const size_t base = static_cast<size_t>(blockIdx.x / NC_CTAS) * NC_N * NC_N +
                       static_cast<size_t>(row0) * NC_N;
@@ -558,7 +369,7 @@ ns_inverse_warm_256_kernel(const float* __restrict__ ks, const float* __restrict
   cluster.sync();  // every slab of X is loaded before a peer reads it
   Acc acc;
   mm_slab<true>(m.K, m.X, m.S, acc);
-  store_t(m.T, acc, 1.f, row0);
+  store_t<NC_N>(m.T, acc, 1.f, row0);
   // row sums of |I - acc|: this thread's 4 rows over its 16 columns, then the
   // 4 lanes of a row (xor 1, 2), then the 4 warps of a row through the
   // staging buffer, which the product no longer reads after this barrier
@@ -593,14 +404,14 @@ ns_inverse_warm_256_kernel(const float* __restrict__ ks, const float* __restrict
           rows[3 * NC_ROWS + threadIdx.x];
     if (isnan(row)) row = INFINITY;  // fmaxf drops NaN: a NaN start fails
   }
-  const float mx = block_max(row, warp_max);
+  const float mx = cta_max(row, warp_max);
   if (threadIdx.x == 0) slab_r0 = mx;
   // T and slab_r0 complete in every CTA; every read of X is done
   const float r0 = cluster_max(&slab_r0);
   if (r0 < guard) {
     mm_slab<true>(m.X, m.T, m.S, acc);
     __syncthreads();  // this CTA's reads of its X slab are done
-    store_x(m.X, acc, 1.f);
+    store_x<NC_N>(m.X, acc, 1.f);
     cluster.sync();  // X complete in every CTA; every read of T is done
     for (int it = 1; it < n_wquad; ++it) nc_step<true>(m.K, m.X, m.T, m.S, 1.f, row0);
     for (int it = 0; it < n_whi; ++it) nc_step<false>(m.K, m.X, m.T, m.S, 1.f, row0);

@@ -1,9 +1,10 @@
-// Newton-Schulz core shared by the two factorization kernels
-// (ns_inverse.cu: ns_inverse_scaled_kernel and ns_inverse_scaled_build_kernel).
+// Newton-Schulz core at the 128 tile, the products on the tensor cores. The
+// factorization kernels of ns_inverse.cu run it (K2, K3, K6, K7, and K8/K9
+// through K3's kernel); K5 (fused_admm.cu) does not (see there).
 //
-// One thread block owns one Jacobi-scaled SPD system at the 128 tile and keeps
-// K, the iterate X and one scratch tile T resident in shared memory for the
-// whole schedule, the role VMEM plays for the TPU kernels
+// One 256-thread block owns one Jacobi-scaled SPD system and keeps K, the
+// iterate X and one scratch tile T resident in shared memory for the whole
+// schedule, the role VMEM plays for the TPU kernels
 // (quadruped_ctrl_tpu/ops/ns_inverse.py: _kernel_scaled_il,
 // _kernel_scaled_build_il). The schedule is the TPU one, step for step:
 //
@@ -12,31 +13,74 @@
 //   quadratic (bf16x3):  X <- X (2I - K X)         n_quad times
 //   tail      (fp32):    X <- X (2I - K X)         n_hi times
 //
-// A bf16x3 product splits both operands into bf16 hi/lo parts and sums
-// hi*hi + hi*lo + lo*hi with fp32 accumulation (~1e-6 relative). A single
-// bf16 or TF32 pass is never used: NS diverges once cond x rounding error
-// exceeds 1 (ns_inverse.py, the mixed-precision block comment).
+// A bf16x3 product splits both operands into bf16 hi and lo (round to
+// nearest) and sums hi*hi + hi*lo + lo*hi with fp32 accumulation (~1e-6
+// relative). A single bf16 or TF32 pass is never used: NS diverges once
+// cond x rounding error exceeds 1 (ns_inverse.py, the mixed-precision block
+// comment).
 //
-// What bounds it on an H100: every product is 128^3 fp32 FMAs per operand pair
-// issued from the CUDA cores out of shared memory (3 per bf16x3 product), so
-// the kernel is FMA-issue bound at 1 block (198 KB of shared memory) per SM.
-// The operands are split on the fly as they are read; each thread holds an
-// 8 x 8 grid of outputs in registers. Moving the bf16x3 products onto the
-// tensor cores (mma / wgmma on the pre-split hi/lo operands) is the next step.
+// Residency. K, X and T stay fp32 (the tail needs all 24 bits; hi/lo planes
+// would take the same 4 bytes an element), unpadded, their columns
+// XOR-swizzled by 8 (row % 4) as ns_cluster.cu's slabs are, so the mma
+// fragment loads and the epilogue's float2 stores are free of bank
+// conflicts: 3 x 65,536 bytes. B of a bf16x3 product is split into bf16 hi
+// and lo planes once per product, in a double-buffered ring of two 16-row
+// chunks (2 x 8,192 bytes), row k's 16-byte groups XOR-swizzled by k % 8 for
+// ldmatrix.trans. The ring and not 64-row halves (32,768 bytes): B is the
+// block's own tile, so a chunk is staged from shared memory in ~40
+// instructions a thread, just before the chunk that precedes it is
+// multiplied, and one barrier per chunk is all it costs; halves would stage
+// 64 rows between two barriers with no mma to hide them under. Shared
+// memory: 212,992 bytes, one block per SM.
+//
+// The product (mm_tile). 8 warps, each a 32 x 64 tile of the 128 x 128
+// output in the mma accumulator layout (Acc, 2 x 8 fragments of 16 x 8), k in
+// chunks of 16 in order. bf16x3: A's fragments are read from its fp32 tile and
+// split as they load, B's from the chunk's planes (ldmatrix.trans); three
+// mma.sync m16n8k16 bf16 passes (hi*hi, hi*lo, lo*hi) into one fp32
+// accumulator. The fp32 tail runs as 3xTF32: hi = tf32(a), lo = tf32(a - hi)
+// (cvt.rna), the same three passes as m16n8k8 tf32 mmas into a fresh
+// accumulator per 16 k, which one fp32 add takes into the total; both
+// operands are read straight from their fp32 tiles (no staging, no barrier).
+// Accumulated in the mmas over all the terms, the tail loses ~4x fmaf's
+// accuracy (PERF.md; probes/ns_cluster_probe.cu), which breaks the residual
+// gates; 16 terms per add do not (tests/test_torch_ns_inverse.py holds this
+// order of summation to the reference's gates on the CPU). The sums run in another
+// order than the reference's, so results differ from it by rounding.
+//
+// What bounds it, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6;
+// chip_smoke.py): a bf16x3 product is 12.6 MFLOP of bf16 passes, 2.7 us of
+// mma.sync at the 621 TFLOP/s it reaches over 132 SMs, and takes ~5.4 us; a
+// 3xTF32 tail product (the same passes as m16n8k8, 5.3 us of mma.sync at its
+// rate) ~9.6 us. Around the mmas each warp splits its A fragments and its
+// share of B on the CUDA cores and loads them from shared memory, with only 2
+// warps a scheduler to hide that work; issuing the three passes over all
+// accumulators in turn, or one barrier per two chunks (a ring of 4), did not
+// help. K2 at 2048 systems of n = 120: 2.08 ms on the ADMM schedule, 2.58 ms
+// on the polish schedule, 0.25 of the bound at the tensor cores' dense peaks;
+// with the products as 128^3 fp32 FMAs per operand pair on the CUDA cores
+// (3 per bf16x3 product), FMA-issue bound, it took 13.95 / 18.83 ms. Next:
+// wgmma (asynchronous, B read from the planes in shared memory), so that the
+// splits and the staging of the next chunk run while the tensor cores work.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
+
+#include "mma.cuh"
 
 namespace qct {
 
-constexpr int NS_N = 128;        // the tile one block factorizes (npad)
-constexpr int NS_LD = NS_N + 1;  // shared-memory row stride: rows fall in distinct banks
-constexpr int NS_THREADS = 256;  // 16 x 16 threads, thread (ty, tx) owns rows ty+16r, cols tx+16c
+constexpr int NS_N = 128;                // the tile one block factorizes (npad)
+constexpr int NS_THREADS = 256;          // 8 warps: 4 x 2 warp tiles of 32 x 64
+constexpr int NS_CHUNKS = NS_N / KC;     // chunks of 16 rows per product
+constexpr int NS_TILE = NS_N * NS_N;     // floats per tile
+constexpr int NS_STAGE = KC * NS_N;      // 32-bit words per staging buffer: hi and lo planes
 constexpr int NS_MAX_MUS = 16;
-constexpr size_t NS_SMEM_BYTES = 3 * NS_N * NS_LD * sizeof(float);  // K, X, T
+// K, X, T and the two staging buffers: 196,608 + 16,384 bytes
+constexpr size_t NS_SMEM_BYTES = (3 * NS_TILE + 2 * NS_STAGE) * sizeof(float);
 
 // mu_schedule(a0, n_scaled) is computed on the host and passed by value.
 struct NsSchedule {
@@ -55,105 +99,95 @@ inline NsSchedule make_schedule(const float* mus, int n_scaled, int n_quad, int 
   return s;
 }
 
-__device__ __forceinline__ void split_bf16(float a, float& hi, float& lo) {
-  hi = __bfloat162float(__float2bfloat16_rn(a));
-  lo = __bfloat162float(__float2bfloat16_rn(a - hi));
+using NsLane = Lane<NS_N>;
+
+// The three tiles and the staging ring in dynamic shared memory.
+struct NsTiles {
+  float *K, *X, *T;
+  uint32_t* S;
+  __device__ __forceinline__ explicit NsTiles(float* smem)
+      : K(smem), X(smem + NS_TILE), T(smem + 2 * NS_TILE),
+        S(reinterpret_cast<uint32_t*>(smem + 3 * NS_TILE)) {}
+};
+
+// Rows [16c, 16c + 16) of B into the staging buffer st as bf16 hi and lo
+// planes (stage_split). Each thread splits 2 float4: rows si and si + 8,
+// columns 4 sj..4 sj + 3.
+__device__ __forceinline__ void ns_stage(const float* B, int c, uint32_t* st) {
+  const int si = threadIdx.x >> 5, sj = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int k = si + 8 * s;
+    stage_split<NS_N>(st, *reinterpret_cast<const float4*>(B + sw<NS_N>(KC * c + k, 4 * sj)), k,
+                      sj);
+  }
 }
 
-// acc = A @ B for the calling thread's 8 x 8 output grid; A and B are
-// NS_N x NS_N tiles in shared memory with row stride NS_LD.
+// acc = A @ B for the calling warp's 32 x 64 tile; A and B are swizzled
+// 128 x 128 tiles, S the staging ring. bf16x3: chunk c + 1 is staged before
+// chunk c is multiplied, into the buffer chunk c - 1 used, and one barrier
+// per chunk separates them. The caller's barrier must come between the
+// product and any write to A, B or the ring; a bf16x3 product's first
+// staging needs B complete and the ring free (a barrier since chunk 6 of
+// the product before it).
 template <bool kBf16x3>
-__device__ __forceinline__ void mm_tile(const float* __restrict__ A,
-                                        const float* __restrict__ B,
-                                        float (&acc)[8][8]) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+__device__ __forceinline__ void mm_tile(const float* __restrict__ A, const float* __restrict__ B,
+                                        uint32_t* S, Acc& acc) {
+  const NsLane ln;
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < NS_N; ++k) {
-    float a[8], b[8];
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int r = 0; r < 8; ++r) a[r] = A[(ty + 16 * r) * NS_LD + k];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) b[c] = B[k * NS_LD + tx + 16 * c];
-    if (kBf16x3) {
-      float ah[8], al[8], bh[8], bl[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) split_bf16(a[r], ah[r], al[r]);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) split_bf16(b[c], bh[c], bl[c]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          acc[r][c] = fmaf(ah[r], bh[c], acc[r][c]);
-          acc[r][c] = fmaf(ah[r], bl[c], acc[r][c]);
-          acc[r][c] = fmaf(al[r], bh[c], acc[r][c]);
-        }
-    } else {
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  if (kBf16x3) {
+    ns_stage(B, 0, S);
+    __syncthreads();
+    for (int c = 0; c < NS_CHUNKS; ++c) {
+      if (c + 1 < NS_CHUNKS) ns_stage(B, c + 1, S + ((c + 1) & 1) * NS_STAGE);
+      mma_chunk_bf16(A, S + (c & 1) * NS_STAGE, KC * c, ln, acc);
+      if (c + 1 < NS_CHUNKS) __syncthreads();  // chunk c + 1 staged; chunk c's reads done
     }
+  } else {
+    for (int c = 0; c < NS_CHUNKS; ++c) mma_chunk_tf32(A, B, KC * c, KC * c, ln, acc);
   }
 }
 
 // One NS step: T = 2I - mu K X, then X = mu X T. mu = 1 gives the quadratic
 // step exactly (1.0f * v == v).
 template <bool kBf16x3>
-__device__ __forceinline__ void ns_step(const float* K, float* X, float* T, float mu) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float acc[8][8];
-  mm_tile<kBf16x3>(K, X, acc);
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = ty + 16 * r, j = tx + 16 * c;
-      T[i * NS_LD + j] = (i == j ? 2.f : 0.f) - mu * acc[r][c];
-    }
-  __syncthreads();
-  mm_tile<kBf16x3>(X, T, acc);
+__device__ __forceinline__ void ns_step(const float* K, float* X, float* T, uint32_t* S, float mu) {
+  Acc acc;
+  mm_tile<kBf16x3>(K, X, S, acc);
+  store_t<NS_N>(T, acc, mu, 0);
+  __syncthreads();  // T complete; the product's reads of X and of the ring are done
+  mm_tile<kBf16x3>(X, T, S, acc);
   __syncthreads();  // every read of X is done before it is overwritten
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) X[(ty + 16 * r) * NS_LD + tx + 16 * c] = mu * acc[r][c];
+  store_x<NS_N>(X, acc, mu);
   __syncthreads();
 }
 
-// Runs the whole schedule on K (read only) into X; T is scratch. Every
-// thread of the block must call it.
-__device__ __forceinline__ void ns_schedule(const float* K, float* X, float* T,
+// Runs the whole schedule on K (read only) into X; T and the ring S are
+// scratch. Every thread of the block must call it.
+__device__ __forceinline__ void ns_schedule(const float* K, float* X, float* T, uint32_t* S,
                                             const NsSchedule& s) {
-  __shared__ float warp_max[NS_THREADS / 32];
+  __shared__ float warp_max[WARPS];
   const int tid = threadIdx.x;
-  // alpha = 1 / max_i sum_j |K_ij|: rows on the first NS_N threads
+  // alpha = 1 / max_i sum_j |K_ij|: row i on thread i < NS_N, its columns
+  // from column i on, so that a warp's 32 reads fall in 32 banks
   float row = 0.f;
   if (tid < NS_N) {
-    for (int j = 0; j < NS_N; ++j) row += fabsf(K[tid * NS_LD + j]);
+    for (int j = 0; j < NS_N; ++j) row += fabsf(K[sw<NS_N>(tid, (j + tid) & (NS_N - 1))]);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, off));
-  if ((tid & 31) == 0) warp_max[tid >> 5] = row;
-  __syncthreads();
-  float mx = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < NS_THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-  const float alpha = 1.f / mx;
-  for (int idx = tid; idx < NS_N * NS_N; idx += NS_THREADS) {
+  const float alpha = 1.f / cta_max(row, warp_max);
+  for (int idx = tid; idx < NS_TILE; idx += NS_THREADS) {
     const int i = idx / NS_N, j = idx % NS_N;
-    X[i * NS_LD + j] = (i == j) ? alpha : 0.f;
+    X[sw<NS_N>(i, j)] = (i == j) ? alpha : 0.f;
   }
   __syncthreads();
-  for (int it = 0; it < s.n_scaled; ++it) ns_step<true>(K, X, T, s.mu[it]);
-  for (int it = 0; it < s.n_quad; ++it) ns_step<true>(K, X, T, 1.f);
-  for (int it = 0; it < s.n_hi; ++it) ns_step<false>(K, X, T, 1.f);
+  for (int it = 0; it < s.n_scaled; ++it) ns_step<true>(K, X, T, S, s.mu[it]);
+  for (int it = 0; it < s.n_quad; ++it) ns_step<true>(K, X, T, S, 1.f);
+  for (int it = 0; it < s.n_hi; ++it) ns_step<false>(K, X, T, S, 1.f);
 }
 
 }  // namespace qct

@@ -1,4 +1,5 @@
-// Factorization kernels of the batched MPC solve, one block per system.
+// Factorization kernels of the batched MPC solve at the 128 tile, the
+// Newton-Schulz products on the tensor cores.
 //
 // ns_inverse_scaled_kernel replaces the TPU kernel
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled (_kernel_scaled_il)
@@ -12,39 +13,53 @@
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas (_kernel) and
 //   ns_inverse_pallas_blocked (_kernel_blocked)
 //
-// All run the shared NS core (ns_core.cuh) at the 128 tile. The TPU kernels'
-// G = 8 grouping came from the TPU grid; here any batch size works. What bounds
-// them and what the design does about it: see ns_core.cuh.
+// All run the NS core of ns_core.cuh, one 256-thread block per system. The
+// layout: K, X and T are 128 x 128 fp32 tiles in shared memory, unpadded,
+// columns XOR-swizzled by 8 (row % 4) (load_tile / store_tile move a tile
+// between its row-major global form and that layout a float4 a thread), and
+// a ring of two 16-row chunks holds B of a bf16x3 product as bf16 hi/lo
+// planes: 212,992 bytes, one block per SM. The product: 8 warps of 32 x 64
+// tiles in the mma accumulator layout, bf16x3 as three mma.sync m16n8k16
+// bf16 passes, the fp32 tail as 3xTF32 m16n8k8 passes with one fp32 add per
+// 16 k. K2 builds, scales and writes ks straight into the swizzled K tile;
+// K7 forms its guard from the guard product's accumulators, row sums over
+// the mma layout reduced across the block, so its branch is uniform and its
+// cold branch is ns_schedule itself. What bounds them, on an NVIDIA H100
+// 80GB HBM3 at 700 W: the work around the mmas (operand splits and shared
+// memory loads on the CUDA cores, 2 warps a scheduler), which makes a bf16x3
+// product ~2x its mma time (ns_core.cuh; PERF.md, section 6). The TPU
+// kernels' G = 8 grouping came from the TPU grid; here any batch size works.
 #include <cstdint>
 
 #include "ns_core.cuh"
 
 namespace qct {
 
+// src (128 x 128, row-major, global) -> the swizzled tile dst, a float4 a thread.
 __device__ __forceinline__ void load_tile(const float* __restrict__ src, float* dst) {
-  for (int idx = threadIdx.x; idx < NS_N * NS_N; idx += NS_THREADS) {
-    dst[(idx / NS_N) * NS_LD + idx % NS_N] = src[idx];
+  for (int idx = threadIdx.x; idx < NS_TILE / 4; idx += NS_THREADS) {
+    const int r = idx / (NS_N / 4), c = 4 * (idx % (NS_N / 4));
+    *reinterpret_cast<float4*>(dst + sw<NS_N>(r, c)) = reinterpret_cast<const float4*>(src)[idx];
   }
 }
 
 __device__ __forceinline__ void store_tile(const float* src, float* __restrict__ dst) {
-  for (int idx = threadIdx.x; idx < NS_N * NS_N; idx += NS_THREADS) {
-    dst[idx] = src[(idx / NS_N) * NS_LD + idx % NS_N];
+  for (int idx = threadIdx.x; idx < NS_TILE / 4; idx += NS_THREADS) {
+    const int r = idx / (NS_N / 4), c = 4 * (idx % (NS_N / 4));
+    reinterpret_cast<float4*>(dst)[idx] = *reinterpret_cast<const float4*>(src + sw<NS_N>(r, c));
   }
 }
 
 // ks (B, 128, 128) Jacobi-scaled, identity on the pad -> inv (B, 128, 128).
 __global__ void __launch_bounds__(NS_THREADS)
 ns_inverse_scaled_kernel(const float* __restrict__ ks, float* __restrict__ inv, NsSchedule s) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + NS_N * NS_LD;
-  float* T = X + NS_N * NS_LD;
-  const size_t base = static_cast<size_t>(blockIdx.x) * NS_N * NS_N;
-  load_tile(ks + base, K);
+  extern __shared__ __align__(16) float smem[];
+  const NsTiles m(smem);
+  const size_t base = static_cast<size_t>(blockIdx.x) * NS_TILE;
+  load_tile(ks + base, m.K);
   __syncthreads();
-  ns_schedule(K, X, T, s);
-  store_tile(X, inv + base);
+  ns_schedule(m.K, m.X, m.T, m.S, s);
+  store_tile(m.X, inv + base);
 }
 
 // K = hp + blockdiag3(g9), d = rsqrt(max(diag K, 1e-30)), ks = D K D, then the
@@ -56,37 +71,35 @@ __global__ void __launch_bounds__(NS_THREADS)
 ns_inverse_scaled_build_kernel(const float* __restrict__ hp, const float* __restrict__ g9,
                                int nblk, float* __restrict__ inv, float* __restrict__ ks_out,
                                float* __restrict__ d_row, NsSchedule s) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + NS_N * NS_LD;
-  float* T = X + NS_N * NS_LD;
+  extern __shared__ __align__(16) float smem[];
+  const NsTiles m(smem);
   __shared__ float d[NS_N];
-  const size_t base = static_cast<size_t>(blockIdx.x) * NS_N * NS_N;
+  const size_t base = static_cast<size_t>(blockIdx.x) * NS_TILE;
   const float* g = g9 + static_cast<size_t>(blockIdx.x) * 9 * nblk;
-  for (int idx = threadIdx.x; idx < NS_N * NS_N; idx += NS_THREADS) {
+  for (int idx = threadIdx.x; idx < NS_TILE; idx += NS_THREADS) {
     const int r = idx / NS_N, c = idx % NS_N;
     float v = hp[base + idx];
     const int blk = c / 3;
     if (r / 3 == blk && blk < nblk) v += g[(3 * (r % 3) + c % 3) * nblk + blk];
-    K[r * NS_LD + c] = v;
+    m.K[sw<NS_N>(r, c)] = v;
   }
   __syncthreads();
   if (threadIdx.x < NS_N) {
     const int i = threadIdx.x;
-    const float di = 1.f / sqrtf(fmaxf(K[i * NS_LD + i], 1e-30f));
+    const float di = 1.f / sqrtf(fmaxf(m.K[sw<NS_N>(i, i)], 1e-30f));
     d[i] = di;
     d_row[static_cast<size_t>(blockIdx.x) * NS_N + i] = di;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < NS_N * NS_N; idx += NS_THREADS) {
+  for (int idx = threadIdx.x; idx < NS_TILE; idx += NS_THREADS) {
     const int r = idx / NS_N, c = idx % NS_N;
-    const float v = K[r * NS_LD + c] * d[r] * d[c];
-    K[r * NS_LD + c] = v;
+    const float v = m.K[sw<NS_N>(r, c)] * d[r] * d[c];
+    m.K[sw<NS_N>(r, c)] = v;
     ks_out[base + idx] = v;
   }
   __syncthreads();
-  ns_schedule(K, X, T, s);
-  store_tile(X, inv + base);
+  ns_schedule(m.K, m.X, m.T, m.S, s);
+  store_tile(m.X, inv + base);
 }
 
 // Guard-free warm NS: X starts from init (B, 128, 128), in the Jacobi scaling
@@ -96,82 +109,86 @@ ns_inverse_scaled_build_kernel(const float* __restrict__ hp, const float* __rest
 __global__ void __launch_bounds__(NS_THREADS)
 ns_inverse_refine_kernel(const float* __restrict__ ks, const float* __restrict__ init,
                          float* __restrict__ inv, int n_quad, int n_hi) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + NS_N * NS_LD;
-  float* T = X + NS_N * NS_LD;
-  const size_t base = static_cast<size_t>(blockIdx.x) * NS_N * NS_N;
-  load_tile(ks + base, K);
-  load_tile(init + base, X);
+  extern __shared__ __align__(16) float smem[];
+  const NsTiles m(smem);
+  const size_t base = static_cast<size_t>(blockIdx.x) * NS_TILE;
+  load_tile(ks + base, m.K);
+  load_tile(init + base, m.X);
   __syncthreads();
-  for (int it = 0; it < n_quad; ++it) ns_step<true>(K, X, T, 1.f);
-  for (int it = 0; it < n_hi; ++it) ns_step<false>(K, X, T, 1.f);
-  store_tile(X, inv + base);
+  for (int it = 0; it < n_quad; ++it) ns_step<true>(m.K, m.X, m.T, m.S, 1.f);
+  for (int it = 0; it < n_hi; ++it) ns_step<false>(m.K, m.X, m.T, m.S, 1.f);
+  store_tile(m.X, inv + base);
 }
 
 // Guarded warm NS: X0 = init (B, 128, 128), in the Jacobi scaling of ks. The
 // block forms T = 2I - K X0 with a bf16x3 product and the guard
-// r0 = max_i sum_j |I - K X0|_ij from the same product, reduced block-wide as
-// ns_schedule reduces alpha. r0 is one value per block, so the branch is
-// uniform and only one side runs: below the guard, the first warm step
-// completes from that T (X = X T, the K X0 product reused) and n_wquad - 1
-// bf16x3 and n_whi fp32 quadratic steps follow; otherwise (a NaN row sum
-// counts as infinite) ns_schedule runs on K, K3's own code, so a tripped guard
-// returns K3's result.
+// r0 = max_i sum_j |I - K X0|_ij from the same product, its row sums taken
+// over the mma layout and reduced block-wide as ns_schedule reduces alpha.
+// r0 is one value per block, so the branch is uniform and only one side
+// runs: below the guard, the first warm step completes from that T (X = X T,
+// the K X0 product reused) and n_wquad - 1 bf16x3 and n_whi fp32 quadratic
+// steps follow; otherwise (a NaN row sum counts as infinite) ns_schedule
+// runs on K, K3's own code, so a tripped guard returns K3's result.
 __global__ void __launch_bounds__(NS_THREADS)
 ns_inverse_warm_kernel(const float* __restrict__ ks, const float* __restrict__ init,
                        float* __restrict__ inv, NsSchedule s, int n_wquad, int n_whi,
                        float guard) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + NS_N * NS_LD;
-  float* T = X + NS_N * NS_LD;
-  __shared__ float warp_max[NS_THREADS / 32];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t base = static_cast<size_t>(blockIdx.x) * NS_N * NS_N;
-  load_tile(ks + base, K);
-  load_tile(init + base, X);
+  extern __shared__ __align__(16) float smem[];
+  const NsTiles m(smem);
+  __shared__ float warp_max[WARPS];
+  const NsLane ln;
+  const size_t base = static_cast<size_t>(blockIdx.x) * NS_TILE;
+  load_tile(ks + base, m.K);
+  load_tile(init + base, m.X);
   __syncthreads();
-  float acc[8][8];
-  mm_tile<true>(K, X, acc);
-  float rmax = 0.f;
+  Acc acc;
+  mm_tile<true>(m.K, m.X, m.S, acc);
+  store_t<NS_N>(m.T, acc, 1.f, 0);
+  // row sums of |I - acc|: this thread's 4 rows over its 16 columns, then the
+  // 4 lanes of a row (xor 1, 2), then the 2 warps of a row through the
+  // staging ring, which the product no longer reads after this barrier
+  float part[2][2];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = ty + 16 * r;
-    float row = 0.f;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = tx + 16 * c;
-      row += fabsf((i == j ? 1.f : 0.f) - acc[r][c]);
-      T[i * NS_LD + j] = (i == j ? 2.f : 0.f) - acc[r][c];
+    for (int h = 0; h < 2; ++h) {
+      const int i = ln.row(mt, h);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sum += fabsf((i == ln.col(nt) + e ? 1.f : 0.f) - acc[mt][nt][2 * h + e]);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      part[mt][h] = sum;
     }
-    // row i's 128 entries lie on the 16 threads of this ty (lanes differing in bits 0-3)
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) row += __shfl_xor_sync(0xffffffffu, row, off);
-    rmax = fmaxf(rmax, isnan(row) ? INFINITY : row);  // fmaxf drops NaN: a NaN start fails
-  }
-  rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 16));  // the warp's other ty
-  if ((tid & 31) == 0) warp_max[tid >> 5] = rmax;
   __syncthreads();  // also: T complete, every read of X done
-  float r0 = warp_max[0];
+  float* rows = reinterpret_cast<float*>(m.S);  // [2 warp columns][128 rows]
+  if (ln.t == 0) {
 #pragma unroll
-  for (int w = 1; w < NS_THREADS / 32; ++w) r0 = fmaxf(r0, warp_max[w]);
-  if (r0 < guard) {
-    mm_tile<true>(X, T, acc);
-    __syncthreads();
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) X[(ty + 16 * r) * NS_LD + tx + 16 * c] = acc[r][c];
-    __syncthreads();
-    for (int it = 1; it < n_wquad; ++it) ns_step<true>(K, X, T, 1.f);
-    for (int it = 0; it < n_whi; ++it) ns_step<false>(K, X, T, 1.f);
-  } else {
-    ns_schedule(K, X, T, s);
+      for (int h = 0; h < 2; ++h) rows[ln.wn * NS_N + ln.row(mt, h)] = part[mt][h];
   }
-  store_tile(X, inv + base);
+  __syncthreads();
+  float row = 0.f;
+  if (threadIdx.x < NS_N) {
+    row = rows[threadIdx.x] + rows[NS_N + threadIdx.x];
+    if (isnan(row)) row = INFINITY;  // fmaxf drops NaN: a NaN start fails
+  }
+  const float r0 = cta_max(row, warp_max);  // its barriers end every read of rows
+  if (r0 < guard) {
+    mm_tile<true>(m.X, m.T, m.S, acc);
+    __syncthreads();
+    store_x<NS_N>(m.X, acc, 1.f);
+    __syncthreads();
+    for (int it = 1; it < n_wquad; ++it) ns_step<true>(m.K, m.X, m.T, m.S, 1.f);
+    for (int it = 0; it < n_whi; ++it) ns_step<false>(m.K, m.X, m.T, m.S, 1.f);
+  } else {
+    ns_schedule(m.K, m.X, m.T, m.S, s);
+  }
+  store_tile(m.X, inv + base);
 }
 
 template <typename Kernel>

@@ -1,0 +1,168 @@
+"""Run the 128-tile factorization kernels of csrc/ns_inverse.cu on the CPU.
+
+    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k2 k3 k6 k7 k9]
+
+For a machine without nvcc: the CUDA sources are compiled by g++ (C++20)
+against the stand-in headers beside this file (cuda_runtime.h, cuda_bf16.h,
+emu_mma.h for the inline PTX of mma.cuh, cooperative_groups.h), each block
+running as one std::thread per CUDA thread. Every csrc/*.cu is first
+checked to compile that way; then ns_inverse.cu is built into a shared
+library and its C entry points run on a few systems against the plain
+PyTorch references, printing residuals and how far apart the two are, and
+the shared-memory wavefronts per ldmatrix matrix (1.0 when free of bank
+conflicts). It shows that the indexing, the layouts and the barriers are
+right; it says nothing of speed, and the 4-CTA cluster kernels of
+ns_cluster.cu only compile here. A run takes about a minute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+PKG = HERE.parents[1]
+sys.path.insert(0, str(PKG.parent))
+
+from quadruped_ctrl_tpu_torch import default_config  # noqa: E402
+from quadruped_ctrl_tpu_torch.ops import _build  # noqa: E402
+from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI  # noqa: E402
+
+OUT = PKG / "_build" / "cpu_emu"
+PTX_FUNCTIONS = ("to_tf32", "mma_bf16", "mma_tf32", "ldsm_x4_trans")
+
+
+def prepare(csrc: Path, out: Path):
+    """Copy csrc into out with the CUDA-only syntax rewritten: dynamic
+    shared memory reads the emulator's arena, <<<...>>> launches become
+    emu::launch calls, and mma.cuh's inline-PTX functions give way to
+    emu_mma.h's."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    for path in csrc.iterdir():
+        src = path.read_text()
+        if path.name == "mma.cuh":
+            for name in PTX_FUNCTIONS:
+                start = re.search(rf"__device__ __forceinline__ \w+ {name}\(", src).start()
+                src = src[:start] + src[src.index("\n}\n", start) + 3:]
+            src = src.replace("namespace qct {\n", '#include "emu_mma.h"\n\nnamespace qct {\n', 1)
+        src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+                     r"\1* \2 = reinterpret_cast<\1*>(emu::arena);", src)
+        src = re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);",
+                     lambda m: f"emu::launch({m[2]}, [&] {{ {m[1]}({m[3]}); }});", src, flags=re.S)
+        (out / path.name).write_text(src)
+
+
+def compile_all(out: Path) -> ctypes.CDLL:
+    flags = ["g++", "-std=c++20", "-Wno-unknown-pragmas", f"-I{HERE}", "-x", "c++"]
+    for cu in sorted(out.glob("*.cu")):
+        subprocess.run([*flags, "-fsyntax-only", str(cu)], check=True)
+        print(f"compiles: {cu.name}")
+    lib_path = out / "libns_inverse_emu.so"
+    subprocess.run([*flags, "-O2", "-shared", "-fPIC", "-o", str(lib_path),
+                    str(out / "ns_inverse.cu"), "-lpthread"], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (argtypes, restype) in _build._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = list(argtypes)
+            getattr(lib, name).restype = restype
+    lib.emu_ldsm_wavefronts_per_matrix.restype = ctypes.c_double
+    return lib
+
+
+def spd(seed: int, b: int, n: int, cond: float) -> torch.Tensor:
+    """Jacobi-scaled SPD systems of condition ~cond, identity-padded to 128."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((b, NI.N, NI.N), np.float32)
+    for i in range(b):
+        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        k = (q * np.logspace(0, -np.log10(cond), n)[None]) @ q.T
+        d = 1 / np.sqrt(np.diagonal(k))
+        out[i, :n, :n] = k * d[:, None] * d[None]
+        out[i, n:, n:] = np.eye(NI.N - n)
+    return torch.from_numpy(out)
+
+
+def resid(ks: torch.Tensor, inv: torch.Tensor) -> tuple[float, float]:
+    """(max |I - ks inv|, max row sum of it)."""
+    gap = (torch.eye(ks.shape[-1], dtype=torch.float64) - ks.double() @ inv.double()).abs()
+    return float(gap.max()), float(gap.sum(-1).max())
+
+
+def rel(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a - ref).abs().max() / ref.abs().max())
+
+
+def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
+    """The checks, each on b = 2 systems, as {name: numbers}; prints them."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    s = default_config().solver
+    admm = (s.ns_admm_a0, s.ns_admm_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
+    polish = (s.ns_a0, s.ns_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
+    mus = lambda sched: NI._mus_arg(sched[0], sched[1])  # noqa: E731
+    b, out = 2, {}
+    if "k3" in which:
+        for name, cond, sched, metric in (("k3_admm", 2.1e3, admm, 0),
+                                          ("k3_polish", 1e4, polish, 1)):
+            ks = spd(3, b, 120, cond)
+            inv = torch.empty_like(ks)
+            rc = lib.qct_ns_inverse_scaled(ptr(ks), ptr(inv), b, mus(sched), *sched[1:], None)
+            ref = NI.ns_inverse_scaled_reference(ks, *sched)
+            out[name] = dict(rc=rc, residual=resid(ks, inv)[metric],
+                             reference=resid(ks, ref)[metric], rel=rel(inv, ref))
+    if "k2" in which:
+        hp = spd(4, b, 120, 50.0) * 3.0
+        g9 = torch.from_numpy(np.random.default_rng(5).uniform(0, 0.5, (b, 9, 40))
+                              .astype(np.float32))
+        g9[:, [0, 4, 8]] += 1.0
+        inv, ks, d = torch.empty_like(hp), torch.empty_like(hp), torch.empty((b, 1, NI.N))
+        rc = lib.qct_ns_inverse_scaled_build(ptr(hp), ptr(g9), 40, ptr(inv), ptr(ks), ptr(d), b,
+                                             mus(admm), *admm[1:], None)
+        inv_r, ks_r, d_r = NI.ns_inverse_scaled_build_reference(hp, g9, *admm)
+        out["k2"] = dict(rc=rc, rel_ks=rel(ks, ks_r), rel_d=rel(d, d_r),
+                         residual=resid(ks_r, inv)[0], reference=resid(ks_r, inv_r)[0])
+    if "k6" in which:
+        ks = spd(7, b, 96, 1e4)
+        e = torch.randn(b, NI.N, NI.N, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(1))
+        e *= 0.05 / torch.linalg.matrix_norm(e, ord=2)[:, None, None]
+        init = (torch.linalg.inv(ks.double()) @ (torch.eye(NI.N, dtype=torch.float64) + e)).float()
+        inv = torch.empty_like(ks)
+        rc = lib.qct_ns_inverse_refine(ptr(ks), ptr(init), ptr(inv), b, 1, 1, None)
+        ref = NI.ns_inverse_refine_reference(ks, init, 1, 1)
+        out["k6"] = dict(rc=rc, start=resid(ks, init)[1], residual=resid(ks, inv)[1],
+                         reference=resid(ks, ref)[1], rel=rel(inv, ref))
+    if "k7" in which:
+        ks = spd(8, b, 120, 1e3)
+        init = torch.linalg.inv(ks.double()).float()
+        init[1] = 17.0                      # system 1 trips the guard
+        inv, cold = torch.empty_like(ks), torch.empty_like(ks)
+        rc = lib.qct_ns_inverse_warm(ptr(ks), ptr(init), ptr(inv), b, mus(admm), *admm[1:],
+                                     3, 1, 0.5, None)
+        lib.qct_ns_inverse_scaled(ptr(ks), ptr(cold), b, mus(admm), *admm[1:], None)
+        ref = NI.ns_inverse_warm_reference(ks, init, *admm, 3, 1, 0.5)
+        out["k7"] = dict(rc=rc, rel_warm=rel(inv[0], ref[0]),
+                         tripped_is_k3=bool(torch.equal(inv[1], cold[1])))
+    if "k9" in which:
+        ks = spd(9, b, 120, 1e3)
+        inv = torch.empty_like(ks)
+        rc = lib.qct_ns_inverse_plain(ptr(ks), ptr(inv), b, 25, None)
+        ref = NI.ns_inverse_blocked_reference(ks, 25)
+        out["k9"] = dict(rc=rc, residual=resid(ks, inv)[0], reference=resid(ks, ref)[0],
+                         rel=rel(inv, ref))
+    out["ldmatrix_wavefronts"] = lib.emu_ldsm_wavefronts_per_matrix()
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
+if __name__ == "__main__":
+    prepare(PKG / "csrc", OUT)
+    run(compile_all(OUT), sys.argv[1:] or ("k2", "k3", "k6", "k7", "k9"))

@@ -1,7 +1,8 @@
 """PyTorch port vs JAX package: the factorization kernels' references (K2
 `ns_inverse_scaled_build`, K3 `ns_inverse_scaled`, K6 `ns_inverse_refine`)
 at the 128 and 256 tiles, the Schur split K4 (`ns_inverse_schur_scaled`) and
-their wrappers, on the CPU.
+their wrappers, on the CPU; the kernels' order of summation on the tensor
+cores, and their CUDA source itself under a CPU emulation.
 
 Residual gates are the JAX kernel tests' (test_pallas_kernels.py): ADMM
 schedule at cond 2.1e3 max |I - KX| < 1e-2; polish schedule row-sum residual
@@ -10,6 +11,9 @@ schedule at cond 2.1e3 max |I - KX| < 1e-2; polish schedule row-sum residual
 """
 
 import functools
+import importlib.util
+import shutil
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -80,13 +84,16 @@ def _tf32(a: torch.Tensor) -> torch.Tensor:
 
 
 def _tc_mm(a: torch.Tensor, b: torch.Tensor, bf16x3: bool) -> torch.Tensor:
-    """a @ b (B, 256, 256) summed as csrc/ns_cluster.cu's mm_slab sums it: the
-    rows in 4 slabs of 64, each slab's k in chunks of 16 starting at its own
-    slab of k and walking the others in turn. bf16x3: per chunk the three
-    bf16 passes hi*hi, hi*lo, lo*hi, each a 16-term sum added in turn to one
-    fp32 accumulator (an m16n8k16 mma). Otherwise (the fp32 tail) 3xTF32:
-    per 8 k the passes of tf32 parts (m16n8k8 mmas) into a chunk sum, which
-    one fp32 add takes into the accumulator."""
+    """a @ b (B, npad, npad) summed as the kernels sum it. The rows fall in
+    slabs, one per CTA, and each slab takes k in chunks of 16: at the 256
+    tile csrc/ns_cluster.cu's mm_slab (4 slabs of 64, each starting at its
+    own slab of k and walking the others in turn), at the 128 tile
+    csrc/ns_core.cuh's mm_tile (one slab of 128, the chunks in order).
+    bf16x3: per chunk the three bf16 passes hi*hi, hi*lo, lo*hi, each a
+    16-term sum added in turn to one fp32 accumulator (an m16n8k16 mma).
+    Otherwise (the fp32 tail) 3xTF32: per 8 k the passes of tf32 parts
+    (m16n8k8 mmas) into a chunk sum, which one fp32 add takes into the
+    accumulator."""
     if bf16x3:
         (ah, al), (bh, bl) = ([t.float() for t in NI._split(x)] for x in (a, b))
     else:
@@ -94,12 +101,14 @@ def _tc_mm(a: torch.Tensor, b: torch.Tensor, bf16x3: bool) -> torch.Tensor:
         al, bl = _tf32(a - ah), _tf32(b - bh)
     passes = ((ah, bh), (ah, bl), (al, bh))
     step = 16 if bf16x3 else 8
+    npad = a.shape[-1]
+    slab = 64 if npad == NI.N_BIG else npad
     out = torch.empty_like(a)
-    for q in range(4):
-        rows = slice(64 * q, 64 * q + 64)
+    for q in range(npad // slab):
+        rows = slice(slab * q, slab * q + slab)
         acc = torch.zeros_like(a[:, rows])
-        for c in range(16):
-            k0 = (q + c // 4) % 4 * 64 + c % 4 * 16
+        for c in range(npad // 16):
+            k0 = (slab * q + 16 * c) % npad
             part = acc if bf16x3 else torch.zeros_like(acc)
             for kc in range(k0, k0 + 16, step):
                 for pa, pb in passes:
@@ -120,21 +129,65 @@ def _tc_schedule(ks, a0, n_scaled, n_quad, n_hi):
     return x
 
 
-@pytest.mark.parametrize("n", [192, 144])
+@pytest.mark.parametrize("n", [192, 144, 120])
 @pytest.mark.parametrize("cond,sched,metric,gate", [
     (2.1e3, ADMM, 0, 1e-2),
     (1e4, POLISH, 1, 5e-3),
 ])
 def test_tensor_core_summation_order_holds_the_gates(cond, sched, metric, gate, n):
-    """The 256-tile kernel's order of summation (bf16x3 mmas over k-chunks of
-    16, the tail in 3xTF32 with one fp32 add per chunk) on SPD n = 192 and
-    144, b = 8: the residual gates of test_scaled_reference_residual and
-    within 2x of the reference's (chip_smoke.py's rule)."""
-    ks = _spd_batch(3, 8, n, 256, cond)
+    """The kernels' order of summation on the tensor cores (bf16x3 mmas over
+    k-chunks of 16, the tail in 3xTF32 with one fp32 add per chunk) on SPD
+    n = 192 and 144 at the 256 tile and n = 120 at the 128 tile, b = 8: the
+    residual gates of test_scaled_reference_residual and within 2x of the
+    reference's (chip_smoke.py's rule)."""
+    ks = _spd_batch(3, 8, n, NI.pad_sizes(n), cond)
     ref = NI.ns_inverse_scaled_reference(torch.from_numpy(ks), *sched).numpy()
     tc = _tc_schedule(torch.from_numpy(ks), *sched).numpy()
     r_tc, r_ref = _resid(ks, tc)[metric], _resid(ks, ref)[metric]
     assert r_tc < gate and r_ref < gate and r_tc <= 2 * r_ref + 1e-5, (r_tc, r_ref)
+
+
+@pytest.mark.parametrize("n", [192, 120])
+def test_tensor_core_plain_schedule_holds_the_gate(n):
+    """K8/K9's schedule (X0 = I / ||K||_inf, 25 fp32 steps) summed as the
+    kernels sum their 3xTF32 tail, on SPD n = 192 (256 tile) and n = 120
+    (128 tile) at cond 1e3, b = 8: chip_smoke.py's K9 gate (max |I - K X|
+    < 5e-4) and within 2x of the reference's."""
+    ks = _spd_batch(9, 8, n, NI.pad_sizes(n), 1e3)
+    ref = NI.ns_inverse_blocked_reference(torch.from_numpy(ks), 25).numpy()
+    tc = _tc_schedule(torch.from_numpy(ks), 0.0, 0, 0, 25).numpy()
+    r_tc, r_ref = _resid(ks, tc)[0], _resid(ks, ref)[0]
+    assert r_tc < 5e-4 and r_ref < 5e-4 and r_tc <= 2 * r_ref + 1e-5, (r_tc, r_ref)
+
+
+def test_kernel_sources_run_in_cpu_emulation(tmp_path):
+    """The 128-tile kernels' CUDA source (csrc/ns_inverse.cu on ns_core.cuh
+    and mma.cuh) compiled by g++ against the emulation headers of
+    quadruped_ctrl_tpu_torch/probes/cpu_emu (one thread per CUDA thread;
+    mma.sync and ldmatrix on their PTX fragment layouts) and run on b = 2
+    systems against the references: every csrc/*.cu compiles; K3's, K2's, K6's
+    and K9's residuals under the gates above and within 2x of the reference's,
+    their inverses within 1e-3 relative (measured <= 7.6e-5); K2's ks and
+    d_row within 1e-6 (measured 0); K7's tripped system equal to K3 bit for
+    bit; ldmatrix free of bank conflicts (1 wavefront a matrix)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the CPU emulation of the kernels")
+    path = Path(NI.__file__).parents[1] / "probes" / "cpu_emu" / "emulate.py"
+    spec = importlib.util.spec_from_file_location("cpu_emu_emulate", path)
+    emu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(emu)
+    emu.prepare(emu.PKG / "csrc", tmp_path)
+    out = emu.run(emu.compile_all(tmp_path))
+    assert all(v["rc"] == 0 for k, v in out.items() if isinstance(v, dict)), out
+    for name, gate in (("k3_admm", 1e-2), ("k3_polish", 5e-3), ("k2", 1e-2), ("k6", 5e-3),
+                       ("k9", 5e-4)):
+        r = out[name]
+        assert r["residual"] < gate and r["residual"] <= 2 * r["reference"] + 1e-5, (name, r)
+        assert r.get("rel", 0.0) < 1e-3, (name, r)
+    assert out["k2"]["rel_ks"] <= 1e-6 and out["k2"]["rel_d"] <= 1e-6, out["k2"]
+    assert out["k6"]["residual"] < 0.1 * out["k6"]["start"], out["k6"]
+    assert out["k7"]["tripped_is_k3"] and out["k7"]["rel_warm"] < 1e-3, out["k7"]
+    assert out["ldmatrix_wavefronts"] == 1.0, out
 
 
 def _build_operands(seed, b, hv, nf, npad):
