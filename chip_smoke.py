@@ -6,7 +6,8 @@
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds the CUDA kernels from quadruped_ctrl_tpu_torch/csrc (one nvcc per
    source, in parallel) and checks with cuobjdump that the factorization
-   kernels of both tiles hold tensor-core code (HMMA in their SASS);
+   kernels of both tiles and the fused solve K5 hold tensor-core code (HMMA
+   in their SASS);
 3. holds each kernel (K1 form_packed, K2 ns_inverse_scaled_build, K3
    ns_inverse_scaled) against its plain PyTorch reference on the card at the
    128 tile, at the h=10 path's shapes, and times both (K2 and K3 with their
@@ -16,7 +17,9 @@
    at both tiles), and the Schur split
    K4 (K3 at the 128 tile inside) against its plain version;
 3c. the single-launch solve K5 (fused_admm_solve) at batch 2048, h=10, on the
-   operands the fused path builds, and the warm NS refinement K6
+   operands the fused path builds, with its time split by phase (the build,
+   the ADMM iterate, the polish; the Grams timed with an empty NS schedule),
+   and the warm NS refinement K6
    (ns_inverse_refine) at both tiles on 2048 SPD warm starts and on the
    operands of a real Woodbury solve (h=10 and h16_full, 2048 systems),
    against their references;
@@ -56,6 +59,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -136,12 +140,14 @@ KERNEL_INFO = {
 PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 
 
-# The factorization kernels whose NS products must run on the tensor cores,
-# at the 128 tile (ns_inverse.cu) and at the 256 tile (ns_cluster.cu).
+# The kernels whose NS products must run on the tensor cores: the
+# factorizations at the 128 tile (ns_inverse.cu) and at the 256 tile
+# (ns_cluster.cu), and the fused solve (fused_admm.cu).
 NS_KERNELS = ("ns_inverse_scaled_kernel", "ns_inverse_scaled_build_kernel",
               "ns_inverse_refine_kernel", "ns_inverse_warm_kernel",
               "ns_inverse_scaled_256_kernel", "ns_inverse_scaled_build_256_kernel",
-              "ns_inverse_refine_256_kernel", "ns_inverse_warm_256_kernel")
+              "ns_inverse_refine_256_kernel", "ns_inverse_warm_256_kernel",
+              "fused_admm_kernel")
 
 
 def check(ok: bool, what: str):
@@ -166,20 +172,26 @@ def median_ms(fn, reps: int = 10) -> float:
 
 def check_tensor_core_sass(lib_path):
     """cuobjdump -sass of the built library: every NS_KERNELS kernel holds
-    HMMA instructions (mma.sync on the tensor cores); K5, which keeps the
-    CUDA-core products, is printed beside them."""
+    HMMA instructions (mma.sync on the tensor cores); prints the count and,
+    from the ptxas log, each one's registers and spill stores."""
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
     hmma = {}
     for body in sass.split("Function : ")[1:]:
         hmma[body.split()[0]] = body.count("HMMA")
-    for name in NS_KERNELS + ("fused_admm_kernel",):
-        found = [n for n in hmma if n.startswith(f"_ZN3qct{len(name)}{name}E")]
-        print(f"  sass: {name}: {hmma[found[0]] if found else 'not found'} HMMA")
-        if name in NS_KERNELS:
-            check(len(found) == 1 and hmma[found[0]] > 0,
-                  f"{name} runs its NS products on the tensor cores (HMMA in its SASS)")
+    ptxas = lib_path.with_suffix(".log").read_text().split("Compiling entry function '")
+    for name in NS_KERNELS:
+        mangled = f"_ZN3qct{len(name)}{name}E"
+        found = [n for n in hmma if n.startswith(mangled)]
+        entry = next((e for e in ptxas if e.startswith(mangled)), "")
+        regs = re.search(r"Used (\d+) registers", entry)
+        spills = re.search(r"(\d+) bytes spill stores", entry)
+        print(f"  sass: {name}: {hmma[found[0]] if found else 'not found'} HMMA, "
+              f"{regs[1] if regs else '?'} registers, "
+              f"{spills[1] if spills else '?'} bytes spill stores")
+        check(len(found) == 1 and hmma[found[0]] > 0,
+              f"{name} runs its NS products on the tensor cores (HMMA in its SASS)")
 
 
 def reset_counts():
@@ -560,18 +572,39 @@ def fused_call(cfg, inputs):
 
 
 def fused_bound(b: int, kw: dict) -> tuple[float, str]:
-    """K5 per system: 1 + polish_rounds factorizations (the NS schedule at
-    the 128 tile, as ns_bound) and as many grams (2 M N^2), n_iter ADMM
-    iterations (A'v and Av, 2 M N each, and the inverse matvec, 2 N^2) and per
-    polish round its right-hand side, 3 inverse and 2 K matvecs and Ax;
-    bytes: H, g, l, u, rho in, x out, A once."""
+    """K5 per system, on the units the kernel uses: 1 + polish_rounds
+    factorizations (the NS schedule at the 128 tile as ns_bound counts it:
+    3 bf16 passes a bf16x3 step, 3 tf32 passes a tail step) and as many
+    Grams (2 M N^2, 3 tf32 passes); on the CUDA cores n_iter ADMM iterations
+    (A'v and Av, 2 M N each, and the inverse matvec, 2 N^2) and per polish
+    round its right-hand side, 3 inverse and 2 K matvecs and Ax; bytes: H, g,
+    l, u, rho in, x out, A once."""
     n, m = FA.N, FA.M
     facs = 1 + kw["polish_rounds"]
     prod = 2.0 * n ** 3 * 2 * b * facs
-    fp32 = b * (facs * 2.0 * m * n * n + kw["n_iter"] * (4.0 * m * n + 2.0 * n * n)
+    gram = 2.0 * m * n * n * b * facs
+    fp32 = b * (kw["n_iter"] * (4.0 * m * n + 2.0 * n * n)
                 + kw["polish_rounds"] * (4.0 * m * n + 10.0 * n * n))
     nbytes = 4.0 * (b * (n * n + 2 * n + 3 * m) + m * n)
-    return bound(3 * prod * (kw["n_scaled"] + kw["n_quad"]), prod * kw["n_hi"] + fp32, nbytes)
+    return bound(3 * prod * (kw["n_scaled"] + kw["n_quad"]), fp32, nbytes,
+                 3 * (prod * kw["n_hi"] + gram))
+
+
+def fused_phases(args, kw: dict) -> dict:
+    """K5's time split by phase, each from the wrapper's median of 3 with
+    some of the work cut: build (n_iter = polish_rounds = 0: the Gram and one
+    factorization), iterate (the ADMM iterations alone: no polish minus
+    build), polish (the whole call minus no polish), and grams (n_iter = 0
+    and the NS schedule empty: the 1 + 2 polish_rounds Grams the kernel
+    computes with their staging of A, the right-hand sides and the polish's
+    matvecs; an upper bound of the Grams' time)."""
+    def t(**cut):
+        return median_ms(lambda: FA.fused_admm_solve(*args, **{**kw, **cut}), reps=3)
+
+    full, no_polish, build = t(), t(polish_rounds=0), t(n_iter=0, polish_rounds=0)
+    grams = t(n_iter=0, n_scaled=0, n_quad=0, n_hi=0)
+    return dict(build=build, iterate=no_polish - build, polish=full - no_polish, grams=grams,
+                full=full)
 
 
 def spd_warm(gen, b: int, n: int, npad: int, dev):
@@ -654,10 +687,13 @@ def phase_kernels_fused(cfg, dev, results):
     t_k = median_ms(lambda: FA.fused_admm_solve(*args, **kw), reps=3)
     t_r = median_ms(lambda: FA.fused_admm_solve_reference(*args, **kw), reps=3)
     b5 = fused_bound(B_FUSED, kw)
+    phases = fused_phases(args, kw)
     results["K5/128"].update(max_abs_err=float((x_k - x_r).abs().max()), ms=t_k, plain_ms=t_r,
-                             bound_ms=b5[0], bound_by=b5[1], library_ms=None)
+                             bound_ms=b5[0], bound_by=b5[1], library_ms=None, phases_ms=phases)
     print(f"  K5 at {B_FUSED} systems: kernel %.3f ms reference %.3f ms (median of 3); "
           "bound %.3f ms (%s)" % (t_k, t_r, *b5))
+    print("  K5 by phase (ms, median of 3): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+          + f"; grams share of the whole call <= {phases['grams'] / phases['full']:.4f}")
     del args, x_k, x_r
 
     gen = torch.Generator(device=dev)
@@ -1367,7 +1403,8 @@ def main() -> int:
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        + (("guard_share", "k3_ms") if k.startswith("K7") else ())}
+        + (("guard_share", "k3_ms") if k.startswith("K7") else ())
+        + (("phases_ms",) if k.startswith("K5") else ())}
         for k in KERNEL_INFO]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

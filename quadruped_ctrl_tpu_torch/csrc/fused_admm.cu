@@ -3,47 +3,57 @@
 // fused_admm_kernel replaces the TPU kernel
 //   quadruped_ctrl_tpu/ops/fused_admm.py: fused_admm_solve (_kernel)
 //
-// Per system: K = H + sigma I + A' diag(rho) A, Jacobi scale, the NS schedule
-// (fa_ns_schedule below), unscale; n_iter over-relaxed ADMM iterations
-// against that inverse; polish_rounds active-set rounds, each building,
-// scaling and inverting its own penalty matrix kp = H + sigma I + A' diag(w) A
-// and solving with two refinement passes against kp. The arithmetic is the
-// TPU kernel's (and fused_admm_solve_reference's) with every matvec and the
-// gram in fp32 FMAs and the NS products in bf16x3 as in K2.
+// Per system: K = H + sigma I + A' diag(rho) A, Jacobi scale, the NS schedule,
+// unscale; n_iter over-relaxed ADMM iterations against that inverse;
+// polish_rounds active-set rounds, each building, scaling and inverting its
+// own penalty matrix kp = H + sigma I + A' diag(w) A and solving with two
+// refinement passes against kp. The arithmetic is the TPU kernel's (and
+// fused_admm_solve_reference's); sums run in other orders, so results differ
+// from it by rounding.
 //
-// The NS products. K5 still runs the CUDA-core product that K2/K3 ran at the
-// 128 tile before they moved to the tensor cores (ns_core.cuh): fa_mm_tile,
-// fa_ns_step and fa_ns_schedule below, unchanged but for their names and the
-// tile stride, kept here because only K5 runs them. Each bf16x3 product is
-// 128^3 x 3 fp32 FMAs on the CUDA cores, operands split on every read, each
-// thread an 8 x 8 grid of outputs. They need the 128 x 129 padded tiles
-// below, which is also where K5 stages A. Moving K5 onto the tensor cores
-// (with its own layout for A) is the next kernel PR (ROADMAP).
+// The products. The five factorizations (1 + polish_rounds) run ns_core.cuh's
+// ns_schedule: the bf16x3 steps as three mma.sync m16n8k16 bf16 passes, the
+// fp32 tail as 3xTF32 with a fresh accumulator per 16 k added in fp32. The
+// Grams A' diag(w) A (fp32 in the reference) run on the tensor cores the same
+// way as the tail (gram_half): the mma's k is A's row, its A operand A read
+// transposed, its B operand w A; the swizzle makes both reads free of bank
+// conflicts. Every matvec stays fp32 on the CUDA cores.
 //
-// Residency. The three 128 x 129 float tiles of the NS products (198,144 bytes)
-// are the block's shared memory, with the vectors beside them. Their roles
-// rotate: K (the matrix being inverted), the inverse, and scratch, which holds
-// the constraint matrix A (256 x 128, shared by every system and hot in L2)
-// staged from global memory whenever a tile is free:
-//   build    A in X|T            -> K = H + sigma I + gram(rho), scaled in K
-//   NS       fa_ns_schedule(K, X, T) -> X = inverse, unscaled in place
-//   ADMM     A in K|T, inverse in X; every matvec reads shared memory
+// Residency. The NsTiles layout of ns_core.cuh: K, X and T, 128 x 128 fp32
+// tiles, unpadded, columns XOR-swizzled by 8 (row % 4) (sw<NS_N>), and the
+// two-chunk bf16 staging ring S of the bf16x3 products (212,992 bytes), then
+// FaVecs (7,712 bytes): 220,704 bytes of dynamic shared memory, one block
+// per SM. The roles of the tiles rotate; the constraint matrix A (256 x 128,
+// shared by every system and hot in L2) goes in as two 128-row halves in the
+// swizzled layout, staged with __ldg float4 loads whenever tiles are free:
+//   build    A in X|T -> K = H + sigma I + gram(rho), scaled in K
+//   NS       ns_schedule(K, X, T, S) -> X = inverse, unscaled in place
+//   ADMM     A in K|T, the inverse in X, the ring idle; every matvec reads
+//            shared memory
 //   round    A in K|T -> b = -g + A'(w bound - y); kp built into X, scaled;
-//            fa_ns_schedule(X, K, T) -> K = inverse, unscaled; kp rebuilt
+//            ns_schedule(X, K, T, S) -> K = inverse, unscaled; kp rebuilt
 //            unscaled into X with A staged through T half by half; the
 //            refinement matvecs read K and X; A's first half is staged into
 //            K again, so A is in K|T for Ax and for the next round.
 // A is never assumed to have the pyramid's structure.
 //
-// Threads: 256, one per constraint row (M = 256), so z, y, l, u, rho, the
-// active flags and the AL duals live in registers; an x-space matvec runs two
-// threads per output row, each summing half the columns.
+// The matvecs are warp-wide: a warp owns a set of rows, its 32 lanes a float4
+// of each row (32 consecutive float4 of a swizzled row fall in distinct
+// banks), and a shuffle tree that halves the rows a lane holds at each step
+// (warp_sum_rows) sums them. inv @ v and kp @ v read rows (the NS inverse is
+// not exactly symmetric in fp32); A'v sums A's rows, a warp 32 of them, the
+// 8 warps' partial sums added through shared memory. Vectors in x space live
+// in registers as each lane's float4, alike in all 8 warps; those in
+// constraint space one entry a thread, thread t owning row t of A. An ADMM
+// iteration takes three block barriers.
 //
-// What bounds it on an H100: the five factorizations (12 NS steps each, three
-// fp32 FMAs per bf16x3 term on the CUDA cores) are ~90% of the
-// operations; the ADMM iterate is ~80K FMAs per iteration from shared memory
-// behind four block barriers, bound by latency more than by FMA throughput at
-// one block per SM.
+// What bounds it, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6;
+// chip_smoke.py): 19.75 ms for 2048 systems of the h=10 fused path, 0.23 of
+// its bound (4.54 ms). The five factorizations (22 bf16x3 and 2 tail
+// products each) are ~58% of it, bound as ns_core.cuh's are by the operand
+// splits and shared memory loads around the mmas; the nine Grams ~18%; the
+// 120 ADMM iterations ~19% (2.07 us each a wave of 132 systems), bound by
+// the 320 KiB of shared memory they read an iteration at one block per SM.
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -54,10 +64,9 @@ namespace qct {
 
 constexpr int FA_N = NS_N;        // padded variable count
 constexpr int FA_M = 256;         // padded constraint-row count
-constexpr int FA_LD = NS_N + 1;   // tile row stride: rows fall in distinct banks
-constexpr int FA_TILE = NS_N * FA_LD;
 constexpr float FLT_MAX_F = 3.402823466e38f;  // |v| <= it: v is finite
 static_assert(NS_THREADS == FA_M, "one thread per constraint row");
+static_assert(FA_M == 32 * WARPS && FA_N == 16 * WARPS, "the matvecs' rows per warp");
 
 struct FaParams {
   NsSchedule s;
@@ -70,228 +79,210 @@ struct FaParams {
   float infty;
 };
 
-// Shared vectors beside the three tiles.
+// Shared vectors after the staging ring, each 16-byte aligned.
 struct FaVecs {
-  float d[FA_N];      // Jacobi scale of the matrix being inverted
-  float xv[FA_N];     // x-space operand of a matvec
-  float bv[FA_N];     // polish right-hand side
-  float mv[FA_M];     // constraint-space operand of A'v
-  float wv[FA_M];     // gram weights
-  float part[FA_M];   // two partial sums per x-space output
-  float red[NS_THREADS / 32];
+  float part[WARPS][FA_N];  // each warp's partial sums of A'v
+  float xv[2][FA_N];        // x-space matvec results, the two used in turn
+  float mv[FA_M];           // constraint-space operand of A'v
+  float wv[FA_M];           // Gram weights
+  float d[FA_N];            // Jacobi scale of the matrix being inverted
+  float red[WARPS];
 };
-constexpr size_t FA_SMEM_BYTES = 3 * FA_TILE * sizeof(float) + sizeof(FaVecs);
+constexpr size_t FA_SMEM_BYTES = NS_SMEM_BYTES + sizeof(FaVecs);
 
-__device__ __forceinline__ void split_bf16(float a, float& hi, float& lo) {
-  hi = __bfloat162float(__float2bfloat16_rn(a));
-  lo = __bfloat162float(__float2bfloat16_rn(a - hi));
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// acc = A @ B for the calling thread's 8 x 8 output grid; A and B are
-// NS_N x NS_N tiles in shared memory with row stride FA_LD.
-template <bool kBf16x3>
-__device__ __forceinline__ void fa_mm_tile(const float* __restrict__ A,
-                                           const float* __restrict__ B,
-                                           float (&acc)[8][8]) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < NS_N; ++k) {
-    float a[8], b[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) a[r] = A[(ty + 16 * r) * FA_LD + k];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) b[c] = B[k * FA_LD + tx + 16 * c];
-    if (kBf16x3) {
-      float ah[8], al[8], bh[8], bl[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) split_bf16(a[r], ah[r], al[r]);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) split_bf16(b[c], bh[c], bl[c]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          acc[r][c] = fmaf(ah[r], bh[c], acc[r][c]);
-          acc[r][c] = fmaf(ah[r], bl[c], acc[r][c]);
-          acc[r][c] = fmaf(al[r], bh[c], acc[r][c]);
-        }
-    } else {
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-  }
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
 }
 
-// One NS step: T = 2I - mu K X, then X = mu X T. mu = 1 gives the quadratic
-// step exactly (1.0f * v == v).
-template <bool kBf16x3>
-__device__ __forceinline__ void fa_ns_step(const float* K, float* X, float* T, float mu) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float acc[8][8];
-  fa_mm_tile<kBf16x3>(K, X, acc);
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = ty + 16 * r, j = tx + 16 * c;
-      T[i * FA_LD + j] = (i == j ? 2.f : 0.f) - mu * acc[r][c];
-    }
-  __syncthreads();
-  fa_mm_tile<kBf16x3>(X, T, acc);
-  __syncthreads();  // every read of X is done before it is overwritten
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) X[(ty + 16 * r) * FA_LD + tx + 16 * c] = mu * acc[r][c];
-  __syncthreads();
-}
-
-// Runs the whole schedule on K (read only) into X; T is scratch. Every
-// thread of the block must call it.
-__device__ __forceinline__ void fa_ns_schedule(const float* K, float* X, float* T,
-                                               const NsSchedule& s) {
-  __shared__ float warp_max[NS_THREADS / 32];
-  const int tid = threadIdx.x;
-  // alpha = 1 / max_i sum_j |K_ij|: rows on the first NS_N threads
-  float row = 0.f;
-  if (tid < NS_N) {
-    for (int j = 0; j < NS_N; ++j) row += fabsf(K[tid * FA_LD + j]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, off));
-  if ((tid & 31) == 0) warp_max[tid >> 5] = row;
-  __syncthreads();
-  float mx = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < NS_THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-  const float alpha = 1.f / mx;
-  for (int idx = tid; idx < NS_N * NS_N; idx += NS_THREADS) {
-    const int i = idx / NS_N, j = idx % NS_N;
-    X[i * FA_LD + j] = (i == j) ? alpha : 0.f;
-  }
-  __syncthreads();
-  for (int it = 0; it < s.n_scaled; ++it) fa_ns_step<true>(K, X, T, s.mu[it]);
-  for (int it = 0; it < s.n_quad; ++it) fa_ns_step<true>(K, X, T, 1.f);
-  for (int it = 0; it < s.n_hi; ++it) fa_ns_step<false>(K, X, T, 1.f);
-}
-
-// Rows [row0, row0 + 128) of A (M x N, row-major, global) into dst.
+// Rows [row0, row0 + 128) of A (M x N, row-major, global) into the swizzled
+// tile dst, a float4 a thread.
 __device__ __forceinline__ void stage_rows(const float* __restrict__ a, int row0, float* dst) {
-  const float* src = a + static_cast<size_t>(row0) * FA_N;
-  for (int idx = threadIdx.x; idx < FA_N * FA_N; idx += NS_THREADS) {
-    dst[(idx >> 7) * FA_LD + (idx & 127)] = __ldg(src + idx);
+  const float4* src = reinterpret_cast<const float4*>(a + static_cast<size_t>(row0) * FA_N);
+  for (int idx = threadIdx.x; idx < NS_TILE / 4; idx += NS_THREADS) {
+    const int r = idx / (NS_N / 4), c = 4 * (idx % (NS_N / 4));
+    *reinterpret_cast<float4*>(dst + sw<NS_N>(r, c)) = __ldg(src + idx);
   }
 }
 
-// acc += sum over the 128 rows m of `a_half` (staged, row stride FA_LD) of
-// (A[m, i] w[m]) A[m, j], for the thread's 8 x 8 output grid.
-__device__ __forceinline__ void gram_acc(const float* a_half, const float* w,
-                                         float (&acc)[8][8]) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll 2
-  for (int m = 0; m < FA_N; ++m) {
-    const float wm = w[m];
-    float av[8], bv[8];
+// acc += Ah' diag(w) Ah for one half of A: Ah its 128 rows (a swizzled tile),
+// w their weights; the warp's 32 x 64 tile of the N x N result. 3xTF32 as in
+// mma_chunk_tf32: the mma's k is A's row m, 16 rows per fresh accumulator.
+// The A operand is Ah transposed, element (i, m) = Ah[m][i]; the B operand
+// w[m] Ah[m][j]. Lane (g, t) reads rows m = t and t + 4 (mod 8) at columns
+// 8-groups apart, swizzled by 8 t: 32 distinct banks.
+__device__ __forceinline__ void gram_half(const float* Ah, const float* w, const NsLane& ln,
+                                          Acc& acc) {
+  for (int kc = 0; kc < NS_N; kc += KC) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) av[r] = a_half[m * FA_LD + ty + 16 * r] * wm;
+    for (int mt = 0; mt < 2; ++mt) {
+      float part[8][4] = {};
 #pragma unroll
-    for (int c = 0; c < 8; ++c) bv[c] = a_half[m * FA_LD + tx + 16 * c];
+      for (int kk = 0; kk < KC; kk += 8) {
+        const int m0 = kc + kk + ln.t, m1 = m0 + 4;  // k of a0, a1, b0 and of a2, a3, b1
+        uint32_t ah[4], al[4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+        for (int f = 0; f < 4; ++f) {  // a0..a3: rows g, g+8 of k = t and t+4
+          split_tf32(Ah[sw<NS_N>((f >> 1) ? m1 : m0, ln.row(mt, f & 1))], ah[f], al[f]);
+        }
+        const float w0 = w[m0], w1 = w[m1];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[8][8]) {
+        for (int nt = 0; nt < 8; ++nt) {
+          const int sn = (64 * ln.wn + 8 * nt + ln.g) ^ (ln.t << 3);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(w0 * Ah[m0 * NS_N + sn], bh0, bl0);
+          split_tf32(w1 * Ah[m1 * NS_N + sn], bh1, bl1);
+          mma_tf32(part[nt], ah, bh0, bh1);
+          mma_tf32(part[nt], ah, bl0, bl1);
+          mma_tf32(part[nt], al, bh0, bh1);
+        }
+      }
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-}
-
-// dst = (H + sigma I) + acc.
-__device__ __forceinline__ void write_k(const float* __restrict__ hess, float sigma,
-                                        const float (&acc)[8][8], float* dst) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = ty + 16 * r, j = tx + 16 * c;
-      dst[i * FA_LD + j] = (hess[i * FA_N + j] + (i == j ? sigma : 0.f)) + acc[r][c];
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
     }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(Acc& acc) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+}
+
+// dst = (H + sigma I) + acc, the warp's tile of the accumulator layout into
+// the swizzled tile dst.
+__device__ __forceinline__ void write_k(const float* __restrict__ hess, float sigma,
+                                        const Acc& acc, float* dst) {
+  const NsLane ln;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = ln.row(mt, h), j = ln.col(nt);
+        const float2 hv = *reinterpret_cast<const float2*>(hess + i * FA_N + j);
+        float2 v;
+        v.x = (hv.x + (i == j ? sigma : 0.f)) + acc[mt][nt][2 * h];
+        v.y = (hv.y + (i == j + 1 ? sigma : 0.f)) + acc[mt][nt][2 * h + 1];
+        *reinterpret_cast<float2*>(dst + sw<NS_N>(i, j)) = v;
+      }
+}
+
+// Mat <- Mat_ij d_j d_i on the swizzled tile, then a barrier.
+__device__ __forceinline__ void scale_tile(float* Mat, const float* d) {
+  for (int idx = threadIdx.x; idx < NS_TILE / 4; idx += NS_THREADS) {
+    const int r = idx / (NS_N / 4), c = 4 * (idx % (NS_N / 4));
+    float4& v = *reinterpret_cast<float4*>(Mat + sw<NS_N>(r, c));
+    const float4 dc = ld4(d + c);
+    const float dr = d[r];
+    v.x = v.x * dc.x * dr;
+    v.y = v.y * dc.y * dr;
+    v.z = v.z * dc.z * dr;
+    v.w = v.w * dc.w * dr;
+  }
+  __syncthreads();
 }
 
 // d = rsqrt(max(diag K, 1e-30)), K <- K * d_j * d_i.
 __device__ __forceinline__ void jacobi_scale(float* K, float* d) {
   if (threadIdx.x < FA_N) {
-    d[threadIdx.x] = 1.f / sqrtf(fmaxf(K[threadIdx.x * FA_LD + threadIdx.x], 1e-30f));
+    d[threadIdx.x] = 1.f / sqrtf(fmaxf(K[sw<NS_N>(threadIdx.x, threadIdx.x)], 1e-30f));
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < FA_N * FA_N; idx += NS_THREADS) {
-    const int i = idx >> 7, j = idx & 127;
-    K[i * FA_LD + j] = K[i * FA_LD + j] * d[j] * d[i];
+  scale_tile(K, d);
+}
+
+// Sums each of the R (16 or 32) row partials v holds over the warp's 32
+// lanes. Each step a lane keeps half of its rows and adds the other lane's
+// partials of them (lane ^ mask), sending its own of the half it gives up:
+// R - 1 shuffles in all, and one more at R = 16. Returns row lane at R = 32,
+// row lane / 2 at R = 16. v is clobbered.
+template <int R, int kHalf = R / 2>
+__device__ __forceinline__ float warp_sum_rows(float (&v)[R]) {
+  if constexpr (kHalf == 0) {
+    float s = v[0];
+#pragma unroll
+    for (int mask = 16 / R; mask > 0; mask >>= 1) s += __shfl_xor_sync(0xffffffffu, s, mask);
+    return s;
+  } else {
+    constexpr int mask = kHalf * (32 / R);
+    const bool upper = (threadIdx.x & mask) != 0;
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) {
+      const float send = upper ? v[k] : v[k + kHalf];
+      const float keep = upper ? v[k + kHalf] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+    }
+    return warp_sum_rows<R, kHalf / 2>(v);
   }
-  __syncthreads();
 }
 
-__device__ __forceinline__ void unscale(float* X, const float* d) {
-  for (int idx = threadIdx.x; idx < FA_N * FA_N; idx += NS_THREADS) {
-    const int i = idx >> 7, j = idx & 127;
-    X[i * FA_LD + j] = X[i * FA_LD + j] * d[j] * d[i];
+// (Mat v)_i for the swizzled N x N tile Mat, vr this lane's v[4 lane..+3]:
+// warp w sums rows 16w..16w+15; the even lanes write them to out. The
+// caller's barrier comes before out is read.
+__device__ __forceinline__ void x_matvec(const float* Mat, const float4& vr, float* out) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float s[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) s[r] = dot4(ld4(Mat + sw<NS_N>(16 * w + r, 4 * lane)), vr);
+  const float y = warp_sum_rows<16>(s);
+  if (!(lane & 1)) out[16 * w + (lane >> 1)] = y;
+}
+
+// (A x)_t on thread t, xr this lane's x[4 lane..+3]: warp w sums A's rows
+// 32w..32w+31 (rows [0,128) in A0, [128,256) in A1).
+__device__ __forceinline__ float a_matvec(const float* A0, const float* A1, const float4& xr) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const float* Ah = w < WARPS / 2 ? A0 : A1;
+  const int r0 = 32 * (w % (WARPS / 2));
+  float s[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) s[r] = dot4(ld4(Ah + sw<NS_N>(r0 + r, 4 * lane)), xr);
+  return warp_sum_rows<32>(s);
+}
+
+// Warp w's share of A'v: sum over A's rows m = 32w..32w+31 of v[m] A[m, :],
+// columns 4 lane..+3 on each lane, into part[w].
+__device__ __forceinline__ void at_partial(const float* A0, const float* A1, const float* v,
+                                           float (*part)[FA_N]) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const float* Ah = w < WARPS / 2 ? A0 : A1;
+  const int r0 = 32 * (w % (WARPS / 2));
+  float4 s = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int r = 0; r < 32; ++r) {
+    const float vm = v[32 * w + r];
+    const float4 a = ld4(Ah + sw<NS_N>(r0 + r, 4 * lane));
+    s.x = fmaf(a.x, vm, s.x);
+    s.y = fmaf(a.y, vm, s.y);
+    s.z = fmaf(a.z, vm, s.z);
+    s.w = fmaf(a.w, vm, s.w);
   }
-  __syncthreads();
+  *reinterpret_cast<float4*>(part[w] + 4 * lane) = s;
 }
 
-// (Mat v)_i for the symmetric N x N tile Mat: the thread's half of row i
-// (i = tid & 127, columns [64h, 64h + 64), h = tid >> 7) into part[tid];
-// returns part[i] + part[i + 128] on threads < 128. Every thread calls it.
-__device__ __forceinline__ float x_matvec(const float* Mat, const float* v, float* part) {
-  const int i = threadIdx.x & 127, j0 = (threadIdx.x >> 7) * 64;
-  float s = 0.f;
-#pragma unroll 8
-  for (int j = j0; j < j0 + 64; ++j) s = fmaf(Mat[i * FA_LD + j], v[j], s);
-  part[threadIdx.x] = s;
-  __syncthreads();
-  const float out = threadIdx.x < FA_N ? part[threadIdx.x] + part[threadIdx.x + FA_N] : 0.f;
-  __syncthreads();
-  return out;
-}
-
-// (A' v)_i with A's rows [0,128) in A0 and [128,256) in A1; as x_matvec.
-__device__ __forceinline__ float at_matvec(const float* A0, const float* A1, const float* v,
-                                           float* part) {
-  const int i = threadIdx.x & 127, h = threadIdx.x >> 7;
-  const float* Ah = h ? A1 : A0;
-  const float* vh = v + h * FA_N;
-  float s = 0.f;
-#pragma unroll 8
-  for (int m = 0; m < FA_N; ++m) s = fmaf(Ah[m * FA_LD + i], vh[m], s);
-  part[threadIdx.x] = s;
-  __syncthreads();
-  const float out = threadIdx.x < FA_N ? part[threadIdx.x] + part[threadIdx.x + FA_N] : 0.f;
-  __syncthreads();
-  return out;
-}
-
-// (A x)_t for the calling thread's row t.
-__device__ __forceinline__ float a_row(const float* A0, const float* A1, const float* x) {
-  const int t = threadIdx.x;
-  const float* row = t < FA_N ? A0 + t * FA_LD : A1 + (t - FA_N) * FA_LD;
-  float s = 0.f;
-#pragma unroll 8
-  for (int i = 0; i < FA_N; ++i) s = fmaf(row[i], x[i], s);
+// (A'v)[4 lane..+3]: the warps' partial sums, after the barrier that ends
+// at_partial.
+__device__ __forceinline__ float4 at_sum(const float (*part)[FA_N]) {
+  const int lane = threadIdx.x & 31;
+  float4 s = ld4(part[0] + 4 * lane);
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) {
+    const float4 a = ld4(part[w] + 4 * lane);
+    s.x += a.x;
+    s.y += a.y;
+    s.z += a.z;
+    s.w += a.w;
+  }
   return s;
 }
 
@@ -302,7 +293,7 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   __syncthreads();
   float m = red[0];
 #pragma unroll
-  for (int w = 1; w < NS_THREADS / 32; ++w) m = fmaxf(m, red[w]);
+  for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w]);
   __syncthreads();
   return m;
 }
@@ -313,23 +304,25 @@ fused_admm_kernel(const float* __restrict__ a, const float* __restrict__ hess_al
                   const float* __restrict__ grad_all, const float* __restrict__ l_all,
                   const float* __restrict__ u_all, const float* __restrict__ rho_all,
                   float* __restrict__ x_out, FaParams p) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* X = K + FA_TILE;
-  float* T = X + FA_TILE;
-  FaVecs& v = *reinterpret_cast<FaVecs*>(T + FA_TILE);
-  const int t = threadIdx.x;
+  extern __shared__ __align__(16) float smem[];
+  const NsTiles m(smem);
+  float* K = m.K;
+  float* X = m.X;
+  float* T = m.T;
+  FaVecs& v = *reinterpret_cast<FaVecs*>(smem + NS_SMEM_BYTES / sizeof(float));
+  const NsLane ln;
+  const int t = threadIdx.x, lane = t & 31;
   const size_t sys = blockIdx.x;
   const float* hess = hess_all + sys * FA_N * FA_N;
 
-  // per-row state of row t; x-space state of row t on threads < N
+  // row t of the constraints on thread t; x-space vectors as this lane's float4
   const float l = l_all[sys * FA_M + t];
   const float u = u_all[sys * FA_M + t];
   const float rho = rho_all[sys * FA_M + t];
   const float inv_rho = 1.f / rho;
   const bool finite_u = u < p.infty;
-  const float grad = t < FA_N ? grad_all[sys * FA_N + t] : 0.f;
-  float acc[8][8];
+  const float4 g4 = __ldg(reinterpret_cast<const float4*>(grad_all + sys * FA_N) + lane);
+  Acc acc;
 
   // ---- K0 = H + sigma I + A' diag(rho) A, inverted in X
   stage_rows(a, 0, X);
@@ -337,37 +330,44 @@ fused_admm_kernel(const float* __restrict__ a, const float* __restrict__ hess_al
   v.wv[t] = rho;
   __syncthreads();
   zero_acc(acc);
-  gram_acc(X, v.wv, acc);
-  gram_acc(T, v.wv + FA_N, acc);
+  gram_half(X, v.wv, ln, acc);
+  gram_half(T, v.wv + FA_N, ln, acc);
   write_k(hess, p.sigma, acc, K);
   __syncthreads();
   jacobi_scale(K, v.d);
-  fa_ns_schedule(K, X, T, p.s);
-  unscale(X, v.d);
+  ns_schedule(K, X, T, m.S, p.s);
+  scale_tile(X, v.d);
 
   // ---- ADMM iterations: A in K|T, the inverse in X
   stage_rows(a, 0, K);
   stage_rows(a, FA_N, T);
-  float x = 0.f, z = 0.f, y = 0.f;
+  float4 x = {0.f, 0.f, 0.f, 0.f};
+  float z = 0.f, y = 0.f;
   for (int it = 0; it < p.n_iter; ++it) {
     v.mv[t] = rho * z - y;
+    __syncthreads();  // mv complete (and, at it = 0, A staged)
+    at_partial(K, T, v.mv, v.part);
     __syncthreads();
-    const float at = at_matvec(K, T, v.mv, v.part);
-    if (t < FA_N) v.xv[t] = (p.sigma * x - grad) + at;
+    const float4 at = at_sum(v.part);
+    float4 rhs;
+    rhs.x = (p.sigma * x.x - g4.x) + at.x;
+    rhs.y = (p.sigma * x.y - g4.y) + at.y;
+    rhs.z = (p.sigma * x.z - g4.z) + at.z;
+    rhs.w = (p.sigma * x.w - g4.w) + at.w;
+    x_matvec(X, rhs, v.xv[0]);
     __syncthreads();
-    const float xt = x_matvec(X, v.xv, v.part);
-    if (t < FA_N) {
-      v.xv[t] = xt;
-      x = p.alpha * xt + (1.f - p.alpha) * x;
-    }
-    __syncthreads();
-    const float zt = a_row(K, T, v.xv);
+    const float4 xt = ld4(v.xv[0] + 4 * lane);
+    x.x = p.alpha * xt.x + (1.f - p.alpha) * x.x;
+    x.y = p.alpha * xt.y + (1.f - p.alpha) * x.y;
+    x.z = p.alpha * xt.z + (1.f - p.alpha) * x.z;
+    x.w = p.alpha * xt.w + (1.f - p.alpha) * x.w;
+    const float zt = a_matvec(K, T, xt);
     const float z_relax = p.alpha * zt + (1.f - p.alpha) * z;
     const float z_new = fminf(fmaxf(z_relax + inv_rho * y, l), u);
     y = y + rho * (z_relax - z_new);
     z = z_new;
   }
-  __syncthreads();  // every read of xv by the last iteration is done
+  __syncthreads();  // A staged, when n_iter = 0
 
   // ---- active-set polish: A in K|T at the top of every round
   auto violation = [&](float ax) {
@@ -376,10 +376,8 @@ fused_admm_kernel(const float* __restrict__ a, const float* __restrict__ hess_al
   bool lo = (z - l) < p.act_tol;
   bool hi = finite_u && ((u - z) < p.act_tol);
   float y_al = (lo || hi) ? y : 0.f;
-  float best_x = x;
-  if (t < FA_N) v.xv[t] = x;
-  __syncthreads();
-  float best_v = fmaxf(block_max(violation(a_row(K, T, v.xv)), v.red), 0.f);
+  float4 best_x = x;
+  float best_v = fmaxf(block_max(violation(a_matvec(K, T, x)), v.red), 0.f);
 
   for (int round = 0; round < p.polish_rounds; ++round) {
     const bool act = lo || hi;
@@ -389,45 +387,62 @@ fused_admm_kernel(const float* __restrict__ a, const float* __restrict__ hess_al
     v.mv[t] = w * bound - y_act;
     v.wv[t] = w;
     __syncthreads();
-    const float b = -grad + at_matvec(K, T, v.mv, v.part);
-    if (t < FA_N) v.bv[t] = b;
-    // kp into X, scaled, inverted into K
+    // b = -g + A'(w bound - y_act); kp into X
+    at_partial(K, T, v.mv, v.part);
     zero_acc(acc);
-    gram_acc(K, v.wv, acc);
-    gram_acc(T, v.wv + FA_N, acc);
+    gram_half(K, v.wv, ln, acc);
+    gram_half(T, v.wv + FA_N, ln, acc);
     write_k(hess, p.sigma, acc, X);
-    __syncthreads();
+    __syncthreads();  // part and kp complete; every read of A done
+    const float4 at = at_sum(v.part);
+    float4 b;
+    b.x = -g4.x + at.x;
+    b.y = -g4.y + at.y;
+    b.z = -g4.z + at.z;
+    b.w = -g4.w + at.w;
+    // kp scaled, inverted into K, unscaled
     jacobi_scale(X, v.d);
-    fa_ns_schedule(X, K, T, p.s);
-    unscale(K, v.d);
+    ns_schedule(X, K, T, m.S, p.s);
+    scale_tile(K, v.d);
     // the unscaled kp again, into X, A staged through T half by half
-    zero_acc(acc);
     stage_rows(a, 0, T);
     __syncthreads();
-    gram_acc(T, v.wv, acc);
+    zero_acc(acc);
+    gram_half(T, v.wv, ln, acc);
     __syncthreads();
     stage_rows(a, FA_N, T);
     __syncthreads();
-    gram_acc(T, v.wv + FA_N, acc);
+    gram_half(T, v.wv + FA_N, ln, acc);
     write_k(hess, p.sigma, acc, X);
     __syncthreads();
-    // x_p = invp b, then two refinement passes against kp
-    float xp = x_matvec(K, v.bv, v.part);
+    // x_p = invp b, then two refinement passes against kp; each matvec's
+    // result goes to the other xv buffer than the one before it
+    x_matvec(K, b, v.xv[0]);
+    __syncthreads();
+    float4 xp = ld4(v.xv[0] + 4 * lane);
     for (int r = 0; r < 2; ++r) {
-      if (t < FA_N) v.xv[t] = xp;
+      x_matvec(X, xp, v.xv[1]);
       __syncthreads();
-      const float kx = x_matvec(X, v.xv, v.part);
-      if (t < FA_N) v.xv[t] = b - kx;
+      const float4 kx = ld4(v.xv[1] + 4 * lane);
+      float4 res;
+      res.x = b.x - kx.x;
+      res.y = b.y - kx.y;
+      res.z = b.z - kx.z;
+      res.w = b.w - kx.w;
+      x_matvec(K, res, v.xv[0]);
       __syncthreads();
-      const float dx = x_matvec(K, v.xv, v.part);
-      xp = xp + dx;
+      const float4 dx = ld4(v.xv[0] + 4 * lane);
+      xp.x = xp.x + dx.x;
+      xp.y = xp.y + dx.y;
+      xp.z = xp.z + dx.z;
+      xp.w = xp.w + dx.w;
     }
-    if (t < FA_N) v.xv[t] = xp;
     stage_rows(a, 0, K);
     __syncthreads();
-    const float ax = a_row(K, T, v.xv);
+    const float ax = a_matvec(K, T, xp);
     const float y_new = y_act + w * (ax - bound);
-    const bool finite_p = __syncthreads_and(t >= FA_N || fabsf(xp) <= FLT_MAX_F);
+    const bool finite_p = __syncthreads_and(fabsf(xp.x) <= FLT_MAX_F && fabsf(xp.y) <= FLT_MAX_F &&
+                                            fabsf(xp.z) <= FLT_MAX_F && fabsf(xp.w) <= FLT_MAX_F);
     const float viol = block_max(violation(ax), v.red);
     const float v_p = finite_p ? viol : __int_as_float(0x7f800000);  // inf
     if (v_p < best_v) best_x = xp;
@@ -436,7 +451,7 @@ fused_admm_kernel(const float* __restrict__ a, const float* __restrict__ hess_al
     hi = (hi && (y_new >= -1e-9f)) || (finite_u && (ax > u + 1e-6f));
     y_al = (lo || hi) ? y_new : 0.f;
   }
-  if (t < FA_N) x_out[sys * FA_N + t] = p.polish_rounds > 0 ? best_x : x;
+  if (t < 32) reinterpret_cast<float4*>(x_out + sys * FA_N)[lane] = best_x;
 }
 
 }  // namespace qct

@@ -12,9 +12,11 @@ The counterpart of `quadruped_ctrl_tpu/ops/fused_admm.py`. Per system it
 
 with the semantics of `solver/admm.py:admm_mpc_batched` at a fixed rho. On a
 CUDA tensor `fused_admm_solve` launches `csrc/fused_admm.cu` (one block per
-system, K, the inverse and one scratch tile in shared memory for the whole
-solve); on a CPU tensor it runs `fused_admm_solve_reference`, the same
-arithmetic in plain PyTorch, batched over the systems.
+system, K, the inverse, one scratch tile and the constraint matrix in shared
+memory for the whole solve; the five factorizations and the Grams on the
+tensor cores through `csrc/ns_core.cuh`, the matvecs warp-wide in fp32); on a
+CPU tensor it runs `fused_admm_solve_reference`, the same arithmetic in plain
+PyTorch, batched over the systems.
 
 Shapes are the TPU kernel's tile: N = 128 variables, M = 256 constraint
 rows. The TPU kernel runs G = 8 systems per grid step and needs the batch
@@ -144,6 +146,9 @@ def fused_admm_solve(a_dense, hess, grad, l, u, rho, *,
               alpha_rx=alpha_rx, w_act=w_act, act_tol=act_tol, infty=infty)
     if not hess.is_cuda:
         return fused_admm_solve_reference(a_dense, hess, grad, l, u, rho, **kw)
+    if any(t.data_ptr() % 16 for t in (a_dense, hess, grad)):
+        raise ValueError("fused_admm_solve: a_dense, hess and grad must be 16-byte aligned "
+                         "(the kernel reads them as float4)")
     lib = _build.load()
     x = torch.empty_like(grad)
     P = _launch.ptr

@@ -161,5 +161,6 @@ inline size_t __cvta_generic_to_shared(const void* p) {
   return static_cast<size_t>(reinterpret_cast<const char*>(p) - emu::arena);
 }
 inline float __ldg(const float* p) { return *p; }
+inline float4 __ldg(const float4* p) { return *p; }
 using std::max;
 using std::min;

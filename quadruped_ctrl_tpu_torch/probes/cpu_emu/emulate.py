@@ -1,6 +1,6 @@
-"""Run the 128-tile factorization kernels of csrc/ns_inverse.cu on the CPU.
+"""Run the 128-tile kernels of csrc/ns_inverse.cu and csrc/fused_admm.cu on the CPU.
 
-    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k2 k3 k6 k7 k9]
+    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k2 k3 k5 k6 k7 k9]
 
 For a machine without nvcc: the CUDA sources are compiled by g++ (C++20)
 against the stand-in headers beside this file (cuda_runtime.h, cuda_bf16.h,
@@ -10,14 +10,18 @@ checked to compile that way; then ns_inverse.cu is built into a shared
 library and its C entry points run on a few systems against the plain
 PyTorch references, printing residuals and how far apart the two are, and
 the shared-memory wavefronts per ldmatrix matrix (1.0 when free of bank
-conflicts). It shows that the indexing, the layouts and the barriers are
-right; it says nothing of speed, and the 4-CTA cluster kernels of
-ns_cluster.cu only compile here. A run takes about a minute.
+conflicts). `k5` builds fused_admm.cu into a library of its own and runs
+the single-launch solve K5 on the first two systems of the h=10 fused
+path's operands against fused_admm_solve_reference. It shows that the
+indexing, the layouts and the barriers are right; it says nothing of speed,
+and the 4-CTA cluster kernels of ns_cluster.cu only compile here. A run
+takes a few minutes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import inspect
 import re
 import shutil
 import subprocess
@@ -32,7 +36,9 @@ PKG = HERE.parents[1]
 sys.path.insert(0, str(PKG.parent))
 
 from quadruped_ctrl_tpu_torch import default_config  # noqa: E402
+from quadruped_ctrl_tpu_torch.mpc import pipeline  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import _build  # noqa: E402
+from quadruped_ctrl_tpu_torch.ops import fused_admm as FA  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI  # noqa: E402
 
 OUT = PKG / "_build" / "cpu_emu"
@@ -60,14 +66,27 @@ def prepare(csrc: Path, out: Path):
         (out / path.name).write_text(src)
 
 
+FLAGS = ("g++", "-std=c++20", "-Wno-unknown-pragmas", f"-I{HERE}", "-x", "c++")
+
+
 def compile_all(out: Path) -> ctypes.CDLL:
-    flags = ["g++", "-std=c++20", "-Wno-unknown-pragmas", f"-I{HERE}", "-x", "c++"]
+    """Check that every .cu in out compiles; ns_inverse.cu's library."""
     for cu in sorted(out.glob("*.cu")):
-        subprocess.run([*flags, "-fsyntax-only", str(cu)], check=True)
+        subprocess.run([*FLAGS, "-fsyntax-only", str(cu)], check=True)
         print(f"compiles: {cu.name}")
-    lib_path = out / "libns_inverse_emu.so"
-    subprocess.run([*flags, "-O2", "-shared", "-fPIC", "-o", str(lib_path),
-                    str(out / "ns_inverse.cu"), "-lpthread"], check=True)
+    return _library(out, "ns_inverse")
+
+
+def compile_fused(out: Path) -> ctypes.CDLL:
+    """fused_admm.cu's library (K5), apart from ns_inverse.cu's: each counts
+    its own ldmatrix wavefronts."""
+    return _library(out, "fused_admm")
+
+
+def _library(out: Path, stem: str) -> ctypes.CDLL:
+    lib_path = out / f"lib{stem}_emu.so"
+    subprocess.run([*FLAGS, "-O2", "-shared", "-fPIC", "-o", str(lib_path),
+                    str(out / f"{stem}.cu"), "-lpthread"], check=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _build._SIGNATURES.items():
         if hasattr(lib, name):
@@ -163,6 +182,72 @@ def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
     return out
 
 
+K5_DEFAULTS = {k: p.default for k, p in inspect.signature(FA.fused_admm_solve).parameters.items()
+               if p.kind is inspect.Parameter.KEYWORD_ONLY}
+
+
+def fused_operands(b: int = 2, seed: int = 0) -> tuple:
+    """The operands of the K5 call that solve_packed_batch(use_fused=True)
+    makes at h=10 (the h10_fused lane's: n = 60 variables and m = 100 rows in
+    the 128 x 256 tile), for its first b scenarios, on the CPU."""
+    calls, real = [], FA.fused_admm_solve
+
+    def record(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    FA.fused_admm_solve = record
+    try:
+        pipeline.solve_packed_batch(default_config(), pipeline.random_inputs(
+            seed, b, 10, device="cpu"), use_fused=True, use_kernels=True, iterations=1,
+            polish_rounds=0)
+    finally:
+        FA.fused_admm_solve = real
+    a, *per_system = calls[0]
+    return (a, *(t[:b].contiguous() for t in per_system))
+
+
+def k5(lib: ctypes.CDLL, ops, **kw) -> torch.Tensor:
+    """x from the emulated K5 on fused_admm_solve's operands ops, with its
+    keyword arguments."""
+    kw = {**K5_DEFAULTS, **kw}
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    x = torch.empty_like(ops[2])
+    rc = lib.qct_fused_admm_solve(
+        *map(ptr, ops), ptr(x), ops[1].shape[0], NI._mus_arg(kw["mus_a0"], kw["n_scaled"]),
+        *(kw[k] for k in ("n_scaled", "n_quad", "n_hi", "n_iter", "polish_rounds", "sigma",
+                          "alpha_rx", "w_act", "act_tol", "infty")), None)
+    if rc != 0:
+        raise RuntimeError(f"emulated K5 returned {rc}")
+    return x
+
+
+def run_k5(lib: ctypes.CDLL) -> dict:
+    """K5 against fused_admm_solve_reference on fused_operands(): the whole
+    solve (n_iter=60, polish_rounds=2) and the ADMM phase alone (n_iter=30,
+    polish_rounds=0), each as its largest force difference (N, x f_max),
+    that relative to max |x|, and whether x is finite and 0 on the padded
+    variables; prints them."""
+    ops = fused_operands()
+    f_max = default_config().mpc.f_max
+    out = {}
+    for name, kw in (("k5", dict(n_iter=60, polish_rounds=2)),
+                     ("k5_admm", dict(n_iter=30, polish_rounds=0))):
+        x = k5(lib, ops, **kw)
+        ref = FA.fused_admm_solve_reference(*ops, **kw)
+        out[name] = dict(max_force_diff=float((x - ref).abs().max()) * f_max, rel=rel(x, ref),
+                         pad_zero=bool((x[:, 60:] == 0).all()), finite=bool(x.isfinite().all()))
+    out["ldmatrix_wavefronts"] = lib.emu_ldsm_wavefronts_per_matrix()
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
 if __name__ == "__main__":
+    which = sys.argv[1:] or ("k2", "k3", "k5", "k6", "k7", "k9")
     prepare(PKG / "csrc", OUT)
-    run(compile_all(OUT), sys.argv[1:] or ("k2", "k3", "k6", "k7", "k9"))
+    lib = compile_all(OUT)
+    if set(which) - {"k5"}:
+        run(lib, [w for w in which if w != "k5"])
+    if "k5" in which:
+        run_k5(compile_fused(OUT))
