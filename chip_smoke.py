@@ -6,13 +6,15 @@
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds the CUDA kernels from quadruped_ctrl_tpu_torch/csrc (one nvcc per
    source, in parallel) and checks with cuobjdump that the factorization
-   kernels of both tiles and the fused solve K5 hold tensor-core code (HMMA
-   in their SASS);
+   kernels of both tiles, the fused solve K5 and both instances of the
+   formation K1 hold tensor-core code (HMMA in their SASS);
 3. holds each kernel (K1 form_packed, K2 ns_inverse_scaled_build, K3
    ns_inverse_scaled) against its plain PyTorch reference on the card at the
-   128 tile, at the h=10 path's shapes, and times both (K2 and K3 with their
-   share of the bound and their bf16x3 rate);
-3b. the same at the h=16 shapes: K1 above 128 variables, K2 and K3 at the 256
+   128 tile, at the h=10 path's shapes, and times both (K1 by the host clock
+   and by CUDA events over 20 chained calls, with the mma.sync its Gram
+   runs; K2 and K3 with their share of the bound and their bf16x3 rate);
+3b. the same at the h=16 shapes: K1 at each h=16 lane's shape (and, untimed,
+   at h=36 and h=25, the largest shapes it takes), K2 and K3 at the 256
    tile (one 4-CTA cluster per system; the NS products on the tensor cores
    at both tiles), and the Schur split
    K4 (K3 at the 128 tile inside) against its plain version;
@@ -42,8 +44,8 @@
 4d. drives the per-scenario path (solve_batch, solve_compressed_batch at
    batch 1024, h=10; torch.func.vmap over admm_mpc, no kernel, as in JAX):
    forces, and the share within 1 N of solve_packed_batch;
-5. profiles one solve of h10, h16_full, h10_fused, h10_woodbury and
-   scenario_full (device time by kernel, device idle share);
+5. profiles one solve of h10, h16_full, h16_trot, h16_midband, h10_fused,
+   h10_woodbury and scenario_full (device time by kernel, device idle share);
 6. prints a JSON line with the kernels (one entry per kernel and tile, with
    its bound on this card and the time of torch.linalg.inv beside K2/K3),
    then the result line.
@@ -140,14 +142,15 @@ KERNEL_INFO = {
 PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 
 
-# The kernels whose NS products must run on the tensor cores: the
+# The kernels whose products must run on the tensor cores: the
 # factorizations at the 128 tile (ns_inverse.cu) and at the 256 tile
-# (ns_cluster.cu), and the fused solve (fused_admm.cu).
-NS_KERNELS = ("ns_inverse_scaled_kernel", "ns_inverse_scaled_build_kernel",
+# (ns_cluster.cu), the fused solve (fused_admm.cu), and both instances of
+# the formation's Gram (formation_pack.cu).
+TC_KERNELS = ("ns_inverse_scaled_kernel", "ns_inverse_scaled_build_kernel",
               "ns_inverse_refine_kernel", "ns_inverse_warm_kernel",
               "ns_inverse_scaled_256_kernel", "ns_inverse_scaled_build_256_kernel",
               "ns_inverse_refine_256_kernel", "ns_inverse_warm_256_kernel",
-              "fused_admm_kernel")
+              "fused_admm_kernel", "form_packed_kernel<false>", "form_packed_kernel<true>")
 
 
 def check(ok: bool, what: str):
@@ -170,8 +173,29 @@ def median_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def event_ms(fn, n: int = 20) -> float:
+    """Device ms of fn(): CUDA events around n chained calls, divided by n,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def mangled(name: str) -> str:
+    """The Itanium-mangled prefix of qct::name, a function or one instance
+    of a template over one bool (name<false>, name<true>)."""
+    base, _, arg = name.partition("<")
+    return f"_ZN3qct{len(base)}{base}" + (f"ILb{int(arg == 'true>')}EE" if arg else "E")
+
+
 def check_tensor_core_sass(lib_path):
-    """cuobjdump -sass of the built library: every NS_KERNELS kernel holds
+    """cuobjdump -sass of the built library: every TC_KERNELS kernel holds
     HMMA instructions (mma.sync on the tensor cores); prints the count and,
     from the ptxas log, each one's registers and spill stores."""
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
@@ -181,17 +205,16 @@ def check_tensor_core_sass(lib_path):
     for body in sass.split("Function : ")[1:]:
         hmma[body.split()[0]] = body.count("HMMA")
     ptxas = lib_path.with_suffix(".log").read_text().split("Compiling entry function '")
-    for name in NS_KERNELS:
-        mangled = f"_ZN3qct{len(name)}{name}E"
-        found = [n for n in hmma if n.startswith(mangled)]
-        entry = next((e for e in ptxas if e.startswith(mangled)), "")
+    for name in TC_KERNELS:
+        found = [n for n in hmma if n.startswith(mangled(name))]
+        entry = next((e for e in ptxas if e.startswith(mangled(name))), "")
         regs = re.search(r"Used (\d+) registers", entry)
         spills = re.search(r"(\d+) bytes spill stores", entry)
         print(f"  sass: {name}: {hmma[found[0]] if found else 'not found'} HMMA, "
               f"{regs[1] if regs else '?'} registers, "
               f"{spills[1] if spills else '?'} bytes spill stores")
         check(len(found) == 1 and hmma[found[0]] > 0,
-              f"{name} runs its NS products on the tensor cores (HMMA in its SASS)")
+              f"{name} runs its products on the tensor cores (HMMA in its SASS)")
 
 
 def reset_counts():
@@ -233,15 +256,29 @@ def ns_bound(b: int, npad: int, schedule, nbytes: float) -> tuple[float, str]:
 
 
 def form_bound(b: int, h: int, ms: int, pack: int) -> tuple[float, str]:
-    """K1 per scenario: u = bfam_s smat (39 x 12 x n_c), the bq expansion
-    (~8 operations per entry), the gradient (13h x n_c) in fp32 and the
-    Gram (13h x n_c x n_c) in 3 bf16 passes; bytes: the operands in, the
-    packed H and g out."""
+    """K1 per scenario, counting the work the function needs: in fp32, u =
+    bfam_s smat (39 x 12 x n_c) and, for each entry of bq that can be
+    nonzero (rows 13 x + q of column c with x >= step(c) = c / (3 ms)), its
+    expansion (~8 operations) and its term of the gradient (2); in 3 bf16
+    passes, one triangle of the symmetric Gram, G[c, d] for c <= d over the
+    rows where both columns can be nonzero (13 (h - step(d))); bytes: the
+    operands in, the packed H and g out."""
     n_c, rows = 3 * ms * h, 13 * h
     n_pair = pack * n_c
-    fp32 = b * (2.0 * 39 * 12 * n_c + 8.0 * rows * n_c + 2.0 * rows * n_c)
+    depth = [13 * (h - c // (3 * ms)) for c in range(n_c)]
+    gram = sum((d + 1) * depth[d] for d in range(n_c))
+    fp32 = b * (2.0 * 39 * 12 * n_c + 10.0 * sum(depth))
     nbytes = 4.0 * (b * (468 + 12 * n_c + rows + h) + b // pack * (n_pair * n_pair + n_pair))
-    return bound(3 * 2.0 * rows * n_c * n_c * b, fp32, nbytes)
+    return bound(3 * 2.0 * gram * b, fp32, nbytes)
+
+
+def gram_mma(h: int, ms: int) -> tuple[int, int]:
+    """(mma.sync m16n8k16 K1's Gram runs for one scenario, as the library
+    counts them; those of the full Gram, ceil(n_c / 16) x ceil(n_c / 8)
+    fragments over every 16-row chunk), both over bf16x3's three passes."""
+    n_c = 3 * ms * h
+    full = -(-n_c // 16) * -(-n_c // 8) * -(-13 * h // 16) * 3
+    return _build.load().qct_form_packed_mma_count(h, ms), full
 
 
 def rel(a, b) -> float:
@@ -344,9 +381,11 @@ def lane_inputs(seed: int, b: int, h: int, kind: str, dev):
     return inputs if tbl is None else inputs.replace(gait_table=tbl)
 
 
-def check_k1(cfg, dev, batch, h, ms, pack, masked, kind, results=None):
-    """K1 against its reference and the fp32 plain formation; with `results`,
-    times it and fills the K1 entry of its tile."""
+def check_k1(cfg, dev, batch, h, ms, pack, masked, kind, results=None, timed=False):
+    """K1 against its reference and the fp32 plain formation. `timed` times
+    the kernel and its reference by the host clock (median of 10) and on the
+    device (event_ms) and prints the mma.sync the Gram runs against the
+    full Gram's; `results` also fills the K1 entry of its tile."""
     inp = lane_inputs(1, batch, h, kind, dev)
     adt, bdt = formation.srb_discrete(cfg.mpc, inp.r_feet, inp.rpy[:, 2], inp.x_drag,
                                       cfg.dt_mpc)
@@ -372,15 +411,25 @@ def check_k1(cfg, dev, batch, h, ms, pack, masked, kind, results=None):
           f"{tag}: shape and finite")
     check(rel(hk, hr) < 5e-5 and rel(gk, gr) < 1e-5, f"{tag} vs reference")
     check(rel(hk, hx) < 5e-5 and rel(gk, gx) < 1e-5, f"{tag} vs fp32 plain")
+    if not timed:
+        return
+    bound_ms, bound_by = form_bound(batch, h, ms, pack)
+    count, full = gram_mma(h, ms)
+    t = dict(ms=median_ms(lambda: FP.form_packed(*args)),
+             device_ms=event_ms(lambda: FP.form_packed(*args)),
+             plain_ms=median_ms(lambda: FP.form_packed_reference(*args)),
+             plain_device_ms=event_ms(lambda: FP.form_packed_reference(*args)))
+    print("  %s: kernel %.4f ms host (median of 10), %.4f ms device (20 chained calls); "
+          "reference %.4f / %.4f ms; bound %.4f ms (%s, one triangle of the Gram); share of the "
+          "bound %.4f (device)" % (tag, t["ms"], t["device_ms"], t["plain_ms"],
+                                   t["plain_device_ms"], bound_ms, bound_by,
+                                   bound_ms / t["device_ms"]))
+    print(f"  {tag}: the Gram runs {count} mma.sync m16n8k16 a scenario of the full Gram's "
+          f"{full} (share {count / full:.4f}; zero chunks and mirrored tiles skipped)")
     if results is not None:
-        key = f"K1/{FP.pair_tile(n_pair)}"
-        bound_ms, bound_by = form_bound(batch, h, ms, pack)
-        results[key].update(max_abs_err=float((hk - hr).abs().max()),
-                            ms=median_ms(lambda: FP.form_packed(*args)),
-                            plain_ms=median_ms(lambda: FP.form_packed_reference(*args)),
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        print("  %s: kernel %.3f ms reference %.3f ms (median of 10); bound %.4f ms (%s)"
-              % (tag, results[key]["ms"], results[key]["plain_ms"], bound_ms, bound_by))
+        results[f"K1/{FP.pair_tile(n_pair)}"].update(
+            max_abs_err=float((hk - hr).abs().max()), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, mma_count=count, mma_full=full, **t)
 
 
 def check_ns(cases, results, npad, n_sys):
@@ -454,7 +503,7 @@ def phase_kernels(cfg, dev, results):
     gen.manual_seed(1)
 
     # K1 at the main path's shape and at an odd system count with 2 masked steps
-    check_k1(cfg, dev, BATCH, H, MS, PACK, 0, "trot", results)
+    check_k1(cfg, dev, BATCH, H, MS, PACK, 0, "trot", results, timed=True)
     check_k1(cfg, dev, BATCH - 2, H, MS, PACK, 2, "trot")
 
     admm_sched, polish_sched = schedules(cfg)
@@ -510,8 +559,13 @@ def phase_kernels16(cfg, dev, results):
     gen.manual_seed(16)
     for lane, (ms, pack, kind) in LANES16.items():
         check_k1(cfg, dev, B16, H16, ms, pack, 0, kind,
-                 results if lane == "h16_full" else None)
+                 results if lane == "h16_full" else None, timed=True)
     check_k1(cfg, dev, B16 - 2, H16, 4, 1, 2, "trot")
+    # the largest shapes K1 takes, whose planes leave no room for the padded
+    # row stride (qct_form_packed_smem_bytes); at h=36 the last tile reads
+    # 16 columns past the planes' 112
+    check_k1(cfg, dev, 512, 36, 1, 2, 0, "trot")
+    check_k1(cfg, dev, 511, 25, 2, 1, 1, "trot")
 
     admm_sched, polish_sched = schedules(cfg)
     n_spd = N_SPD
@@ -1383,9 +1437,9 @@ def main() -> int:
     t2d = time.perf_counter()
     profile = phase_profile(cfg, "h10", pipeline.random_inputs(seed=0, batch=BATCH, h=H,
                                                                device=dev))
-    ms, pack, kind = LANES16["h16_full"]
-    profile16 = phase_profile(cfg, "h16_full", lane_inputs(1, B16, H16, kind, dev),
-                              max_stance=ms, pack=pack)
+    profiles16 = {lane: phase_profile(cfg, lane, lane_inputs(1, B16, H16, kind, dev),
+                                      max_stance=ms, pack=pack)
+                  for lane, (ms, pack, kind) in LANES16.items()}
     profile_fused = phase_profile(cfg, "h10_fused", pipeline.random_inputs(
         seed=0, batch=B_FUSED, h=H, device=dev), use_fused=True)
     profile_wb = phase_profile(woodbury_config(cfg), "h10_woodbury", pipeline.random_inputs(
@@ -1397,14 +1451,17 @@ def main() -> int:
     print(name_power)       # again, near the end: the output's head may be cut
     print(json.dumps({"phase_ms": times, "batch": BATCH, "phase_ms_h16": times16,
                       "batch_h16": B16, "batch_h10_fused": B_FUSED, "profile": profile,
-                      "profile_h16_full": profile16, "profile_h10_fused": profile_fused,
+                      **{f"profile_{lane}": p for lane, p in profiles16.items()},
+                      "profile_h10_fused": profile_fused,
                       "profile_h10_woodbury": profile_wb, "batch_scenario": B_SCN,
                       "profile_scenario_full": profile_scn, "card": name_power}))
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         + (("guard_share", "k3_ms") if k.startswith("K7") else ())
-        + (("phases_ms",) if k.startswith("K5") else ())}
+        + (("phases_ms",) if k.startswith("K5") else ())
+        + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
+           else ())}
         for k in KERNEL_INFO]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,18 @@ computes it, for packed systems of up to 256 variables (the TPU kernel's 128
 and 256 tiles). On a CUDA tensor `form_packed` launches the hand-written
 kernel in `csrc/formation_pack.cu`; on a CPU tensor it runs
 `form_packed_reference`, the same arithmetic in plain PyTorch.
+
+The kernel (one block a scenario) builds bq once into bf16 hi/lo planes in
+shared memory, with the gradient in fp32 from the same values, and runs the
+Gram on the tensor cores: mma.sync bf16 in three passes, on the 32 x 32
+tiles on and above the diagonal, each from its first chunk of rows that is
+not zero (the library's `qct_form_packed_mma_count` says how many a
+scenario). The planes take 4 bytes an entry of bq padded to 16 rows and 16
+columns, plus 8 columns of row stride where that fits
+(`qct_form_packed_smem_bytes`): every shape up to h = 36 at max_stance 1,
+25 at 2, 20 at 3 and 17 at 4 fits in 227 KB, as with the fp32 bq of the
+kernel's first design; past them the wrapper raises. What bounds it: the
+build, which the Gram and the stores follow in series (PERF.md, section 6).
 """
 
 from __future__ import annotations
@@ -89,6 +101,8 @@ def form_packed(bfam_s, smat, r, smask, h: int, ms: int, pack: int, alpha: float
     if not bfam_s.is_cuda:
         return form_packed_reference(bfam_s, smat, r, smask, h, ms, pack, alpha)
     n_pair = pack * 3 * ms * h
+    if bfam_s.data_ptr() % 16:
+        raise ValueError("bfam_s: the kernel reads it as float4s; expected 16-byte alignment")
     lib = _build.load()
     smem = lib.qct_form_packed_smem_bytes(h, ms)
     if smem > _SMEM_LIMIT:

@@ -3,7 +3,8 @@
 // another, each block as one std::thread per CUDA thread; __syncthreads is a
 // std::barrier over the block, and the warp-wide operations (shuffles, and
 // mma.sync / ldmatrix in emu_mma.h) exchange values through a per-warp
-// scratch area between two barriers over the warp's 32 threads. Static
+// scratch area between two barriers over the warp's 32 threads; __syncwarp is
+// one barrier over the warp. Static
 // __shared__ variables become function statics (one block runs at a time);
 // dynamic shared memory is one arena per block, filled with garbage.
 #pragma once
@@ -131,6 +132,8 @@ inline int __syncthreads_and(int p) {
   __syncthreads();
   return r;
 }
+
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp().bar.arrive_and_wait(); }
 
 inline float __shfl_xor_sync(unsigned, float v, int off) {
   auto& w = emu::warp();

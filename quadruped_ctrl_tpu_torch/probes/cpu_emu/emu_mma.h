@@ -3,7 +3,8 @@
 // ISA's fragment layouts: each lane posts its registers to its warp's scratch
 // area, and after a warp barrier every lane reads what the instruction would
 // give it. ldmatrix also counts the shared-memory wavefronts of each 8x8
-// matrix (1 when free of bank conflicts) and aborts on a misaligned row.
+// matrix (1 when free of bank conflicts) and aborts on a misaligned row;
+// mma.sync m16n8k16 bf16 counts the warp-wide mmas it runs.
 #pragma once
 
 #include "cuda_runtime.h"
@@ -15,10 +16,13 @@ __device__ __forceinline__ uint32_t to_tf32(float a) {
 inline float lo16(uint32_t u) { return __uint_as_float(u << 16); }
 inline float hi16(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
 
+inline std::atomic<long> mma_bf16_calls{0};
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   auto& w = emu::warp();
   const int l = emu::lane();
+  if (l == 0) ++mma_bf16_calls;
   for (int i = 0; i < 4; ++i) w.u[l][i] = a[i];
   w.u[l][4] = b0; w.u[l][5] = b1;
   w.bar.arrive_and_wait();
@@ -101,6 +105,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
   w.bar.arrive_and_wait();
 }
 }  // namespace qct
+
+extern "C" long emu_mma_bf16_count() { return qct::mma_bf16_calls; }
+
+extern "C" void emu_reset_counts() {
+  qct::mma_bf16_calls = 0;
+  qct::ldsm_wavefronts = 0;
+  qct::ldsm_matrices = 0;
+}
 
 extern "C" double emu_ldsm_wavefronts_per_matrix() {
   return qct::ldsm_matrices ? double(qct::ldsm_wavefronts) / double(qct::ldsm_matrices) : 0.0;

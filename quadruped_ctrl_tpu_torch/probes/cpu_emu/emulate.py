@@ -1,6 +1,7 @@
-"""Run the 128-tile kernels of csrc/ns_inverse.cu and csrc/fused_admm.cu on the CPU.
+"""Run the 128-tile kernels of csrc/ns_inverse.cu, csrc/fused_admm.cu and
+csrc/formation_pack.cu on the CPU.
 
-    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k2 k3 k5 k6 k7 k9]
+    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9]
 
 For a machine without nvcc: the CUDA sources are compiled by g++ (C++20)
 against the stand-in headers beside this file (cuda_runtime.h, cuda_bf16.h,
@@ -12,7 +13,13 @@ PyTorch references, printing residuals and how far apart the two are, and
 the shared-memory wavefronts per ldmatrix matrix (1.0 when free of bank
 conflicts). `k5` builds fused_admm.cu into a library of its own and runs
 the single-launch solve K5 on the first two systems of the h=10 fused
-path's operands against fused_admm_solve_reference. It shows that the
+path's operands against fused_admm_solve_reference. `k1` builds
+formation_pack.cu into a library of its own and runs the packed formation
+K1 at the four lanes' shapes (h=10 and h=16 at max_stance 4, 2 and 3), with
+masked steps, at an n_c that is no multiple of 4, and at the two largest
+shapes whose planes leave no room for the padded row stride, against
+form_packed_reference, with the count of mma.sync it runs and its ldmatrix
+wavefronts per matrix. It shows that the
 indexing, the layouts and the barriers are right; it says nothing of speed,
 and the 4-CTA cluster kernels of ns_cluster.cu only compile here. A run
 takes a few minutes.
@@ -36,8 +43,9 @@ PKG = HERE.parents[1]
 sys.path.insert(0, str(PKG.parent))
 
 from quadruped_ctrl_tpu_torch import default_config  # noqa: E402
-from quadruped_ctrl_tpu_torch.mpc import pipeline  # noqa: E402
+from quadruped_ctrl_tpu_torch.mpc import formation, pipeline  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import _build  # noqa: E402
+from quadruped_ctrl_tpu_torch.ops import formation_pack as FP  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import fused_admm as FA  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI  # noqa: E402
 
@@ -83,6 +91,11 @@ def compile_fused(out: Path) -> ctypes.CDLL:
     return _library(out, "fused_admm")
 
 
+def compile_formation(out: Path) -> ctypes.CDLL:
+    """formation_pack.cu's library (K1), with its own mma.sync count."""
+    return _library(out, "formation_pack")
+
+
 def _library(out: Path, stem: str) -> ctypes.CDLL:
     lib_path = out / f"lib{stem}_emu.so"
     subprocess.run([*FLAGS, "-O2", "-shared", "-fPIC", "-o", str(lib_path),
@@ -93,6 +106,8 @@ def _library(out: Path, stem: str) -> ctypes.CDLL:
             getattr(lib, name).argtypes = list(argtypes)
             getattr(lib, name).restype = restype
     lib.emu_ldsm_wavefronts_per_matrix.restype = ctypes.c_double
+    lib.emu_mma_bf16_count.restype = ctypes.c_long
+    lib.emu_reset_counts.restype = None
     return lib
 
 
@@ -243,11 +258,64 @@ def run_k5(lib: ctypes.CDLL) -> dict:
     return out
 
 
+# K1's cases: (name, h, max_stance, pack, scenarios, masked trailing steps)
+K1_CASES = (("h10", 10, 2, 2, 2, 0), ("h16_full", 16, 4, 1, 1, 0), ("h16_trot", 16, 2, 2, 2, 0),
+            ("h16_midband", 16, 3, 1, 1, 0), ("h10_masked", 10, 2, 2, 2, 2),
+            ("h5_ms1", 5, 1, 2, 2, 1), ("h36_ms1", 36, 1, 2, 2, 0), ("h25_ms2", 25, 2, 1, 1, 0))
+
+
+def k1_operands(h: int, ms: int, b: int, masked: int, seed: int = 1) -> tuple:
+    """form_packed's operands (bfam_s, smat, r, smask) for b scenarios of
+    random_inputs at horizon h, max_stance ms, the last `masked` steps
+    masked out, on the CPU (chip_smoke.check_k1's construction)."""
+    cfg = default_config()
+    inp = pipeline.random_inputs(seed, b, h, device="cpu")
+    adt, bdt = formation.srb_discrete(cfg.mpc, inp.r_feet, inp.rpy[:, 2], inp.x_drag, cfg.dt_mpc)
+    x0 = formation.build_x0(inp.rpy, inp.position, inp.omega_world, inp.v_world,
+                            cfg.mpc.gravity)
+    _, _, sel = formation.stance_selectors(inp.gait_table, ms)
+    mask = torch.ones((b, h))
+    if masked:
+        mask[:, -masked:] = 0.0
+    return formation.packed_qp_operands(cfg.mpc, adt, bdt, x0, inp.traj, mask, sel)
+
+
+def run_k1(lib: ctypes.CDLL, cases=K1_CASES) -> dict:
+    """K1 against form_packed_reference on each case: rel_H and rel_g (max
+    difference over max |reference|), H finite and exactly 0 off the
+    scenario blocks, the mma.sync the launch ran against the library's
+    qct_form_packed_mma_count, ldmatrix's wavefronts per matrix, and the
+    shared memory of a block. Prints them."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    alpha, out = float(default_config().mpc.alpha), {}
+    for name, h, ms, pack, b, masked in cases:
+        ops = k1_operands(h, ms, b, masked)
+        n_c = 3 * ms * h
+        hess = torch.full((b // pack, pack * n_c, pack * n_c), float("nan"))
+        grad = torch.full((b // pack, pack * n_c), float("nan"))
+        lib.emu_reset_counts()
+        rc = lib.qct_form_packed(*map(ptr, ops), ptr(hess), ptr(grad), b, h, ms, pack, alpha, None)
+        h_ref, g_ref = FP.form_packed_reference(*ops, h, ms, pack, alpha)
+        block = torch.block_diag(*[torch.ones(n_c, n_c)] * pack).bool()
+        out[name] = dict(rc=rc, rel_H=rel(hess, h_ref), rel_g=rel(grad, g_ref),
+                         finite=bool(hess.isfinite().all() and grad.isfinite().all()),
+                         zeros_exact=bool((hess[:, ~block] == 0).all()),
+                         mma_count=lib.emu_mma_bf16_count(),
+                         mma_expected=b * lib.qct_form_packed_mma_count(h, ms),
+                         ldmatrix_wavefronts=lib.emu_ldsm_wavefronts_per_matrix(),
+                         smem=lib.qct_form_packed_smem_bytes(h, ms))
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ("k2", "k3", "k5", "k6", "k7", "k9")
+    which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9")
     prepare(PKG / "csrc", OUT)
     lib = compile_all(OUT)
-    if set(which) - {"k5"}:
-        run(lib, [w for w in which if w != "k5"])
+    if set(which) - {"k1", "k5"}:
+        run(lib, [w for w in which if w not in ("k1", "k5")])
     if "k5" in which:
         run_k5(compile_fused(OUT))
+    if "k1" in which:
+        run_k1(compile_formation(OUT))
