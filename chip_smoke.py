@@ -7,7 +7,10 @@
 2. builds the CUDA kernels from quadruped_ctrl_tpu_torch/csrc (one nvcc per
    source, in parallel) and checks with cuobjdump that the factorization
    kernels of both tiles, the fused solve K5 and both instances of the
-   formation K1 hold tensor-core code (HMMA in their SASS);
+   formation K1 hold tensor-core code (HMMA in their SASS), and the three
+   instances of the plain NS (csrc/ns_plain.cu: K8 at both tiles, K9 at 256)
+   wgmma (HGMMA); prints each cluster kernel's cluster size and how many of
+   its clusters the card holds at once;
 3. holds each kernel (K1 form_packed, K2 ns_inverse_scaled_build, K3
    ns_inverse_scaled) against its plain PyTorch reference on the card at the
    128 tile, at the h=10 path's shapes, and times both (K1 by the host clock
@@ -28,7 +31,8 @@
 3d. the plain NS K8/K9 through make_ns_inverse (K9 under torch.func.vmap on
    the per-scenario path's 2048 ADMM-phase K at h=10 and on 2048 SPD systems
    at the 256 tile, K8 on one matrix of each) against their references and
-   the plain NS, and the guarded warm NS K7 through
+   the plain NS, timed by the host clock and by CUDA events beside
+   torch.linalg.inv_ex on the same matrices, and the guarded warm NS K7 through
    _batched_solver(prev_inv=...) on real warm pairs (an adaptive-rho
    refactorization, a polish round) of the h=10 and h16_full solves, with
    its guard share and K3 on the same systems, and on a garbage start;
@@ -125,16 +129,16 @@ KERNEL_INFO = {
                    source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:448"),
     "K8/128": dict(name="ns_inverse",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_plain.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:62"),
     "K8/256": dict(name="ns_inverse (256 tile)",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_plain.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:62"),
     "K9/128": dict(name="ns_inverse_blocked",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:131"),
     "K9/256": dict(name="ns_inverse_blocked (256 tile)",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_plain.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:131"),
 }
 # Peak rates of one H100 SXM (data sheet, dense): the bf16 and tf32 tensor
@@ -145,12 +149,17 @@ PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 # The kernels whose products must run on the tensor cores: the
 # factorizations at the 128 tile (ns_inverse.cu) and at the 256 tile
 # (ns_cluster.cu), the fused solve (fused_admm.cu), and both instances of
-# the formation's Gram (formation_pack.cu).
+# the formation's Gram (formation_pack.cu), as mma.sync (HMMA in the SASS);
+# the plain NS (ns_plain.cu: K8/128, K8/256, K9/256) as wgmma (HGMMA).
 TC_KERNELS = ("ns_inverse_scaled_kernel", "ns_inverse_scaled_build_kernel",
               "ns_inverse_refine_kernel", "ns_inverse_warm_kernel",
               "ns_inverse_scaled_256_kernel", "ns_inverse_scaled_build_256_kernel",
               "ns_inverse_refine_256_kernel", "ns_inverse_warm_256_kernel",
               "fused_admm_kernel", "form_packed_kernel<false>", "form_packed_kernel<true>")
+GMMA_KERNELS = {"K8/128": "ns_plain_kernel<128, 2, 4>", "K8/256": "ns_plain_kernel<256, 4, 4>",
+                "K9/256": "ns_plain_kernel<256, 4, 1>"}
+# their instance numbers in ns_plain.cu's qct_ns_plain_clusters
+PLAIN_INSTANCES = {"K8/128": 0, "K8/256": 1, "K9/256": 2}
 
 
 def check(ok: bool, what: str):
@@ -189,32 +198,37 @@ def event_ms(fn, n: int = 20) -> float:
 
 def mangled(name: str) -> str:
     """The Itanium-mangled prefix of qct::name, a function or one instance
-    of a template over one bool (name<false>, name<true>)."""
-    base, _, arg = name.partition("<")
-    return f"_ZN3qct{len(base)}{base}" + (f"ILb{int(arg == 'true>')}EE" if arg else "E")
+    of a template over bools and ints (name<false>, name<256, 4, 1>)."""
+    base, _, args = name.partition("<")
+    if not args:
+        return f"_ZN3qct{len(base)}{base}E"
+    enc = "".join(f"Lb{int(a == 'true')}E" if a in ("true", "false") else f"Li{int(a)}E"
+                  for a in (x.strip() for x in args.rstrip(">").split(",")))
+    return f"_ZN3qct{len(base)}{base}I{enc}EE"
 
 
 def check_tensor_core_sass(lib_path):
     """cuobjdump -sass of the built library: every TC_KERNELS kernel holds
-    HMMA instructions (mma.sync on the tensor cores); prints the count and,
-    from the ptxas log, each one's registers and spill stores."""
+    HMMA instructions (mma.sync on the tensor cores), every GMMA_KERNELS
+    kernel HGMMA (wgmma); prints the count and, from the ptxas log, each
+    one's registers and spill stores."""
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    hmma = {}
-    for body in sass.split("Function : ")[1:]:
-        hmma[body.split()[0]] = body.count("HMMA")
+    bodies = {body.split()[0]: body for body in sass.split("Function : ")[1:]}
     ptxas = lib_path.with_suffix(".log").read_text().split("Compiling entry function '")
-    for name in TC_KERNELS:
-        found = [n for n in hmma if n.startswith(mangled(name))]
+    for name, op in [(n, "HMMA") for n in TC_KERNELS] + [(n, "HGMMA")
+                                                         for n in GMMA_KERNELS.values()]:
+        found = [n for n in bodies if n.startswith(mangled(name))]
+        count = bodies[found[0]].count(op) if found else 0
         entry = next((e for e in ptxas if e.startswith(mangled(name))), "")
         regs = re.search(r"Used (\d+) registers", entry)
         spills = re.search(r"(\d+) bytes spill stores", entry)
-        print(f"  sass: {name}: {hmma[found[0]] if found else 'not found'} HMMA, "
+        print(f"  sass: {name}: {count if found else 'not found'} {op}, "
               f"{regs[1] if regs else '?'} registers, "
               f"{spills[1] if spills else '?'} bytes spill stores")
-        check(len(found) == 1 and hmma[found[0]] > 0,
-              f"{name} runs its products on the tensor cores (HMMA in its SASS)")
+        check(len(found) == 1 and count > 0,
+              f"{name} runs its products on the tensor cores ({op} in its SASS)")
 
 
 def reset_counts():
@@ -887,17 +901,26 @@ def check_plain_ns(cfg, label, ks_log, npad, results):
     t8 = [median_ms(lambda: NI.ns_inverse(k0, iters)),
           median_ms(lambda: NI.ns_inverse_reference(k0, iters)),
           median_ms(lambda: torch.linalg.inv(k0))]
+    # device time by CUDA events over chained calls: K8 (20) and K9 (3) and
+    # torch.linalg.inv_ex on the same matrices (inv syncs for its error check)
+    d9 = [event_ms(lambda: NI.ns_inverse_blocked(ksp, iters), 3),
+          event_ms(lambda: torch.linalg.inv_ex(ksp), 3)]
+    d8 = [event_ms(lambda: NI.ns_inverse(k0, iters)), event_ms(lambda: torch.linalg.inv_ex(k0))]
     b9, b8 = plain_ns_bound(b, npad, iters), plain_ns_bound(1, npad, iters)
     results[f"K9/{npad}"].update(launches=c9[f"K9/{npad}"], max_abs_err=err9, ms=t9[0],
                                  plain_ms=t9[1], library_ms=t9[2], bound_ms=b9[0], bound_by=b9[1],
+                                 device_ms=d9[0], library_device_ms=d9[1],
                                  counted_in=f"make_ns_inverse under vmap, {label}")
     results[f"K8/{npad}"].update(launches=c8[f"K8/{npad}"], max_abs_err=err8, ms=t8[0],
                                  plain_ms=t8[1], library_ms=t8[2], bound_ms=b8[0], bound_by=b8[1],
+                                 device_ms=d8[0], library_device_ms=d8[1],
                                  counted_in=f"make_ns_inverse on one matrix, {label}")
-    print(f"  K9/{npad} at {b} systems: kernel %.3f ms reference %.3f ms torch.linalg.inv %.3f ms; "
-          "bound %.3f ms (%s)" % (*t9, *b9))
-    print(f"  K8/{npad} on one system: kernel %.3f ms reference %.3f ms torch.linalg.inv %.3f ms; "
-          "bound %.4f ms (%s)" % (*t8, *b8))
+    print(f"  K9/{npad} at {b} systems: kernel %.3f ms reference %.3f ms torch.linalg.inv %.3f ms "
+          "(host clock, median of 10); by events: kernel %.3f ms, torch.linalg.inv_ex %.3f ms; "
+          "bound %.3f ms (%s)" % (*t9, *d9, *b9))
+    print(f"  K8/{npad} on one system: kernel %.3f ms reference %.3f ms torch.linalg.inv %.3f ms "
+          "(host clock); by events: kernel %.4f ms, torch.linalg.inv_ex %.4f ms; bound %.4f ms "
+          "(%s)" % (*t8, *d8, *b8))
 
 
 def warm_pairs(cfg, inputs, **solve_kw):
@@ -1422,6 +1445,14 @@ def main() -> int:
     cfg = default_config()
     results = {k: dict(KERNEL_INFO[k], route="cuda", tile=int(k.split("/")[1]))
                for k in KERNEL_INFO}
+    results["K9/128"].update(cluster=None, clusters_active=None)  # one block a system
+    for key, inst in PLAIN_INSTANCES.items():
+        size, active = ctypes.c_int(-1), ctypes.c_int(-1)
+        rc = _build.load().qct_ns_plain_clusters(inst, ctypes.byref(size), ctypes.byref(active))
+        check(rc == 0 and active.value > 0,
+              f"{key} ({GMMA_KERNELS[key]}): clusters of {size.value} CTAs fit, "
+              f"{active.value} active at once")
+        results[key].update(cluster=size.value, clusters_active=active.value)
     t0 = time.perf_counter()
     phase_kernels(cfg, dev, results)
     phase_kernels16(cfg, dev, results)
@@ -1459,6 +1490,8 @@ def main() -> int:
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         + (("guard_share", "k3_ms") if k.startswith("K7") else ())
+        + (("device_ms", "library_device_ms", "cluster", "clusters_active")
+           if k.startswith(("K8", "K9")) else ())
         + (("phases_ms",) if k.startswith("K5") else ())
         + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
            else ())}

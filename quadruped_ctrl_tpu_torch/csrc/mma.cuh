@@ -1,10 +1,12 @@
 // The Newton-Schulz product on the tensor cores, the parts both tiles share
 // (ns_core.cuh at 128, one block a system; ns_cluster.cu at 256, a 4-CTA
-// cluster a system): the bf16 and tf32 hi/lo splits, mma.sync m16n8k16 bf16
-// and m16n8k8 tf32, ldmatrix.trans, the swizzled fp32 tiles and bf16 staging
-// planes, and one 16-row chunk of k of a product for a warp's 32 x 64 output
-// tile, with its epilogues. A kN-column output is computed by 8 warps
-// (256 threads), kN / 64 warp tiles across.
+// cluster a system; ns_plain.cu, the plain fp32 NS on clusters): the bf16
+// and tf32 hi/lo splits, mma.sync m16n8k16 bf16 and m16n8k8 tf32,
+// ldmatrix.trans, the distributed shared memory loads, the swizzled fp32
+// tiles and bf16 staging planes, wgmma for the plain NS, and one 16-row
+// chunk of k of a product for a warp's 32 x 64 output tile, with its
+// epilogues. A kN-column output is computed by 8 warps (256 threads), kN /
+// 64 warp tiles across.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,6 +64,130 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// The shared::cluster address of `addr` (a shared::cta address) in CTA `rank`
+// of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// A float4 of distributed shared memory (an address from map_rank).
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// wgmma, tf32 (ns_plain.cu): a warpgroup's m64nNk8 product with A from
+// registers (each warp 16 rows, in the m16n8k8 A fragment layout) and B from
+// shared memory, K-major without swizzle: element (k, n) of an 8-row chunk of
+// k at byte (n / 8) 256 + (k / 4) 128 + (n % 8) 16 + (k % 4) 4 from the
+// chunk's start (8 x 16-byte core matrices; the leading, K, byte offset 128,
+// the stride, N, byte offset 256; probes/ns_plain_probe.cu checks this
+// layout exactly). The accumulator: d[4 j + e] holds row 16 warp + g +
+// 8 (e / 2), column 8 j + 2 t + e % 2 of the warpgroup's tile.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr, uint32_t lbo = 128,
+                                            uint32_t sbo = 256) {
+  return static_cast<uint64_t>((saddr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Empty asm that reads and writes r: placed after wg_wait_all(), it keeps a
+// register that an in-flight wgmma reads (A's fragment) or writes (its
+// accumulator) from being reused, or read, before the wait.
+__device__ __forceinline__ void wg_hold_f(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+__device__ __forceinline__ void wg_hold_r(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// A barrier over the 128 threads of warpgroup wg (named barrier 1 + wg):
+// the warpgroups of a block then run their stages out of step.
+__device__ __forceinline__ void wg_bar(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+// Orders this thread's generic stores to shared memory before the async
+// proxy's reads of it (wgmma's B operand).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// d (+)= a b for the warpgroup's m64n128k8 tile (tf32, A from registers, B from
+// shared memory by its descriptor); scale_d 0: d = a b.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+      : "memory");
+}
+
+// d (+)= a b for the warpgroup's m64n32k8 tile (tf32, A from registers, B from
+// shared memory by its descriptor); scale_d 0: d = a b.
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+      : "memory");
+}
+
+// d (+)= a b for the warpgroup's m64n16k8 tile (tf32, A from registers, B from
+// shared memory by its descriptor); scale_d 0: d = a b.
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+      : "memory");
 }
 
 // The calling thread's place in the mma layouts of a kN-column output that 8

@@ -10,9 +10,6 @@
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_refine (_kernel_refine, npad 256)
 // ns_inverse_warm_256_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm (_kernel_warm, npad 256)
-// qct_ns_inverse_plain_256 launches ns_inverse_scaled_256_kernel in place of
-//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas and
-//   ns_inverse_pallas_blocked (npad 256)
 //
 // The schedule is the 128-tile core's (ns_core.cuh), step for step: alpha,
 // the mu table, n_scaled + n_quad bf16x3 steps, n_hi fp32 steps. Residency:
@@ -112,22 +109,6 @@ constexpr int NC_SLAB = NC_ROWS * NC_N;    // floats per slab
 constexpr int NC_STAGE = KC * NC_N;        // 32-bit words per staging buffer
 // K, X, T slabs and the two staging buffers: 196,608 + 32,768 bytes
 constexpr size_t NC_SMEM_BYTES = (3 * NC_SLAB + 2 * NC_STAGE) * sizeof(float);
-
-// The shared::cluster address of `addr` (a shared::cta address) in CTA `rank`.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
 
 using NcLane = Lane<NC_N>;
 
@@ -466,19 +447,6 @@ extern "C" int qct_ns_inverse_refine_256(const float* ks, const float* init, flo
   qct::ns_inverse_refine_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
                                       static_cast<cudaStream_t>(stream)>>>(ks, init, inv,
                                                                            n_quad, n_hi);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Plain fp32 NS at the 256 tile (ns_inverse_pallas / ns_inverse_pallas_blocked,
-// npad 256): the scaled kernel on a schedule of `iters` fp32 steps alone.
-extern "C" int qct_ns_inverse_plain_256(const float* ks, float* inv, int b, int iters,
-                                        void* stream) {
-  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_scaled_256_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b == 0) return 0;
-  qct::ns_inverse_scaled_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      ks, inv, qct::make_schedule(nullptr, 0, 0, iters));
   return static_cast<int>(cudaGetLastError());
 }
 

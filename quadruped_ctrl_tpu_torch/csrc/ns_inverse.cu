@@ -10,8 +10,8 @@
 // ns_inverse_warm_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm (_kernel_warm)
 // qct_ns_inverse_plain launches ns_inverse_scaled_kernel in place of
-//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas (_kernel) and
-//   ns_inverse_pallas_blocked (_kernel_blocked)
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_blocked
+//   (_kernel_blocked), npad 128 (ns_plain.cu has ns_inverse_pallas)
 //
 // All run the NS core of ns_core.cuh, one 256-thread block per system. The
 // layout: K, X and T are 128 x 128 fp32 tiles in shared memory, unpadded,
@@ -238,10 +238,10 @@ extern "C" int qct_ns_inverse_refine(const float* ks, const float* init, float* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plain fp32 NS (the TPU kernels ns_inverse_pallas and ns_inverse_pallas_blocked):
-// X0 = I / ||K||_inf and `iters` fp32 steps, K3's kernel on a schedule of
-// n_hi = iters fp32 steps alone. One system (b = 1) is the single-instance
-// kernel.
+// Plain fp32 NS on a batch at the 128 tile (the TPU kernel
+// ns_inverse_pallas_blocked): X0 = I / ||K||_inf and `iters` fp32 steps, K3's
+// kernel on a schedule of n_hi = iters fp32 steps alone. One system (K8) and
+// the 256 tile run ns_plain.cu.
 extern "C" int qct_ns_inverse_plain(const float* ks, float* inv, int b, int iters, void* stream) {
   cudaError_t err = qct::allow_smem(qct::ns_inverse_scaled_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);

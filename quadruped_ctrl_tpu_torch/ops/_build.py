@@ -44,6 +44,8 @@ _SIGNATURES = {
     "qct_ns_inverse_refine_256": ((_P, _P, _P, _I, _I, _I, _P), _I),
     "qct_ns_inverse_plain": ((_P, _P, _I, _I, _P), _I),
     "qct_ns_inverse_plain_256": ((_P, _P, _I, _I, _P), _I),
+    "qct_ns_inverse_plain_one": ((_P, _P, _I, _I, _P), _I),
+    "qct_ns_plain_clusters": ((_I, _P, _P), _I),
     "qct_ns_inverse_warm": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P), _I),
     "qct_ns_inverse_warm_256": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P), _I),
     "qct_fused_admm_solve": (

@@ -23,9 +23,11 @@ The schedule: X0 = I / ||K||_inf, then `mu_schedule(a0, n_scaled)` scaled
 steps X <- mu X (2I - mu K X) and n_quad quadratic steps in bf16x3, then n_hi
 fp32 steps. On a CUDA tensor the wrappers launch the hand-written kernels:
 `csrc/ns_inverse.cu` at the 128 tile (one block per system) and
-`csrc/ns_cluster.cu` at the 256 tile (one cluster of 4 blocks per system).
-On a CPU tensor they run the `_reference` functions, the same arithmetic in
-plain PyTorch.
+`csrc/ns_cluster.cu` at the 256 tile (one cluster of 4 blocks per system);
+the plain NS runs `csrc/ns_plain.cu` (K8 on one cluster of 8 blocks at 128
+and of 16 at 256, K9 at 256 on a cluster of 4 a system), but for K9 at the
+128 tile, K3's kernel on a schedule of fp32 steps. On a CPU tensor they run
+the `_reference` functions, the same arithmetic in plain PyTorch.
 
 The TPU kernels group G = 8 systems per grid step and need the batch padded
 to a multiple of G; the CUDA kernels take any batch. `G` stays here because
@@ -332,26 +334,22 @@ def ns_inverse_reference(ks, iters: int = 25):
     return ns_inverse_blocked_reference(ks[None], iters)[0]
 
 
-def _launch_plain(ks, inv, b: int, iters: int, npad: int, what: str):
-    lib = _build.load()
-    entry = lib.qct_ns_inverse_plain if npad == N else lib.qct_ns_inverse_plain_256
-    with torch.cuda.device(ks.device):
-        rc = entry(_launch.ptr(ks), _launch.ptr(inv), b, iters, _launch.stream(ks))
-    _launch.raise_on_error(rc, f"{what} at the {npad} tile")
-
-
 def ns_inverse(ks, iters: int = 25):
     """Plain fp32 NS inverse of one Jacobi-scaled SPD system ks, exactly
     (128, 128) or (256, 256) with identity on the pad: X0 = I / ||K||_inf,
-    then `iters` steps X <- X (2I - K X). On the card one block (one 4-CTA
-    cluster at 256) runs it."""
+    then `iters` steps X <- X (2I - K X). On the card one cluster runs it:
+    2 x 4 blocks of 64 x 32 at 128, 4 x 4 blocks of 64 x 64 at 256."""
     npad = ks.shape[-1] if ks.dim() == 2 else None
     _launch.check(ks, "ks", (npad, npad))
     _check_tile(npad)
     if not ks.is_cuda:
         return ns_inverse_reference(ks, iters)
+    lib = _build.load()
     inv = torch.empty_like(ks)
-    _launch_plain(ks, inv, 1, iters, npad, "ns_inverse")
+    with torch.cuda.device(ks.device):
+        rc = lib.qct_ns_inverse_plain_one(_launch.ptr(ks), _launch.ptr(inv), npad, iters,
+                                          _launch.stream(ks))
+    _launch.raise_on_error(rc, f"ns_inverse at the {npad} tile")
     _launch.count(_K8, npad)
     return inv
 
@@ -361,15 +359,20 @@ _K8 = _launch.new_count(ns_inverse)
 
 def ns_inverse_blocked(ks, iters: int = 25):
     """`ns_inverse` on a batch ks (B, npad, npad), npad in {128, 256}, any B
-    (the JAX kernel's multiple of G is the caller's padding contract)."""
+    (the JAX kernel's multiple of G is the caller's padding contract). On the
+    card: a 4-CTA cluster a system at 256, K3's kernel on fp32 steps at 128."""
     b = ks.shape[0] if ks.dim() == 3 else None
     npad = ks.shape[-1] if ks.dim() == 3 else None
     _launch.check(ks, "ks", (b, npad, npad))
     _check_tile(npad)
     if not ks.is_cuda:
         return ns_inverse_blocked_reference(ks, iters)
+    lib = _build.load()
+    entry = lib.qct_ns_inverse_plain if npad == N else lib.qct_ns_inverse_plain_256
     inv = torch.empty_like(ks)
-    _launch_plain(ks, inv, b, iters, npad, "ns_inverse_blocked")
+    with torch.cuda.device(ks.device):
+        rc = entry(_launch.ptr(ks), _launch.ptr(inv), b, iters, _launch.stream(ks))
+    _launch.raise_on_error(rc, f"ns_inverse_blocked at the {npad} tile")
     _launch.count(_K9, npad)
     return inv
 

@@ -1,12 +1,18 @@
 // CPU stand-in for the part of the CUDA runtime and device language that the
-// kernels in csrc/ use, for emulate.py: a launch runs its blocks one after
-// another, each block as one std::thread per CUDA thread; __syncthreads is a
-// std::barrier over the block, and the warp-wide operations (shuffles, and
-// mma.sync / ldmatrix in emu_mma.h) exchange values through a per-warp
-// scratch area between two barriers over the warp's 32 threads; __syncwarp is
-// one barrier over the warp. Static
-// __shared__ variables become function statics (one block runs at a time);
-// dynamic shared memory is one arena per block, filled with garbage.
+// kernels in csrc/ use, for emulate.py: a launch runs its clusters one after
+// another (a launch without a cluster dimension: its blocks), the CTAs of a
+// cluster concurrently, each as one std::thread per CUDA thread.
+// __syncthreads is a std::barrier over the block, cluster.sync() one over
+// every thread of the cluster (cooperative_groups.h), and the warp-wide
+// operations (shuffles, and mma.sync / ldmatrix in emu_mma.h) exchange values
+// through a per-warp scratch area between two barriers over the warp's 32
+// threads (wgmma: over the warpgroup's 128); __syncwarp is one barrier over
+// the warp. Dynamic shared memory is
+// one arena per block, filled with garbage; a peer's arena is what
+// map_shared_rank and mapa / ld.shared::cluster (emu_mma.h) reach. Static
+// __shared__ variables become function statics, shared by every block: right
+// only while one block runs at a time, so a kernel launched on clusters keeps
+// all its shared memory in the dynamic arena.
 #pragma once
 
 #include <math.h>
@@ -20,6 +26,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -48,6 +55,9 @@ struct alignas(16) float4 {
 struct alignas(8) uint2 {
   uint32_t x, y;
 };
+struct alignas(16) uint4 {
+  uint32_t x, y, z, w;
+};
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline thread_local uint3 threadIdx;
 inline thread_local uint3 blockIdx;
@@ -56,16 +66,21 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncAttributeNonPortableClusterSizeAllowed
+};
 // Refuses what the card refuses: more than 232,448 bytes of shared memory a block.
 template <typename K>
-inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
-  return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute attr, int value) {
+  return attr != cudaFuncAttributeMaxDynamicSharedMemorySize || value <= 232448
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
-// Enough of the cluster launch API for ns_cluster.cu to compile (its 4-CTA
-// clusters are not emulated).
+// The cluster launch API: cudaLaunchKernelEx with a cluster dimension (below,
+// after emu::launch).
 struct cudaLaunchAttributeValue {
   dim3 clusterDim;
 };
@@ -77,6 +92,7 @@ struct cudaLaunchAttribute {
 struct cudaLaunchConfig_t {
   dim3 gridDim, blockDim;
   size_t dynamicSmemBytes;
+  cudaStream_t stream;
   cudaLaunchAttribute* attrs;
   int numAttrs;
 };
@@ -92,33 +108,79 @@ struct Warp {
   uint32_t u[32][8];
   float f[32][8];
 };
-inline char* arena = nullptr;
-inline std::barrier<>* block_bar = nullptr;
-inline Warp* warps = nullptr;
+struct WarpGroup {
+  std::barrier<> bar{128};
+  uint32_t a[128][4];
+};
+
+// The calling thread's block: its arena, barrier and warps; its cluster: its
+// block's rank, every block's arena, one barrier over all their threads.
+inline thread_local char* arena = nullptr;
+inline thread_local size_t arena_bytes = 0;
+inline thread_local std::barrier<>* block_bar = nullptr;
+inline thread_local Warp* warps = nullptr;
+inline thread_local WarpGroup* warpgroups = nullptr;
+inline thread_local unsigned cluster_rank = 0;
+inline thread_local unsigned cluster_size = 1;
+inline thread_local char* const* cluster_arenas = nullptr;
+inline thread_local std::barrier<>* cluster_bar = nullptr;
 
 inline void launch(int grid, int block, size_t smem, cudaStream_t,
-                   const std::function<void()>& kernel) {
-  for (int bx = 0; bx < grid; ++bx) {
-    std::vector<char> buf(smem + 256, 0x7f);
-    arena = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(buf.data()) + 127) &
-                                    ~uintptr_t(127));
-    std::barrier<> bar(block);
-    block_bar = &bar;
-    std::vector<Warp> ws(block / 32);
-    warps = ws.data();
+                   const std::function<void()>& kernel, int cluster = 1) {
+  for (int c0 = 0; c0 < grid; c0 += cluster) {
+    std::vector<std::vector<char>> bufs;
+    std::vector<char*> arenas;
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::unique_ptr<Warp[]>> ws;
+    std::vector<std::unique_ptr<WarpGroup[]>> wgs;
+    for (int r = 0; r < cluster; ++r) {
+      bufs.emplace_back(smem + 256, 0x7f);
+      arenas.push_back(reinterpret_cast<char*>(
+          (reinterpret_cast<uintptr_t>(bufs.back().data()) + 127) & ~uintptr_t(127)));
+      bars.push_back(std::make_unique<std::barrier<>>(block));
+      ws.push_back(std::make_unique<Warp[]>(block / 32));
+      wgs.push_back(std::make_unique<WarpGroup[]>((block + 127) / 128));
+    }
+    std::barrier<> cbar(cluster * block);
     std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([&, t, bx] {
-        threadIdx.x = t;
-        blockIdx.x = bx;
-        kernel();
-      });
+    for (int r = 0; r < cluster; ++r)
+      for (int t = 0; t < block; ++t)
+        threads.emplace_back([&, r, t] {
+          threadIdx.x = t;
+          blockIdx.x = c0 + r;
+          arena = arenas[r];
+          arena_bytes = smem;
+          block_bar = bars[r].get();
+          warps = ws[r].get();
+          warpgroups = wgs[r].get();
+          cluster_rank = r;
+          cluster_size = cluster;
+          cluster_arenas = arenas.data();
+          cluster_bar = &cbar;
+          kernel();
+        });
     for (auto& th : threads) th.join();
   }
 }
 inline Warp& warp() { return warps[threadIdx.x >> 5]; }
+inline WarpGroup& warpgroup() { return warpgroups[threadIdx.x >> 7]; }
 inline int lane() { return threadIdx.x & 31; }
 }  // namespace emu
+
+// Refuses what the card refuses: clusters above 16 CTAs, a grid that is no
+// whole number of clusters.
+template <typename... Exp, typename... Act>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...),
+                                      Act&&... args) {
+  int cluster = 1;
+  for (int i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cluster = static_cast<int>(cfg->attrs[i].val.clusterDim.x);
+  if (cluster < 1 || cluster > 16 || cfg->gridDim.x % cluster != 0) return cudaErrorInvalidValue;
+  emu::launch(static_cast<int>(cfg->gridDim.x), static_cast<int>(cfg->blockDim.x),
+              cfg->dynamicSmemBytes, cfg->stream, [&] { kernel(args...); }, cluster);
+  return cudaSuccess;
+}
 
 inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
 

@@ -1,10 +1,16 @@
 // CPU stand-ins for the inline PTX of csrc/mma.cuh (cvt.rna.tf32.f32,
-// mma.sync m16n8k16 bf16 and m16n8k8 tf32, ldmatrix.x4.trans), on the PTX
-// ISA's fragment layouts: each lane posts its registers to its warp's scratch
-// area, and after a warp barrier every lane reads what the instruction would
-// give it. ldmatrix also counts the shared-memory wavefronts of each 8x8
-// matrix (1 when free of bank conflicts) and aborts on a misaligned row;
-// mma.sync m16n8k16 bf16 counts the warp-wide mmas it runs.
+// mma.sync m16n8k16 bf16 and m16n8k8 tf32, ldmatrix.x4.trans, mapa and
+// ld.shared::cluster, wgmma m64nNk8 tf32 and its fences), on the PTX ISA's
+// fragment layouts: each lane posts its registers to its warp's (wgmma: its
+// warpgroup's) scratch area, and after a barrier every lane reads what the
+// instruction would give it. wgmma runs when it is issued, B read through
+// its descriptor (start, leading and stride byte offsets; no swizzle), so
+// its commit and wait, and the proxy fence before it, do nothing here. A
+// shared::cluster address is the CTA rank + 1 above bit 20 and the offset in
+// that CTA's arena below it; ld.shared::cluster aborts outside the arena or
+// off a 16-byte boundary. ldmatrix also counts the shared-memory wavefronts
+// of each 8x8 matrix (1 when free of bank conflicts) and aborts on a
+// misaligned row; mma.sync m16n8k16 bf16 counts the warp-wide mmas it runs.
 #pragma once
 
 #include "cuda_runtime.h"
@@ -70,6 +76,84 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
     for (int k = 0; k < 8; ++k) s += A[r][k] * B[k][c];
     d[e] += s;
   }
+}
+
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  if (addr >= (1u << 20) || rank < 0 || static_cast<unsigned>(rank) >= emu::cluster_size) {
+    std::fprintf(stderr, "mapa: address %u or rank %d out of range\n", addr, rank);
+    std::abort();
+  }
+  return (static_cast<uint32_t>(rank + 1) << 20) | addr;
+}
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  const uint32_t rank = (addr >> 20) - 1, off = addr & 0xFFFFFu;
+  if (addr < (1u << 20) || rank >= emu::cluster_size || off % 16 ||
+      off + 16 > emu::arena_bytes) {
+    std::fprintf(stderr, "ld.shared::cluster: bad address %u (rank %u, offset %u)\n", addr,
+                 rank, off);
+    std::abort();
+  }
+  float4 v;
+  std::memcpy(&v, emu::cluster_arenas[rank] + off, 16);
+  return v;
+}
+
+__device__ __forceinline__ void wg_fence() {}
+__device__ __forceinline__ void wg_commit() {}
+__device__ __forceinline__ void wg_wait_all() {}
+__device__ __forceinline__ void fence_proxy_async() {}
+__device__ __forceinline__ void wg_bar(int) { emu::warpgroup().bar.arrive_and_wait(); }
+__device__ __forceinline__ void wg_hold_f(float&) {}
+__device__ __forceinline__ void wg_hold_r(uint32_t&) {}
+
+// d (+)= a b for the warpgroup's m64nNk8 tile: a0..a3 of warp w hold rows
+// 16 w + g (+ 8) of columns t (+ 4); d[4 j + e] is row 16 w + g + 8 (e / 2),
+// column 8 j + 2 t + e % 2; B (k, n) at start + (n / 8) sbo + (k / 4) lbo +
+// (n % 8) 16 + (k % 4) 4 bytes of its descriptor. Operands are read as tf32
+// (low 13 bits dropped); each entry is an 8-term fp32 sum added to d
+// (scale_d) or not.
+template <int N>
+inline void emu_wgmma(float* d, const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  auto& w = emu::warpgroup();
+  const int l = threadIdx.x & 127;
+  for (int i = 0; i < 4; ++i) w.a[l][i] = a[i];
+  w.bar.arrive_and_wait();
+  const uint32_t start = static_cast<uint32_t>(desc & 0x3FFF) << 4;
+  const uint32_t lbo = static_cast<uint32_t>((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = static_cast<uint32_t>((desc >> 32) & 0x3FFF) << 4;
+  if (start + (N / 8 - 1) * sbo + lbo + 128 > emu::arena_bytes) {
+    std::fprintf(stderr, "wgmma: B operand outside shared memory (start %u)\n", start);
+    std::abort();
+  }
+  const int wq = l >> 5, g = (l & 31) >> 2, t = l & 3;
+  for (int j = 0; j < N / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * wq + g + 8 * (e >> 1), n = 8 * j + 2 * t + (e & 1);
+      float s = 0.f;
+      for (int k = 0; k < 8; ++k) {
+        const int src = 32 * wq + 4 * (r % 8) + k % 4, reg = (r % 16 >= 8) + 2 * (k >= 4);
+        uint32_t b;
+        std::memcpy(&b, emu::arena + start + (n / 8) * sbo + (k / 4) * lbo + (n % 8) * 16 +
+                            (k % 4) * 4, 4);
+        s += __uint_as_float(w.a[src][reg] & ~0x1FFFu) * __uint_as_float(b & ~0x1FFFu);
+      }
+      d[4 * j + e] = scale_d ? d[4 * j + e] + s : s;
+    }
+  w.bar.arrive_and_wait();
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  emu_wgmma<128>(d, a, desc, scale_d);
+}
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  emu_wgmma<32>(d, a, desc, scale_d);
+}
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  emu_wgmma<16>(d, a, desc, scale_d);
 }
 
 inline std::atomic<long> ldsm_wavefronts{0}, ldsm_matrices{0};

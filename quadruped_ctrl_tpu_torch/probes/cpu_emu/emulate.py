@@ -1,7 +1,8 @@
 """Run the 128-tile kernels of csrc/ns_inverse.cu, csrc/fused_admm.cu and
-csrc/formation_pack.cu on the CPU.
+csrc/formation_pack.cu, and the cluster kernels of csrc/ns_plain.cu, on the
+CPU.
 
-    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9]
+    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9 plain]
 
 For a machine without nvcc: the CUDA sources are compiled by g++ (C++20)
 against the stand-in headers beside this file (cuda_runtime.h, cuda_bf16.h,
@@ -19,10 +20,15 @@ K1 at the four lanes' shapes (h=10 and h=16 at max_stance 4, 2 and 3), with
 masked steps, at an n_c that is no multiple of 4, and at the two largest
 shapes whose planes leave no room for the padded row stride, against
 form_packed_reference, with the count of mma.sync it runs and its ldmatrix
-wavefronts per matrix. It shows that the
-indexing, the layouts and the barriers are right; it says nothing of speed,
-and the 4-CTA cluster kernels of ns_cluster.cu only compile here. A run
-takes a few minutes.
+wavefronts per matrix. `plain` builds ns_plain.cu into a library of its own
+and runs the plain NS K8 on one system at the 128 tile (a cluster of 2 x 4
+CTAs) and K9 on two systems at the 256 tile (4 x 1 CTAs each), the CTAs of a
+cluster concurrently, against ns_inverse_reference and
+ns_inverse_blocked_reference (`plain k8_256` adds K8 at the 256 tile, 4 x 4
+CTAs). It shows that the indexing, the layouts and the barriers are right;
+it says nothing of speed, and ns_cluster.cu's kernels, whose static shared
+variables would be shared by a cluster's concurrent CTAs here, only
+compile. A run takes a few minutes.
 """
 
 from __future__ import annotations
@@ -50,7 +56,10 @@ from quadruped_ctrl_tpu_torch.ops import fused_admm as FA  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI  # noqa: E402
 
 OUT = PKG / "_build" / "cpu_emu"
-PTX_FUNCTIONS = ("to_tf32", "mma_bf16", "mma_tf32", "ldsm_x4_trans")
+PTX_FUNCTIONS = ("to_tf32", "mma_bf16", "mma_tf32", "ldsm_x4_trans", "map_rank",
+                 "ld_cluster", "wg_fence", "wg_commit", "wg_wait_all", "wg_hold_f", "wg_hold_r",
+                 "fence_proxy_async", "wg_bar", "wgmma_n128", "wgmma_n32",
+                 "wgmma_n16")
 
 
 def prepare(csrc: Path, out: Path):
@@ -96,6 +105,11 @@ def compile_formation(out: Path) -> ctypes.CDLL:
     return _library(out, "formation_pack")
 
 
+def compile_plain(out: Path) -> ctypes.CDLL:
+    """ns_plain.cu's library (K8, and K9 at the 256 tile)."""
+    return _library(out, "ns_plain")
+
+
 def _library(out: Path, stem: str) -> ctypes.CDLL:
     lib_path = out / f"lib{stem}_emu.so"
     subprocess.run([*FLAGS, "-O2", "-shared", "-fPIC", "-o", str(lib_path),
@@ -111,16 +125,16 @@ def _library(out: Path, stem: str) -> ctypes.CDLL:
     return lib
 
 
-def spd(seed: int, b: int, n: int, cond: float) -> torch.Tensor:
-    """Jacobi-scaled SPD systems of condition ~cond, identity-padded to 128."""
+def spd(seed: int, b: int, n: int, cond: float, npad: int = NI.N) -> torch.Tensor:
+    """Jacobi-scaled SPD systems of condition ~cond, identity-padded to npad."""
     rng = np.random.default_rng(seed)
-    out = np.zeros((b, NI.N, NI.N), np.float32)
+    out = np.zeros((b, npad, npad), np.float32)
     for i in range(b):
         q, _ = np.linalg.qr(rng.standard_normal((n, n)))
         k = (q * np.logspace(0, -np.log10(cond), n)[None]) @ q.T
         d = 1 / np.sqrt(np.diagonal(k))
         out[i, :n, :n] = k * d[:, None] * d[None]
-        out[i, n:, n:] = np.eye(NI.N - n)
+        out[i, n:, n:] = np.eye(npad - n)
     return torch.from_numpy(out)
 
 
@@ -192,6 +206,42 @@ def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
         out["k9"] = dict(rc=rc, residual=resid(ks, inv)[0], reference=resid(ks, ref)[0],
                          rel=rel(inv, ref))
     out["ldmatrix_wavefronts"] = lib.emu_ldsm_wavefronts_per_matrix()
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
+# ns_plain.cu's cases: (name, npad, systems, n, entry point). Few steps on
+# well-conditioned systems (cond 2): the indexing is the same for any count,
+# and PLAIN_ITERS steps take the residual to fp32 rounding there.
+PLAIN_CASES = {"k8_128": (128, 1, 120, "one"), "k9_256": (256, 2, 192, "batch"),
+               "k8_256": (256, 1, 192, "one")}
+PLAIN_ITERS, PLAIN_COND = 6, 2.0
+
+
+def run_plain(lib: ctypes.CDLL, which=("k8_128", "k9_256"),
+              inverses: dict | None = None) -> dict:
+    """K8 / K9 of ns_plain.cu against ns_inverse_reference /
+    ns_inverse_blocked_reference at PLAIN_ITERS steps: max |I - K X| of the
+    kernel and of the reference, and the largest difference relative to
+    max |reference|; prints them. `inverses`, if given, receives each case's
+    inverses (systems, npad, npad)."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    out = {}
+    for name in which:
+        npad, b, n, entry = PLAIN_CASES[name]
+        ks = spd(10, b, n, PLAIN_COND, npad)
+        inv = torch.full_like(ks, float("nan"))
+        if entry == "one":
+            rc = lib.qct_ns_inverse_plain_one(ptr(ks), ptr(inv), npad, PLAIN_ITERS, None)
+            ref = NI.ns_inverse_reference(ks[0], PLAIN_ITERS)[None]
+        else:
+            rc = lib.qct_ns_inverse_plain_256(ptr(ks), ptr(inv), b, PLAIN_ITERS, None)
+            ref = NI.ns_inverse_blocked_reference(ks, PLAIN_ITERS)
+        out[name] = dict(rc=rc, residual=resid(ks, inv)[0], reference=resid(ks, ref)[0],
+                         rel=rel(inv, ref), finite=bool(inv.isfinite().all()))
+        if inverses is not None:
+            inverses[name] = inv
     for name, numbers in out.items():
         print(name, numbers)
     return out
@@ -310,11 +360,14 @@ def run_k1(lib: ctypes.CDLL, cases=K1_CASES) -> dict:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9")
+    which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "plain")
     prepare(PKG / "csrc", OUT)
     lib = compile_all(OUT)
-    if set(which) - {"k1", "k5"}:
-        run(lib, [w for w in which if w not in ("k1", "k5")])
+    if set(which) - {"k1", "k5", "plain", "k8_256"}:
+        run(lib, [w for w in which if w not in ("k1", "k5", "plain", "k8_256")])
+    if "plain" in which:
+        run_plain(compile_plain(OUT), ("k8_128", "k9_256") + (("k8_256",) if "k8_256" in which
+                                                              else ()))
     if "k5" in which:
         run_k5(compile_fused(OUT))
     if "k1" in which:

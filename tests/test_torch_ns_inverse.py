@@ -83,17 +83,20 @@ def _tf32(a: torch.Tensor) -> torch.Tensor:
     return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _tc_mm(a: torch.Tensor, b: torch.Tensor, bf16x3: bool) -> torch.Tensor:
+def _tc_mm(a: torch.Tensor, b: torch.Tensor, bf16x3: bool, slab: int | None = None,
+           run: int = 16) -> torch.Tensor:
     """a @ b (B, npad, npad) summed as the kernels sum it. The rows fall in
-    slabs, one per CTA, and each slab takes k in chunks of 16: at the 256
-    tile csrc/ns_cluster.cu's mm_slab (4 slabs of 64, each starting at its
-    own slab of k and walking the others in turn), at the 128 tile
-    csrc/ns_core.cuh's mm_tile (one slab of 128, the chunks in order).
-    bf16x3: per chunk the three bf16 passes hi*hi, hi*lo, lo*hi, each a
-    16-term sum added in turn to one fp32 accumulator (an m16n8k16 mma).
-    Otherwise (the fp32 tail) 3xTF32: per 8 k the passes of tf32 parts
-    (m16n8k8 mmas) into a chunk sum, which one fp32 add takes into the
-    accumulator."""
+    slabs of `slab` rows, and each slab takes k in runs of `run`, starting at
+    its own rows of k and walking the others in turn. By default the K3
+    kernels' order: at the 256 tile csrc/ns_cluster.cu's mm_slab (slabs of
+    64, runs of 16), at the 128 tile csrc/ns_core.cuh's mm_tile (one slab of
+    128). The plain NS of csrc/ns_plain.cu (K8, K9/256) sums its blocks' rows
+    in slabs of 64 at both tiles (a cluster row of CTAs shares its rows'
+    order), runs of 16. bf16x3: per 16 k the three bf16 passes hi*hi, hi*lo,
+    lo*hi, each a 16-term sum added in turn to one fp32 accumulator (an
+    m16n8k16 mma). Otherwise (fp32) 3xTF32: per 8 k the passes of tf32 parts
+    (m16n8k8 mma.sync, or wgmma k8) into a run's fresh sum, which one fp32
+    add takes into the accumulator."""
     if bf16x3:
         (ah, al), (bh, bl) = ([t.float() for t in NI._split(x)] for x in (a, b))
     else:
@@ -102,15 +105,16 @@ def _tc_mm(a: torch.Tensor, b: torch.Tensor, bf16x3: bool) -> torch.Tensor:
     passes = ((ah, bh), (ah, bl), (al, bh))
     step = 16 if bf16x3 else 8
     npad = a.shape[-1]
-    slab = 64 if npad == NI.N_BIG else npad
+    if slab is None:
+        slab = 64 if npad == NI.N_BIG else npad
     out = torch.empty_like(a)
     for q in range(npad // slab):
         rows = slice(slab * q, slab * q + slab)
         acc = torch.zeros_like(a[:, rows])
-        for c in range(npad // 16):
-            k0 = (slab * q + 16 * c) % npad
+        for c in range(npad // run):
+            k0 = (slab * q + run * c) % npad
             part = acc if bf16x3 else torch.zeros_like(acc)
-            for kc in range(k0, k0 + 16, step):
+            for kc in range(k0, k0 + run, step):
                 for pa, pb in passes:
                     part = part + pa[:, rows, kc:kc + step] @ pb[:, kc:kc + step]
             acc = part if bf16x3 else acc + part
@@ -118,14 +122,15 @@ def _tc_mm(a: torch.Tensor, b: torch.Tensor, bf16x3: bool) -> torch.Tensor:
     return out
 
 
-def _tc_schedule(ks, a0, n_scaled, n_quad, n_hi):
-    """The NS schedule of ns_inverse_scaled_reference with _tc_mm's sums."""
+def _tc_schedule(ks, a0, n_scaled, n_quad, n_hi, slab=None, run=16):
+    """The NS schedule of ns_inverse_scaled_reference with _tc_mm's sums
+    (the fp32 steps' in slabs of `slab` rows, runs of `run`)."""
     eye = torch.eye(ks.shape[-1])
     x = (1.0 / ks.abs().sum(-1).amax(-1))[:, None, None] * eye
     for mu in NI.mu_schedule(a0, n_scaled) + [1.0] * n_quad:
         x = mu * _tc_mm(x, 2.0 * eye - mu * _tc_mm(ks, x, True), True)
     for _ in range(n_hi):
-        x = _tc_mm(x, 2.0 * eye - _tc_mm(ks, x, False), False)
+        x = _tc_mm(x, 2.0 * eye - _tc_mm(ks, x, False, slab, run), False, slab, run)
     return x
 
 
@@ -148,14 +153,19 @@ def test_tensor_core_summation_order_holds_the_gates(cond, sched, metric, gate, 
 
 
 @pytest.mark.parametrize("n", [192, 120])
-def test_tensor_core_plain_schedule_holds_the_gate(n):
+@pytest.mark.parametrize("order", ["k3_tail", "ns_plain"])
+def test_tensor_core_plain_schedule_holds_the_gate(order, n):
     """K8/K9's schedule (X0 = I / ||K||_inf, 25 fp32 steps) summed as the
-    kernels sum their 3xTF32 tail, on SPD n = 192 (256 tile) and n = 120
-    (128 tile) at cond 1e3, b = 8: chip_smoke.py's K9 gate (max |I - K X|
-    < 5e-4) and within 2x of the reference's."""
+    kernels sum it, on SPD n = 192 (256 tile) and n = 120 (128 tile) at cond
+    1e3, b = 8: as K3's kernels sum their 3xTF32 tail (K9 at 128), and as
+    csrc/ns_plain.cu's wgmma product does (K8 at both tiles, K9 at 256:
+    slabs of 64 rows walking k from their own rows, runs of 16 k a fresh
+    accumulator; at 256 the same order as K3's): chip_smoke.py's K9 gate
+    (max |I - K X| < 5e-4) and within 2x of the reference's."""
     ks = _spd_batch(9, 8, n, NI.pad_sizes(n), 1e3)
     ref = NI.ns_inverse_blocked_reference(torch.from_numpy(ks), 25).numpy()
-    tc = _tc_schedule(torch.from_numpy(ks), 0.0, 0, 0, 25).numpy()
+    slab = 64 if order == "ns_plain" else None
+    tc = _tc_schedule(torch.from_numpy(ks), 0.0, 0, 0, 25, slab, 16).numpy()
     r_tc, r_ref = _resid(ks, tc)[0], _resid(ks, ref)[0]
     assert r_tc < 5e-4 and r_ref < 5e-4 and r_tc <= 2 * r_ref + 1e-5, (r_tc, r_ref)
 
