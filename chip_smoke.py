@@ -9,8 +9,9 @@
    kernels of both tiles, the fused solve K5 and both instances of the
    formation K1 hold tensor-core code (HMMA in their SASS), and the three
    instances of the plain NS (csrc/ns_plain.cu: K8 at both tiles, K9 at 256)
-   wgmma (HGMMA); prints each cluster kernel's cluster size and how many of
-   its clusters the card holds at once;
+   and both of the warm refinement K6 (csrc/ns_refine.cu) wgmma (HGMMA),
+   each with its registers and spill stores; prints each cluster kernel's
+   cluster size and how many of its clusters the card holds at once;
 3. holds each kernel (K1 form_packed, K2 ns_inverse_scaled_build, K3
    ns_inverse_scaled) against its plain PyTorch reference on the card at the
    128 tile, at the h=10 path's shapes, and times both (K1 by the host clock
@@ -27,7 +28,8 @@
    and the warm NS refinement K6
    (ns_inverse_refine) at both tiles on 2048 SPD warm starts and on the
    operands of a real Woodbury solve (h=10 and h16_full, 2048 systems),
-   against their references;
+   against their references, K6 timed by the host clock and by CUDA events
+   beside torch.linalg.inv_ex;
 3d. the plain NS K8/K9 through make_ns_inverse (K9 under torch.func.vmap on
    the per-scenario path's 2048 ADMM-phase K at h=10 and on 2048 SPD systems
    at the 256 tile, K8 on one matrix of each) against their references and
@@ -44,12 +46,14 @@
    h16_midband) at batch 2048 the same way;
 4c. drives the fused solve (h10_fused: use_fused=True, batch 2048, K5 alone)
    and the Woodbury polish (h10_woodbury: polish_woodbury=True, batch 4096,
-   K6 for the polish rounds after the first) the same way;
+   K6 for the polish rounds after the first) the same way, and one h16_full
+   solve under the same option (K6 at the 256 tile), timed;
 4d. drives the per-scenario path (solve_batch, solve_compressed_batch at
    batch 1024, h=10; torch.func.vmap over admm_mpc, no kernel, as in JAX):
    forces, and the share within 1 N of solve_packed_batch;
 5. profiles one solve of h10, h16_full, h16_trot, h16_midband, h10_fused,
-   h10_woodbury and scenario_full (device time by kernel, device idle share);
+   h10_woodbury, h16_full with the Woodbury polish and scenario_full (device
+   time by kernel, device idle share);
 6. prints a JSON line with the kernels (one entry per kernel and tile, with
    its bound on this card and the time of torch.linalg.inv beside K2/K3),
    then the result line.
@@ -117,10 +121,10 @@ KERNEL_INFO = {
                    source="quadruped_ctrl_tpu_torch/csrc/fused_admm.cu",
                    replaces="quadruped_ctrl_tpu/ops/fused_admm.py:199"),
     "K6/128": dict(name="ns_inverse_refine",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:344"),
     "K6/256": dict(name="ns_inverse_refine (256 tile)",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:344"),
     "K7/128": dict(name="ns_inverse_warm",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
@@ -150,14 +154,15 @@ PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 # factorizations at the 128 tile (ns_inverse.cu) and at the 256 tile
 # (ns_cluster.cu), the fused solve (fused_admm.cu), and both instances of
 # the formation's Gram (formation_pack.cu), as mma.sync (HMMA in the SASS);
-# the plain NS (ns_plain.cu: K8/128, K8/256, K9/256) as wgmma (HGMMA).
+# the plain NS (ns_plain.cu: K8/128, K8/256, K9/256) and the warm refinement
+# (ns_refine.cu: K6 at both tiles) as wgmma (HGMMA).
 TC_KERNELS = ("ns_inverse_scaled_kernel", "ns_inverse_scaled_build_kernel",
-              "ns_inverse_refine_kernel", "ns_inverse_warm_kernel",
-              "ns_inverse_scaled_256_kernel", "ns_inverse_scaled_build_256_kernel",
-              "ns_inverse_refine_256_kernel", "ns_inverse_warm_256_kernel",
+              "ns_inverse_warm_kernel", "ns_inverse_scaled_256_kernel",
+              "ns_inverse_scaled_build_256_kernel", "ns_inverse_warm_256_kernel",
               "fused_admm_kernel", "form_packed_kernel<false>", "form_packed_kernel<true>")
 GMMA_KERNELS = {"K8/128": "ns_plain_kernel<128, 2, 4>", "K8/256": "ns_plain_kernel<256, 4, 4>",
-                "K9/256": "ns_plain_kernel<256, 4, 1>"}
+                "K9/256": "ns_plain_kernel<256, 4, 1>", "K6/128": "ns_refine_kernel<128>",
+                "K6/256": "ns_refine_kernel<256>"}
 # their instance numbers in ns_plain.cu's qct_ns_plain_clusters
 PLAIN_INSTANCES = {"K8/128": 0, "K8/256": 1, "K9/256": 2}
 
@@ -797,12 +802,18 @@ def phase_kernels_fused(cfg, dev, results):
                 t = [median_ms(lambda: NI.ns_inverse_refine(ks, init, *sched_c)),
                      median_ms(lambda: NI.ns_inverse_refine_reference(ks, init, *sched_c)),
                      median_ms(lambda: torch.linalg.inv(ks))]
+                # device time by CUDA events over 20 chained calls, beside
+                # torch.linalg.inv_ex on the same matrices (inv syncs)
+                d6 = [event_ms(lambda: NI.ns_inverse_refine(ks, init, *sched_c)),
+                      event_ms(lambda: torch.linalg.inv_ex(ks))]
                 b6 = ns_bound(n_sys, npad, (0.0, 0) + sched_c, 3 * n_sys * npad * npad * 4.0)
                 results[f"K6/{npad}"].update(max_abs_err=err, ms=t[0], plain_ms=t[1],
-                                             library_ms=t[2], bound_ms=b6[0], bound_by=b6[1])
+                                             library_ms=t[2], bound_ms=b6[0], bound_by=b6[1],
+                                             device_ms=d6[0], library_device_ms=d6[1])
                 print(f"  K6/{npad} Woodbury solve call 0 at {n_sys} systems: kernel %.3f ms "
-                      "reference %.3f ms torch.linalg.inv %.3f ms (median of 10); bound %.4f ms "
-                      "(%s)" % (*t, *b6))
+                      "reference %.3f ms torch.linalg.inv %.3f ms (median of 10); by events: "
+                      "kernel %.4f ms, torch.linalg.inv_ex %.4f ms; bound %.4f ms (%s)"
+                      % (*t, *d6, *b6))
         del calls
 
 
@@ -1378,6 +1389,10 @@ def phase_fused_woodbury(cfg, dev, name_power, results):
     check(float(guard.median()) <= float(guard_r.median()) + 1.0,
           "h16 Woodbury: median distance to the default-config solve within 1 N of the "
           "references'")
+    times["h16_woodbury"] = median_ms(lambda: pipeline.solve_packed_batch(wb, inputs, **kw),
+                                      reps=3)
+    print(f"  h16_full with polish_woodbury: {times['h16_woodbury']:.2f} ms per call (median of "
+          f"3), {B16 / times['h16_woodbury'] * 1e3:.0f} solves/s at batch {B16} ({name_power})")
     return times
 
 
@@ -1475,6 +1490,10 @@ def main() -> int:
         seed=0, batch=B_FUSED, h=H, device=dev), use_fused=True)
     profile_wb = phase_profile(woodbury_config(cfg), "h10_woodbury", pipeline.random_inputs(
         seed=0, batch=BATCH, h=H, device=dev))
+    ms16, pack16, kind16 = LANES16["h16_full"]
+    profile_wb16 = phase_profile(woodbury_config(cfg), "h16_full with polish_woodbury",
+                                 lane_inputs(1, B16, H16, kind16, dev), max_stance=ms16,
+                                 pack=pack16)
     profile_scn = phase_profile(cfg, "scenario_full (solve_batch)", pipeline.random_inputs(
         seed=0, batch=B_SCN, h=H, device=dev), solve=pipeline.solve_batch)
     print(f"phase seconds: kernels {t1 - t0:.1f}, 3d {t1d - t1:.1f}, paths {t2 - t1d:.1f}, "
@@ -1484,7 +1503,8 @@ def main() -> int:
                       "batch_h16": B16, "batch_h10_fused": B_FUSED, "profile": profile,
                       **{f"profile_{lane}": p for lane, p in profiles16.items()},
                       "profile_h10_fused": profile_fused,
-                      "profile_h10_woodbury": profile_wb, "batch_scenario": B_SCN,
+                      "profile_h10_woodbury": profile_wb,
+                      "profile_h16_woodbury": profile_wb16, "batch_scenario": B_SCN,
                       "profile_scenario_full": profile_scn, "card": name_power}))
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
@@ -1492,6 +1512,7 @@ def main() -> int:
         + (("guard_share", "k3_ms") if k.startswith("K7") else ())
         + (("device_ms", "library_device_ms", "cluster", "clusters_active")
            if k.startswith(("K8", "K9")) else ())
+        + (("device_ms", "library_device_ms") if k.startswith("K6") else ())
         + (("phases_ms",) if k.startswith("K5") else ())
         + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
            else ())}

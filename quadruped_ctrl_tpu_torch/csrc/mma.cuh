@@ -3,7 +3,8 @@
 // cluster a system; ns_plain.cu, the plain fp32 NS on clusters): the bf16
 // and tf32 hi/lo splits, mma.sync m16n8k16 bf16 and m16n8k8 tf32,
 // ldmatrix.trans, the distributed shared memory loads, the swizzled fp32
-// tiles and bf16 staging planes, wgmma for the plain NS, and one 16-row
+// tiles and bf16 staging planes, wgmma (tf32 for the plain NS, tf32 and bf16
+// for the warm refinement of ns_refine.cu), cp.async, and one 16-row
 // chunk of k of a product for a warp's 32 x 64 output tile, with its
 // epilogues. A kN-column output is computed by 8 warps (256 threads), kN /
 // 64 warp tiles across.
@@ -188,6 +189,57 @@ __device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
       : "memory");
+}
+
+// d (+)= a b for the warpgroup's m64n128k16 tile in bf16 (ns_refine.cu): A
+// from registers (each warp 16 rows, in the m16n8k16 A fragment layout:
+// a0, a1 rows g, g + 8 of k 2t, 2t + 1, a2, a3 the same of k 2t + 8, 2t + 9,
+// the lower k in the low half), B from shared memory K-major without
+// swizzle: element (k, n) at byte (n / 8) 256 + (k / 8) 128 + (n % 8) 16 +
+// (k % 8) 2 (8 x 16-byte core matrices, as wg_desc's tf32 layout; checked
+// exactly by probes/ns_refine_probe.cu); the accumulator as wgmma_n128's.
+// scale_d 0: d = a b.
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+      : "memory");
+}
+
+// One 16-byte asynchronous copy from device memory into shared memory, both
+// addresses 16-byte aligned (ns_refine.cu streams the next system's tiles
+// with it); cp_async_wait_all waits for the calling thread's copies.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Element (r, c) of a tile kW floats wide, in chunks of 8 rows laid out as
+// wgmma's K-major tf32 B operand (wg_desc): (r / 8) 8 kW + (c / 8) 64 +
+// (r % 8 / 4) 32 + (c % 8) 4 + r % 4 (ns_plain.cu, ns_refine.cu).
+template <int kW>
+__device__ __forceinline__ int blk(int r, int c) {
+  return (r >> 3) * (8 * kW) + (c >> 3) * 64 + ((r >> 2) & 1) * 32 + (c & 7) * 4 + (r & 3);
 }
 
 // The calling thread's place in the mma layouts of a kN-column output that 8

@@ -6,10 +6,9 @@
 // ns_inverse_scaled_build_256_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled_build
 //   (_kernel_scaled_build_il, npad 256, emit_ks False)
-// ns_inverse_refine_256_kernel replaces
-//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_refine (_kernel_refine, npad 256)
 // ns_inverse_warm_256_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm (_kernel_warm, npad 256)
+// (ns_refine.cu has the warm refinement ns_inverse_pallas_refine, K6, at 256.)
 //
 // The schedule is the 128-tile core's (ns_core.cuh), step for step: alpha,
 // the mu table, n_scaled + n_quad bf16x3 steps, n_hi fp32 steps. Residency:
@@ -304,25 +303,6 @@ ns_inverse_scaled_build_256_kernel(const float* __restrict__ hp, const float* __
   store_slab(m.X, inv + base + static_cast<size_t>(row0) * NC_N);
 }
 
-// Guard-free warm NS at the 256 tile, as ns_inverse_refine_kernel at 128: each
-// CTA loads its 64-row slabs of ks and of init (in place of alpha I), then
-// n_quad bf16x3 and n_hi fp32 quadratic steps on the cluster.
-__global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
-ns_inverse_refine_256_kernel(const float* __restrict__ ks, const float* __restrict__ init,
-                             float* __restrict__ inv, int n_quad, int n_hi) {
-  extern __shared__ __align__(128) float smem[];
-  const Slabs m(smem);
-  const int row0 = static_cast<int>(cg::this_cluster().block_rank()) * NC_ROWS;
-  const size_t base = static_cast<size_t>(blockIdx.x / NC_CTAS) * NC_N * NC_N +
-                      static_cast<size_t>(row0) * NC_N;
-  load_slab(ks + base, m.K);
-  load_slab(init + base, m.X);
-  cg::this_cluster().sync();  // every slab of X is loaded before a peer reads it
-  for (int it = 0; it < n_quad; ++it) nc_step<true>(m.K, m.X, m.T, m.S, 1.f, row0);
-  for (int it = 0; it < n_hi; ++it) nc_step<false>(m.K, m.X, m.T, m.S, 1.f, row0);
-  store_slab(m.X, inv + base);
-}
-
 // Guarded warm NS at the 256 tile, as ns_inverse_warm_kernel at 128: each CTA
 // loads its 64-row slabs of ks and of init (straight into the X slab, so the
 // three slabs and the staging ring are all the shared memory it needs),
@@ -436,17 +416,6 @@ extern "C" int qct_ns_inverse_scaled_build_256(const float* hp, const float* g9,
                                             qct::NC_SMEM_BYTES,
                                             static_cast<cudaStream_t>(stream)>>>(
       hp, g9, nblk, inv, d_row, qct::make_schedule(mus, n_scaled, n_quad, n_hi));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int qct_ns_inverse_refine_256(const float* ks, const float* init, float* inv, int b,
-                                         int n_quad, int n_hi, void* stream) {
-  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_refine_256_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b == 0) return 0;
-  qct::ns_inverse_refine_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
-                                      static_cast<cudaStream_t>(stream)>>>(ks, init, inv,
-                                                                           n_quad, n_hi);
   return static_cast<int>(cudaGetLastError());
 }
 

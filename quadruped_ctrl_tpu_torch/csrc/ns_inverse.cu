@@ -5,13 +5,13 @@
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled (_kernel_scaled_il)
 // ns_inverse_scaled_build_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled_build (_kernel_scaled_build_il)
-// ns_inverse_refine_kernel replaces
-//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_refine (_kernel_refine)
 // ns_inverse_warm_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm (_kernel_warm)
 // qct_ns_inverse_plain launches ns_inverse_scaled_kernel in place of
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_blocked
 //   (_kernel_blocked), npad 128 (ns_plain.cu has ns_inverse_pallas)
+//
+// (ns_refine.cu has the warm refinement ns_inverse_pallas_refine, K6.)
 //
 // All run the NS core of ns_core.cuh, one 256-thread block per system. The
 // layout: K, X and T are 128 x 128 fp32 tiles in shared memory, unpadded,
@@ -99,24 +99,6 @@ ns_inverse_scaled_build_kernel(const float* __restrict__ hp, const float* __rest
   }
   __syncthreads();
   ns_schedule(m.K, m.X, m.T, m.S, s);
-  store_tile(m.X, inv + base);
-}
-
-// Guard-free warm NS: X starts from init (B, 128, 128), in the Jacobi scaling
-// of ks, instead of alpha I, and runs n_quad bf16x3 and n_hi fp32 quadratic
-// steps with no scaled phase: K3's steps on another start. The caller
-// guarantees ||I - ks init|| < 1 (each step squares it).
-__global__ void __launch_bounds__(NS_THREADS)
-ns_inverse_refine_kernel(const float* __restrict__ ks, const float* __restrict__ init,
-                         float* __restrict__ inv, int n_quad, int n_hi) {
-  extern __shared__ __align__(16) float smem[];
-  const NsTiles m(smem);
-  const size_t base = static_cast<size_t>(blockIdx.x) * NS_TILE;
-  load_tile(ks + base, m.K);
-  load_tile(init + base, m.X);
-  __syncthreads();
-  for (int it = 0; it < n_quad; ++it) ns_step<true>(m.K, m.X, m.T, m.S, 1.f);
-  for (int it = 0; it < n_hi; ++it) ns_step<false>(m.K, m.X, m.T, m.S, 1.f);
   store_tile(m.X, inv + base);
 }
 
@@ -224,17 +206,6 @@ extern "C" int qct_ns_inverse_scaled_build(const float* hp, const float* g9, int
   qct::ns_inverse_scaled_build_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
                                         static_cast<cudaStream_t>(stream)>>>(
       hp, g9, nblk, inv, ks, d_row, qct::make_schedule(mus, n_scaled, n_quad, n_hi));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int qct_ns_inverse_refine(const float* ks, const float* init, float* inv, int b,
-                                     int n_quad, int n_hi, void* stream) {
-  cudaError_t err = qct::allow_smem(qct::ns_inverse_refine_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b == 0) return 0;
-  qct::ns_inverse_refine_kernel<<<b, qct::NS_THREADS, qct::NS_SMEM_BYTES,
-                                  static_cast<cudaStream_t>(stream)>>>(ks, init, inv, n_quad,
-                                                                       n_hi);
   return static_cast<int>(cudaGetLastError());
 }
 

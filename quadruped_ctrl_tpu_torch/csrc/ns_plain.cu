@@ -120,14 +120,6 @@ struct PlainShape {
                 "blocks of 64 rows, a wgmma width, whole stages");
 };
 
-// Element (r, c) of a tile kW floats wide, in chunks of 8 rows laid out as
-// wgmma's K-major B operand (mma.cuh): (r / 8) 8 kW + (c / 8) 64 +
-// (r % 8 / 4) 32 + (c % 8) 4 + r % 4.
-template <int kW>
-__device__ __forceinline__ int blk(int r, int c) {
-  return (r >> 3) * (8 * kW) + (c >> 3) * 64 + ((r >> 2) & 1) * 32 + (c & 7) * 4 + (r & 3);
-}
-
 template <int kHalf>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[kHalf / 2], const uint32_t (&a)[4],
                                            uint64_t desc, int scale_d) {

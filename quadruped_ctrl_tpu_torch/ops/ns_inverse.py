@@ -24,7 +24,9 @@ steps X <- mu X (2I - mu K X) and n_quad quadratic steps in bf16x3, then n_hi
 fp32 steps. On a CUDA tensor the wrappers launch the hand-written kernels:
 `csrc/ns_inverse.cu` at the 128 tile (one block per system) and
 `csrc/ns_cluster.cu` at the 256 tile (one cluster of 4 blocks per system);
-the plain NS runs `csrc/ns_plain.cu` (K8 on one cluster of 8 blocks at 128
+the warm refinement K6 runs `csrc/ns_refine.cu` at both tiles (its products
+as `wgmma`; as many blocks, or 4-block clusters at 256, as the card holds
+at once, each walking systems in turn); the plain NS runs `csrc/ns_plain.cu` (K8 on one cluster of 8 blocks at 128
 and of 16 at 256, K9 at 256 on a cluster of 4 a system), but for K9 at the
 128 tile, K3's kernel on a schedule of fp32 steps. On a CPU tensor they run
 the `_reference` functions, the same arithmetic in plain PyTorch.

@@ -59,13 +59,16 @@ struct alignas(16) uint4 {
   uint32_t x, y, z, w;
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline thread_local uint3 threadIdx;
 inline thread_local uint3 blockIdx;
+inline thread_local uint3 gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
+constexpr int cudaErrorInvalidConfiguration = 9;
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize,
   cudaFuncAttributeNonPortableClusterSizeAllowed
@@ -96,9 +99,25 @@ struct cudaLaunchConfig_t {
   cudaLaunchAttribute* attrs;
   int numAttrs;
 };
+// The emulated card is small, so that a persistent kernel's blocks walk more
+// than one system: 2 SMs, one block an SM, 2 clusters at once.
 template <typename K>
 inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, K, cudaLaunchConfig_t*) {
-  *n = 0;
+  *n = 2;
+  return cudaSuccess;
+}
+template <typename K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
   return cudaSuccess;
 }
 
@@ -148,6 +167,7 @@ inline void launch(int grid, int block, size_t smem, cudaStream_t,
         threads.emplace_back([&, r, t] {
           threadIdx.x = t;
           blockIdx.x = c0 + r;
+          gridDim.x = grid;
           arena = arenas[r];
           arena_bytes = smem;
           block_bar = bars[r].get();

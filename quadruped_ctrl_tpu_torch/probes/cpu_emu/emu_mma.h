@@ -1,11 +1,13 @@
 // CPU stand-ins for the inline PTX of csrc/mma.cuh (cvt.rna.tf32.f32,
 // mma.sync m16n8k16 bf16 and m16n8k8 tf32, ldmatrix.x4.trans, mapa and
-// ld.shared::cluster, wgmma m64nNk8 tf32 and its fences), on the PTX ISA's
+// ld.shared::cluster, wgmma m64nNk8 tf32 and m64n128k16 bf16 and their
+// fences, cp.async), on the PTX ISA's
 // fragment layouts: each lane posts its registers to its warp's (wgmma: its
 // warpgroup's) scratch area, and after a barrier every lane reads what the
 // instruction would give it. wgmma runs when it is issued, B read through
 // its descriptor (start, leading and stride byte offsets; no swizzle), so
-// its commit and wait, and the proxy fence before it, do nothing here. A
+// its commit and wait, and the proxy fence before it, do nothing here, and
+// cp.async copies at once. A
 // shared::cluster address is the CTA rank + 1 above bit 20 and the offset in
 // that CTA's arena below it; ld.shared::cluster aborts outside the arena or
 // off a 16-byte boundary. ldmatrix also counts the shared-memory wavefronts
@@ -155,6 +157,58 @@ __device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4],
                                           int scale_d) {
   emu_wgmma<16>(d, a, desc, scale_d);
 }
+
+// d (+)= a b for the warpgroup's m64nNk16 tile in bf16: a0..a3 of warp w
+// hold rows 16 w + g (+ 8) of k 2t, 2t + 1 (+ 8), the lower k in the low
+// half; B (k, n) at start + (n / 8) sbo + (k / 8) lbo + (n % 8) 16 + (k % 8) 2
+// bytes of its descriptor (K-major, no swizzle); d as emu_wgmma's. Each
+// entry is a 16-term fp32 sum of exact bf16 products, added to d (scale_d)
+// or not.
+template <int N>
+inline void emu_wgmma_bf16(float* d, const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  auto& w = emu::warpgroup();
+  const int l = threadIdx.x & 127;
+  for (int i = 0; i < 4; ++i) w.a[l][i] = a[i];
+  w.bar.arrive_and_wait();
+  const uint32_t start = static_cast<uint32_t>(desc & 0x3FFF) << 4;
+  const uint32_t lbo = static_cast<uint32_t>((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = static_cast<uint32_t>((desc >> 32) & 0x3FFF) << 4;
+  if (start + (N / 8 - 1) * sbo + lbo + 128 > emu::arena_bytes) {
+    std::fprintf(stderr, "wgmma: B operand outside shared memory (start %u)\n", start);
+    std::abort();
+  }
+  const int wq = l >> 5, g = (l & 31) >> 2, t = l & 3;
+  for (int j = 0; j < N / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * wq + g + 8 * (e >> 1), n = 8 * j + 2 * t + (e & 1);
+      float s = 0.f;
+      for (int k = 0; k < 16; ++k) {
+        const uint32_t u = w.a[32 * wq + 4 * (r % 8) + (k % 8) / 2][(r % 16 >= 8) + 2 * (k >= 8)];
+        uint16_t b;
+        std::memcpy(&b, emu::arena + start + (n / 8) * sbo + (k / 8) * lbo + (n % 8) * 16 +
+                            (k % 8) * 2, 2);
+        s += (k & 1 ? hi16(u) : lo16(u)) * __uint_as_float(static_cast<uint32_t>(b) << 16);
+      }
+      d[4 * j + e] = scale_d ? d[4 * j + e] + s : s;
+    }
+  w.bar.arrive_and_wait();
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  emu_wgmma_bf16<128>(d, a, desc, scale_d);
+}
+
+// cp.async runs when it is issued, so its wait does nothing here; a
+// misaligned 16-byte copy aborts.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  if (reinterpret_cast<uintptr_t>(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16) {
+    std::fprintf(stderr, "cp.async: a 16-byte copy off a 16-byte boundary\n");
+    std::abort();
+  }
+  std::memcpy(dst, src, 16);
+}
+__device__ __forceinline__ void cp_async_wait_all() {}
 
 inline std::atomic<long> ldsm_wavefronts{0}, ldsm_matrices{0};
 

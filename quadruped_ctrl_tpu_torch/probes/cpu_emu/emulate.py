@@ -1,6 +1,6 @@
 """Run the 128-tile kernels of csrc/ns_inverse.cu, csrc/fused_admm.cu and
-csrc/formation_pack.cu, and the cluster kernels of csrc/ns_plain.cu, on the
-CPU.
+csrc/formation_pack.cu, and the kernels of csrc/ns_plain.cu and
+csrc/ns_refine.cu, clusters included, on the CPU.
 
     python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9 plain]
 
@@ -25,10 +25,13 @@ and runs the plain NS K8 on one system at the 128 tile (a cluster of 2 x 4
 CTAs) and K9 on two systems at the 256 tile (4 x 1 CTAs each), the CTAs of a
 cluster concurrently, against ns_inverse_reference and
 ns_inverse_blocked_reference (`plain k8_256` adds K8 at the 256 tile, 4 x 4
-CTAs). It shows that the indexing, the layouts and the barriers are right;
-it says nothing of speed, and ns_cluster.cu's kernels, whose static shared
-variables would be shared by a cluster's concurrent CTAs here, only
-compile. A run takes a few minutes.
+CTAs). `k6` builds ns_refine.cu into a library of its own and runs the warm
+refinement K6 on three systems at each tile (the emulated card holds two
+blocks at 128 and two 4-CTA clusters at 256, so one of them walks two
+systems) against ns_inverse_refine_reference. It shows that the indexing,
+the layouts and the barriers are right; it says nothing of speed, and
+ns_cluster.cu's kernels, whose static shared variables would be shared by a
+cluster's concurrent CTAs here, only compile. A run takes a few minutes.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ OUT = PKG / "_build" / "cpu_emu"
 PTX_FUNCTIONS = ("to_tf32", "mma_bf16", "mma_tf32", "ldsm_x4_trans", "map_rank",
                  "ld_cluster", "wg_fence", "wg_commit", "wg_wait_all", "wg_hold_f", "wg_hold_r",
                  "fence_proxy_async", "wg_bar", "wgmma_n128", "wgmma_n32",
-                 "wgmma_n16")
+                 "wgmma_n16", "wgmma_bf16_n128", "cp_async16", "cp_async_wait_all")
 
 
 def prepare(csrc: Path, out: Path):
@@ -108,6 +111,11 @@ def compile_formation(out: Path) -> ctypes.CDLL:
 def compile_plain(out: Path) -> ctypes.CDLL:
     """ns_plain.cu's library (K8, and K9 at the 256 tile)."""
     return _library(out, "ns_plain")
+
+
+def compile_refine(out: Path) -> ctypes.CDLL:
+    """ns_refine.cu's library (K6 at both tiles)."""
+    return _library(out, "ns_refine")
 
 
 def _library(out: Path, stem: str) -> ctypes.CDLL:
@@ -177,16 +185,8 @@ def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
         out["k2"] = dict(rc=rc, rel_ks=rel(ks, ks_r), rel_d=rel(d, d_r),
                          residual=resid(ks_r, inv)[0], reference=resid(ks_r, inv_r)[0])
     if "k6" in which:
-        ks = spd(7, b, 96, 1e4)
-        e = torch.randn(b, NI.N, NI.N, dtype=torch.float64,
-                        generator=torch.Generator().manual_seed(1))
-        e *= 0.05 / torch.linalg.matrix_norm(e, ord=2)[:, None, None]
-        init = (torch.linalg.inv(ks.double()) @ (torch.eye(NI.N, dtype=torch.float64) + e)).float()
-        inv = torch.empty_like(ks)
-        rc = lib.qct_ns_inverse_refine(ptr(ks), ptr(init), ptr(inv), b, 1, 1, None)
-        ref = NI.ns_inverse_refine_reference(ks, init, 1, 1)
-        out["k6"] = dict(rc=rc, start=resid(ks, init)[1], residual=resid(ks, inv)[1],
-                         reference=resid(ks, ref)[1], rel=rel(inv, ref))
+        r = run_refine(compile_refine(Path(lib._name).parent), (NI.N,), b)[f"k6_{NI.N}"]
+        out["k6"] = {k: v for k, v in r.items() if k not in ("finite", "equal")}
     if "k7" in which:
         ks = spd(8, b, 120, 1e3)
         init = torch.linalg.inv(ks.double()).float()
@@ -206,6 +206,41 @@ def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
         out["k9"] = dict(rc=rc, residual=resid(ks, inv)[0], reference=resid(ks, ref)[0],
                          rel=rel(inv, ref))
     out["ldmatrix_wavefronts"] = lib.emu_ldsm_wavefronts_per_matrix()
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
+def refine_operands(b: int, npad: int, seed: int = 7) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ks, init): b SPD systems of cond 1e4 (n = 96 at the 128 tile, 192 at
+    256) and the warm start of the JAX package's refinement test, the exact
+    inverse times (I + E) with ||E||_2 = 0.05."""
+    ks = spd(seed, b, 96 if npad == NI.N else 192, 1e4, npad)
+    e = torch.randn(b, npad, npad, dtype=torch.float64, generator=torch.Generator().manual_seed(1))
+    e *= 0.05 / torch.linalg.matrix_norm(e, ord=2)[:, None, None]
+    eye = torch.eye(npad, dtype=torch.float64)
+    return ks, (torch.linalg.inv(ks.double()) @ (eye + e)).float()
+
+
+def run_refine(lib: ctypes.CDLL, tiles=(NI.N, NI.N_BIG), b: int = 3,
+               sched: tuple[int, int] = (1, 1)) -> dict:
+    """K6 of ns_refine.cu (sched: n_quad bf16x3 and n_hi fp32 steps) on b
+    systems at each tile against ns_inverse_refine_reference: the start's,
+    the kernel's and the reference's largest row sum of |I - ks X|, the
+    largest difference relative to max |reference|, whether the result is
+    finite and whether it is the reference bit for bit; prints them."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    out = {}
+    for npad in tiles:
+        ks, init = refine_operands(b, npad)
+        inv = torch.full_like(ks, float("nan"))
+        entry = lib.qct_ns_inverse_refine if npad == NI.N else lib.qct_ns_inverse_refine_256
+        rc = entry(ptr(ks), ptr(init), ptr(inv), b, *sched, None)
+        ref = NI.ns_inverse_refine_reference(ks, init, *sched)
+        out[f"k6_{npad}"] = dict(rc=rc, start=resid(ks, init)[1], residual=resid(ks, inv)[1],
+                                 reference=resid(ks, ref)[1], rel=rel(inv, ref),
+                                 finite=bool(inv.isfinite().all()),
+                                 equal=bool(torch.equal(inv, ref)))
     for name, numbers in out.items():
         print(name, numbers)
     return out
@@ -361,13 +396,16 @@ def run_k1(lib: ctypes.CDLL, cases=K1_CASES) -> dict:
 
 if __name__ == "__main__":
     which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "plain")
+    own = {"k1", "k5", "k6", "plain", "k8_256"}  # the checks with a library of their own
     prepare(PKG / "csrc", OUT)
     lib = compile_all(OUT)
-    if set(which) - {"k1", "k5", "plain", "k8_256"}:
-        run(lib, [w for w in which if w not in ("k1", "k5", "plain", "k8_256")])
+    if set(which) - own:
+        run(lib, [w for w in which if w not in own])
     if "plain" in which:
         run_plain(compile_plain(OUT), ("k8_128", "k9_256") + (("k8_256",) if "k8_256" in which
                                                               else ()))
+    if "k6" in which:
+        run_refine(compile_refine(OUT))
     if "k5" in which:
         run_k5(compile_fused(OUT))
     if "k1" in which:
