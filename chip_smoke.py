@@ -6,12 +6,17 @@
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds the CUDA kernels from quadruped_ctrl_tpu_torch/csrc (one nvcc per
    source, in parallel) and checks with cuobjdump that the factorization
-   kernels of both tiles, the fused solve K5 and both instances of the
-   formation K1 hold tensor-core code (HMMA in their SASS), and the three
-   instances of the plain NS (csrc/ns_plain.cu: K8 at both tiles, K9 at 256)
-   and both of the warm refinement K6 (csrc/ns_refine.cu) wgmma (HGMMA),
-   each with its registers and spill stores; prints each cluster kernel's
-   cluster size and how many of its clusters the card holds at once;
+   kernels of both tiles (K3's masked instances, K7's cold branch, among
+   them), the fused solve K5 and both instances of the formation K1 hold
+   tensor-core code (HMMA in their SASS), and the three instances of the
+   plain NS (csrc/ns_plain.cu: K8 at both tiles, K9 at 256) and the five of
+   csrc/ns_refine.cu (K6 and K7's guard and warm branch at both tiles, K9 at
+   128) wgmma (HGMMA), each with its registers and spill stores; prints each
+   cluster kernel's cluster size and how many of its clusters the card holds
+   at once;
+2b. calls every kernel wrapper (K1-K3, K5-K9, both tiles) on inputs that
+   start 4 bytes past a 16-byte boundary and holds the result to the
+   aligned call's, bit for bit;
 3. holds each kernel (K1 form_packed, K2 ns_inverse_scaled_build, K3
    ns_inverse_scaled) against its plain PyTorch reference on the card at the
    128 tile, at the h=10 path's shapes, and times both (K1 by the host clock
@@ -37,7 +42,10 @@
    torch.linalg.inv_ex on the same matrices, and the guarded warm NS K7 through
    _batched_solver(prev_inv=...) on real warm pairs (an adaptive-rho
    refactorization, a polish round) of the h=10 and h16_full solves, with
-   its guard share and K3 on the same systems, and on a garbage start;
+   its guard share and K3 on the same systems, timed by events (the call
+   and each of its two launches) beside torch.linalg.inv_ex, on starts of
+   17.0 and of NaN (every guard trips: K3's result bit for bit), and on
+   2048 SPD warm starts at each tile (every guard passes), timed;
 4. drives `solve_packed_batch` at batch 4096, h=10 (2048 packed systems of
    120 variables) through the kernels, counts their launches, checks the
    forces and compares them with the plain branch on the same inputs, then
@@ -94,6 +102,7 @@ N_SPD = 512                     # systems per SPD case at the 256 tile
 LANES16 = {"h16_full": (4, 1, "trot"), "h16_trot": (2, 2, "trot"),
            "h16_midband": (3, 1, "midband")}
 B_FUSED = 2048                  # scenarios of the fused lane (one system each)
+B_ALIGN = 256                   # scenarios (systems at 256: a quarter) of phase 2b
 WRAPPERS = {"K1": FP.form_packed, "K2": NI.ns_inverse_scaled_build,
             "K3": NI.ns_inverse_scaled, "K5": FA.fused_admm_solve,
             "K6": NI.ns_inverse_refine, "K7": NI.ns_inverse_warm, "K8": NI.ns_inverse,
@@ -127,10 +136,10 @@ KERNEL_INFO = {
                    source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:344"),
     "K7/128": dict(name="ns_inverse_warm",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:448"),
     "K7/256": dict(name="ns_inverse_warm (256 tile)",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:448"),
     "K8/128": dict(name="ns_inverse",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_plain.cu",
@@ -139,7 +148,7 @@ KERNEL_INFO = {
                    source="quadruped_ctrl_tpu_torch/csrc/ns_plain.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:62"),
     "K9/128": dict(name="ns_inverse_blocked",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:131"),
     "K9/256": dict(name="ns_inverse_blocked (256 tile)",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_plain.cu",
@@ -152,17 +161,20 @@ PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 
 # The kernels whose products must run on the tensor cores: the
 # factorizations at the 128 tile (ns_inverse.cu) and at the 256 tile
-# (ns_cluster.cu), the fused solve (fused_admm.cu), and both instances of
-# the formation's Gram (formation_pack.cu), as mma.sync (HMMA in the SASS);
-# the plain NS (ns_plain.cu: K8/128, K8/256, K9/256) and the warm refinement
-# (ns_refine.cu: K6 at both tiles) as wgmma (HGMMA).
-TC_KERNELS = ("ns_inverse_scaled_kernel", "ns_inverse_scaled_build_kernel",
-              "ns_inverse_warm_kernel", "ns_inverse_scaled_256_kernel",
-              "ns_inverse_scaled_build_256_kernel", "ns_inverse_warm_256_kernel",
+# (ns_cluster.cu; K3's <true> instances are K7's cold branch), the fused
+# solve (fused_admm.cu), and both instances of the formation's Gram
+# (formation_pack.cu), as mma.sync (HMMA in the SASS); the plain NS
+# (ns_plain.cu: K8/128, K8/256, K9/256) and the NS steps of ns_refine.cu
+# (modes 0 RF_REFINE, 1 RF_WARM, 2 RF_PLAIN: K6 and K7's guard and warm
+# branch at both tiles, K9/128) as wgmma (HGMMA).
+TC_KERNELS = ("ns_inverse_scaled_kernel<false>", "ns_inverse_scaled_kernel<true>",
+              "ns_inverse_scaled_build_kernel", "ns_inverse_scaled_256_kernel<false>",
+              "ns_inverse_scaled_256_kernel<true>", "ns_inverse_scaled_build_256_kernel",
               "fused_admm_kernel", "form_packed_kernel<false>", "form_packed_kernel<true>")
 GMMA_KERNELS = {"K8/128": "ns_plain_kernel<128, 2, 4>", "K8/256": "ns_plain_kernel<256, 4, 4>",
-                "K9/256": "ns_plain_kernel<256, 4, 1>", "K6/128": "ns_refine_kernel<128>",
-                "K6/256": "ns_refine_kernel<256>"}
+                "K9/256": "ns_plain_kernel<256, 4, 1>", "K6/128": "ns_refine_kernel<128, 0>",
+                "K6/256": "ns_refine_kernel<256, 0>", "K7/128": "ns_refine_kernel<128, 1>",
+                "K7/256": "ns_refine_kernel<256, 1>", "K9/128": "ns_refine_kernel<128, 2>"}
 # their instance numbers in ns_plain.cu's qct_ns_plain_clusters
 PLAIN_INSTANCES = {"K8/128": 0, "K8/256": 1, "K9/256": 2}
 
@@ -514,6 +526,56 @@ def solve_cases(calls, polish_sched, polish_gate=0.5):
         cases.append((f"solve call {i} ({'polish' if polish else 'ADMM'} schedule)", hp, g9,
                       sched, 1 if polish else 0, polish_gate if polish else 1e-2))
     return cases
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (the allocator aligns a fresh tensor to more than 16)."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def phase_alignment(cfg, dev):
+    """Every kernel wrapper on offset_view()s of its tensor operands returns
+    what it returns on the operands themselves, bit for bit (the wrappers
+    hand their kernels aligned copies, ops/_launch.aligned; the kernels read
+    16 bytes at a time). Small batches at the main path's shapes."""
+    print("phase 2b: each kernel wrapper on inputs 4 bytes past a 16-byte boundary")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    admm_sched = schedules(cfg)[0]
+    s = cfg.solver
+    warm_kw = dict(n_wquad=s.ns_warm_quad, n_whi=s.ns_warm_hi, guard=s.ns_warm_guard)
+    inp = lane_inputs(1, B_ALIGN, H, "trot", dev)
+    adt, bdt = formation.srb_discrete(cfg.mpc, inp.r_feet, inp.rpy[:, 2], inp.x_drag, cfg.dt_mpc)
+    x0 = formation.build_x0(inp.rpy, inp.position, inp.omega_world, inp.v_world,
+                            cfg.mpc.gravity)
+    _, _, sel = formation.stance_selectors(inp.gait_table, MS)
+    k1_ops = formation.packed_qp_operands(cfg.mpc, adt, bdt, x0, inp.traj,
+                                          torch.ones((B_ALIGN, H), device=dev), sel)
+    k5_args, k5_kw = fused_call(cfg, pipeline.random_inputs(seed=0, batch=B_ALIGN, h=H,
+                                                            device=dev))
+    cases = [("K1/128", FP.form_packed, k1_ops, (H, MS, PACK, float(cfg.mpc.alpha)), {}),
+             ("K5/128", FA.fused_admm_solve, k5_args, (), k5_kw)]
+    for npad, b, n in ((NI.N, B_ALIGN, N_VARS), (NI.N_BIG, B_ALIGN // 4, 192)):
+        ks = spd_batch(gen, b, n, npad, 1e3, dev)
+        ks_w, init, _ = spd_warm(gen, b, n, npad, dev)
+        init[::3] = 17.0                      # a third of the systems trip K7's guard
+        cases += [(f"K2/{npad}", NI.ns_inverse_scaled_build,
+                   (ks * 2.0, torch.zeros((b, 9, n // 3), device=dev)), admm_sched, {}),
+                  (f"K3/{npad}", NI.ns_inverse_scaled, (ks,), admm_sched, {}),
+                  (f"K6/{npad}", NI.ns_inverse_refine, (ks_w, init), (1, 1), {}),
+                  (f"K7/{npad}", NI.ns_inverse_warm, (ks_w, init), admm_sched, warm_kw),
+                  (f"K8/{npad}", NI.ns_inverse, (ks[0].contiguous(),), (s.ns_iters,), {}),
+                  (f"K9/{npad}", NI.ns_inverse_blocked, (ks,), (s.ns_iters,), {})]
+    for key, fn, ops, args, kw in cases:
+        want = fn(*ops, *args, **kw)
+        got = fn(*map(offset_view, ops), *args, **kw)
+        torch.cuda.synchronize()
+        pairs = list(zip(*(x if isinstance(x, tuple) else (x,) for x in (want, got))))
+        check(all((w is None and g is None) or torch.equal(w, g) for w, g in pairs),
+              f"{key}: inputs at a 4-byte offset give the aligned call's result bit for bit")
 
 
 def phase_kernels(cfg, dev, results):
@@ -1009,20 +1071,91 @@ def check_k7_pair(cfg, label, k1, sched1, k2, sched2, npad, gate, results=None, 
              median_ms(lambda: NI.ns_inverse_warm_reference(ksp, init, *sargs, **skw), reps=3),
              median_ms(lambda: NI.ns_inverse_scaled(ksp, *sargs), reps=reps),
              median_ms(lambda: torch.linalg.inv(ksp), reps=reps)]
+        # device time by CUDA events: K7's call, each of its two launches,
+        # K3 on the same systems, torch.linalg.inv_ex (inv syncs)
+        guard_ms, cold_ms = k7_launch_ms(ksp, init, sargs, skw, ~warm, npad)
+        d = dict(device_ms=event_ms(lambda: NI.ns_inverse_warm(ksp, init, *sargs, **skw), 5),
+                 guard_ms=guard_ms, cold_ms=cold_ms,
+                 k3_device_ms=event_ms(lambda: NI.ns_inverse_scaled(ksp, *sargs), 5),
+                 library_device_ms=event_ms(lambda: torch.linalg.inv_ex(ksp), 5))
         b7 = warm_bound(n_warm, b - n_warm, npad, sargs, skw)
         results[f"K7/{npad}"].update(launches=c[f"K7/{npad}"], max_abs_err=err, ms=t[0],
                                      plain_ms=t[1], library_ms=t[3], bound_ms=b7[0],
                                      bound_by=b7[1], guard_share=n_warm / b, k3_ms=t[2],
-                                     counted_in=f"_batched_solver(prev_inv=...), {label}")
+                                     counted_in=f"_batched_solver(prev_inv=...), {label}", **d)
         print(f"  {tag} at {b} systems: K7 %.3f ms, reference %.3f ms, K3 on the same systems "
               "and schedule %.3f ms, torch.linalg.inv %.3f ms (median); bound %.3f ms (%s)"
               % (*t, *b7))
-    # a garbage start trips every system's guard: K3's result, bit for bit
-    garbage = torch.full_like(init, 17.0)
-    out_g = NI.ns_inverse_warm(ksp, garbage, *sargs, **skw)
-    check(bool((guard_r0(ksp, garbage) >= skw["guard"]).all())
-          and torch.equal(out_g, NI.ns_inverse_scaled(ksp, *sargs)),
-          f"{tag}: a start of 17.0 everywhere trips every guard and returns K3's result exactly")
+        print(f"  {tag} by events: K7 {d['device_ms']:.4f} ms (the guard and warm launch "
+              f"{guard_ms:.4f}, K3 on the {b - n_warm} tripped systems {cold_ms:.4f}), K3 on all "
+              f"{d['k3_device_ms']:.4f}, torch.linalg.inv_ex {d['library_device_ms']:.4f}; share "
+              f"of the bound {b7[0] / d['device_ms']:.4f}")
+    # starts that trip every system's guard, 17.0 and NaN everywhere: K3's
+    # result, bit for bit
+    k3 = NI.ns_inverse_scaled(ksp, *sargs)
+    for start in (17.0, float("nan")):
+        garbage = torch.full_like(init, start)
+        out_g = NI.ns_inverse_warm(ksp, garbage, *sargs, **skw)
+        trips = (guard_r0(ksp, garbage) >= skw["guard"]) | guard_r0(ksp, garbage).isnan()
+        check(bool(trips.all()) and torch.equal(out_g, k3),
+              f"{tag}: a start of {start} everywhere trips every guard and returns K3's result "
+              "exactly")
+
+
+def k7_launch_ms(ksp, init, sargs, skw, tripped, npad) -> tuple[float, float]:
+    """Device ms (CUDA events over 5 chained launches) of K7's two launches
+    apart, through the library's entry points: the guard and warm branch
+    (qct_ns_warm_guarded), then K3 masked to the systems it flagged
+    (qct_ns_inverse_scaled_masked[_256]). Checks that the flags are the
+    reference guard's `tripped` on >= 0.999 of the systems."""
+    lib, b = _build.load(), ksp.shape[0]
+    flags = torch.empty(b, dtype=torch.int32, device=ksp.device)
+    inv = torch.empty_like(ksp)
+    P, stream = _launch.ptr, _launch.stream(ksp)
+    masked = (lib.qct_ns_inverse_scaled_masked if npad == NI.N
+              else lib.qct_ns_inverse_scaled_masked_256)
+
+    def guarded():
+        _launch.raise_on_error(lib.qct_ns_warm_guarded(
+            P(ksp), P(init), P(inv), P(flags), b, skw["n_wquad"], skw["n_whi"], skw["guard"],
+            npad, stream), "qct_ns_warm_guarded")
+
+    def cold():
+        _launch.raise_on_error(masked(P(ksp), P(inv), P(flags), b, NI._mus_arg(*sargs[:2]),
+                                      *sargs[1:], stream), "qct_ns_inverse_scaled_masked")
+
+    guard_ms = event_ms(guarded, 5)
+    check(float((flags.bool() == tripped).float().mean()) >= 0.999,
+          f"K7/{npad}: the guard launch flags the systems the reference's guard trips")
+    return guard_ms, event_ms(cold, 5)
+
+
+def check_k7_all_warm(cfg, gen, npad, n, dev, results):
+    """K7 on spd_warm starts (B16 systems of n variables, cond 1e4): every
+    system passes the guard, the warm branch alone runs; residual gates as
+    check_k7_pair's at the polish schedule (the row sum under 5e-3, the SPD
+    gate of K6, and within 2x of the reference's), timed by events beside
+    torch.linalg.inv_ex."""
+    s = cfg.solver
+    skw = dict(n_wquad=s.ns_warm_quad, n_whi=s.ns_warm_hi, guard=s.ns_warm_guard)
+    ks, init, r0 = spd_warm(gen, B16, n, npad, dev)
+    out_k = NI.ns_inverse_warm(ks, init, **skw)
+    out_r = NI.ns_inverse_warm_reference(ks, init, **skw)
+    share = float((guard_r0(ks, init) < skw["guard"]).float().mean())
+    res_k, res_r = residuals(ks, out_k)[1], residuals(ks, out_r)[1]
+    tag = f"K7/{npad} all warm ({B16} SPD systems of n={n}, cond 1e4, r0 {r0:.3e})"
+    print(f"  {tag}: guard share {share:.4f}; row-sum residual kernel {res_k:.3e} reference "
+          f"{res_r:.3e}; max |inv_k - inv_r| {float((out_k - out_r).abs().max()):.3e}")
+    check(share == 1.0 and bool(torch.isfinite(out_k).all()) and res_k < 5e-3
+          and res_k <= 2 * res_r + 1e-5,
+          f"{tag}: every guard passes; residual < 5e-3 and within 2x of the reference's")
+    d = [event_ms(lambda: NI.ns_inverse_warm(ks, init, **skw), 5),
+         event_ms(lambda: torch.linalg.inv_ex(ks), 5)]
+    b7 = warm_bound(B16, 0, npad, (0.0, 0, 0, 0), skw)
+    results[f"K7/{npad}"].update(all_warm_device_ms=d[0], all_warm_library_device_ms=d[1],
+                                 all_warm_bound_ms=b7[0])
+    print(f"  {tag} by events: K7 {d[0]:.4f} ms, torch.linalg.inv_ex {d[1]:.4f} ms; bound "
+          f"{b7[0]:.4f} ms ({b7[1]}), share {b7[0] / d[0]:.4f}")
 
 
 def phase_kernels_plain_warm(cfg, dev, results):
@@ -1046,6 +1179,7 @@ def phase_kernels_plain_warm(cfg, dev, results):
         for i, (label, k1, s1, k2, s2) in enumerate(warm_pairs(cfg, inputs, **kw)):
             check_k7_pair(cfg, label, k1, s1, k2, s2, npad,
                           polish_gate if i else 1e-2, results if i == 0 else None, reps)
+        check_k7_all_warm(cfg, gen, npad, N_VARS if npad == NI.N else 192, dev, results)
 
 
 B_SCN = 1024                    # scenarios of the per-scenario lanes (phase 4d)
@@ -1469,6 +1603,7 @@ def main() -> int:
               f"{active.value} active at once")
         results[key].update(cluster=size.value, clusters_active=active.value)
     t0 = time.perf_counter()
+    phase_alignment(cfg, dev)
     phase_kernels(cfg, dev, results)
     phase_kernels16(cfg, dev, results)
     phase_kernels_fused(cfg, dev, results)
@@ -1509,7 +1644,9 @@ def main() -> int:
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        + (("guard_share", "k3_ms") if k.startswith("K7") else ())
+        + (("guard_share", "k3_ms", "device_ms", "guard_ms", "cold_ms", "k3_device_ms",
+            "library_device_ms", "all_warm_device_ms", "all_warm_library_device_ms",
+            "all_warm_bound_ms") if k.startswith("K7") else ())
         + (("device_ms", "library_device_ms", "cluster", "clusters_active")
            if k.startswith(("K8", "K9")) else ())
         + (("device_ms", "library_device_ms") if k.startswith("K6") else ())

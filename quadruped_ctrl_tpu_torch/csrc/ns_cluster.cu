@@ -1,14 +1,16 @@
 // Factorization kernels at the 256 tile: one thread-block cluster of 4 CTAs
 // per system, the Newton-Schulz products on the tensor cores.
 //
-// ns_inverse_scaled_256_kernel replaces the TPU kernel
+// ns_inverse_scaled_256_kernel<false> replaces the TPU kernel
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled (_kernel_scaled_il, npad 256)
 // ns_inverse_scaled_build_256_kernel replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled_build
 //   (_kernel_scaled_build_il, npad 256, emit_ks False)
-// ns_inverse_warm_256_kernel replaces
-//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm (_kernel_warm, npad 256)
-// (ns_refine.cu has the warm refinement ns_inverse_pallas_refine, K6, at 256.)
+// ns_inverse_scaled_256_kernel<true> is the cold branch of the guarded warm NS at
+//   256 (quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm, _kernel_warm's
+//   _cold region): the same kernel on the systems whose guard tripped
+// (ns_refine.cu has the warm refinement K6 and the guard and warm branch of
+// K7 at 256.)
 //
 // The schedule is the 128-tile core's (ns_core.cuh), step for step: alpha,
 // the mu table, n_scaled + n_quad bf16x3 steps, n_hi fp32 steps. Residency:
@@ -252,9 +254,14 @@ struct Slabs {
 
 // ks (B, 256, 256) Jacobi-scaled, identity on the pad -> inv (B, 256, 256).
 // Grid: 4 CTAs per system, the 4 CTAs of system b are blocks 4b..4b+3.
+// kMasked: only the systems whose flag in `tripped` is not 0 (ns_refine.cu's
+// guard sets them); the 4 CTAs of a system whose flag is 0 return at once,
+// before any barrier, and store nothing. Otherwise `tripped` is not read.
+template <bool kMasked>
 __global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
 ns_inverse_scaled_256_kernel(const float* __restrict__ ks, float* __restrict__ inv,
-                             NsSchedule s) {
+                             NsSchedule s, const int* __restrict__ tripped) {
+  if (kMasked && tripped[blockIdx.x / NC_CTAS] == 0) return;
   extern __shared__ __align__(128) float smem[];
   const Slabs m(smem);
   const int row0 = static_cast<int>(cg::this_cluster().block_rank()) * NC_ROWS;
@@ -303,85 +310,6 @@ ns_inverse_scaled_build_256_kernel(const float* __restrict__ hp, const float* __
   store_slab(m.X, inv + base + static_cast<size_t>(row0) * NC_N);
 }
 
-// Guarded warm NS at the 256 tile, as ns_inverse_warm_kernel at 128: each CTA
-// loads its 64-row slabs of ks and of init (straight into the X slab, so the
-// three slabs and the staging ring are all the shared memory it needs),
-// forms its slab of T = 2I - K X0 (bf16x3) and the largest row sum of
-// |I - K X0| over its rows. r0 is the max over the cluster's 4 slabs, read over
-// DSMEM after the barrier that completes T, exactly as alpha is: every CTA
-// holds the same r0 and takes the same branch, which the cluster.sync() calls
-// inside the steps require. Below the guard the first warm step completes
-// from that T; otherwise nc_schedule runs, K3's own code.
-__global__ void __cluster_dims__(NC_CTAS, 1, 1) __launch_bounds__(NC_THREADS)
-ns_inverse_warm_256_kernel(const float* __restrict__ ks, const float* __restrict__ init,
-                           float* __restrict__ inv, NsSchedule s, int n_wquad, int n_whi,
-                           float guard) {
-  extern __shared__ __align__(128) float smem[];
-  const Slabs m(smem);
-  __shared__ float warp_max[NC_THREADS / 32];
-  __shared__ float slab_r0;
-  cg::cluster_group cluster = cg::this_cluster();
-  const NcLane ln;
-  const int row0 = static_cast<int>(cluster.block_rank()) * NC_ROWS;
-  const size_t base = static_cast<size_t>(blockIdx.x / NC_CTAS) * NC_N * NC_N +
-                      static_cast<size_t>(row0) * NC_N;
-  load_slab(ks + base, m.K);
-  load_slab(init + base, m.X);
-  cluster.sync();  // every slab of X is loaded before a peer reads it
-  Acc acc;
-  mm_slab<true>(m.K, m.X, m.S, acc);
-  store_t<NC_N>(m.T, acc, 1.f, row0);
-  // row sums of |I - acc|: this thread's 4 rows over its 16 columns, then the
-  // 4 lanes of a row (xor 1, 2), then the 4 warps of a row through the
-  // staging buffer, which the product no longer reads after this barrier
-  float part[2][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = ln.row(mt, h);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          sum += fabsf((row0 + i == ln.col(nt) + e ? 1.f : 0.f) - acc[mt][nt][2 * h + e]);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      part[mt][h] = sum;
-    }
-  __syncthreads();
-  float* rows = reinterpret_cast<float*>(m.S);  // [4 warp columns][64 rows]
-  if (ln.t == 0) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) rows[ln.wn * NC_ROWS + ln.row(mt, h)] = part[mt][h];
-  }
-  __syncthreads();
-  float row = 0.f;
-  if (threadIdx.x < NC_ROWS) {
-    row = rows[threadIdx.x] + rows[NC_ROWS + threadIdx.x] + rows[2 * NC_ROWS + threadIdx.x] +
-          rows[3 * NC_ROWS + threadIdx.x];
-    if (isnan(row)) row = INFINITY;  // fmaxf drops NaN: a NaN start fails
-  }
-  const float mx = cta_max(row, warp_max);
-  if (threadIdx.x == 0) slab_r0 = mx;
-  // T and slab_r0 complete in every CTA; every read of X is done
-  const float r0 = cluster_max(&slab_r0);
-  if (r0 < guard) {
-    mm_slab<true>(m.X, m.T, m.S, acc);
-    __syncthreads();  // this CTA's reads of its X slab are done
-    store_x<NC_N>(m.X, acc, 1.f);
-    cluster.sync();  // X complete in every CTA; every read of T is done
-    for (int it = 1; it < n_wquad; ++it) nc_step<true>(m.K, m.X, m.T, m.S, 1.f, row0);
-    for (int it = 0; it < n_whi; ++it) nc_step<false>(m.K, m.X, m.T, m.S, 1.f, row0);
-  } else {
-    nc_schedule(m.K, m.X, m.T, m.S, s, row0);
-  }
-  store_slab(m.X, inv + base);
-}
-
 template <typename Kernel>
 cudaError_t allow_cluster_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -395,12 +323,29 @@ cudaError_t allow_cluster_smem(Kernel kernel) {
 extern "C" int qct_ns_inverse_scaled_256(const float* ks, float* inv, int b, const float* mus,
                                          int n_scaled, int n_quad, int n_hi, void* stream) {
   if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_scaled_256_kernel);
+  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_scaled_256_kernel<false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0) return 0;
-  qct::ns_inverse_scaled_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      ks, inv, qct::make_schedule(mus, n_scaled, n_quad, n_hi));
+  qct::ns_inverse_scaled_256_kernel<false><<<b * qct::NC_CTAS, qct::NC_THREADS,
+                                             qct::NC_SMEM_BYTES,
+                                             static_cast<cudaStream_t>(stream)>>>(
+      ks, inv, qct::make_schedule(mus, n_scaled, n_quad, n_hi), nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 at 256 on the systems of ks whose flag in tripped (b int32) is not 0:
+// the cold branch of the guarded warm NS (ns_refine.cu: qct_ns_inverse_warm_256).
+extern "C" int qct_ns_inverse_scaled_masked_256(const float* ks, float* inv, const int* tripped,
+                                                int b, const float* mus, int n_scaled,
+                                                int n_quad, int n_hi, void* stream) {
+  if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_scaled_256_kernel<true>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  qct::ns_inverse_scaled_256_kernel<true><<<b * qct::NC_CTAS, qct::NC_THREADS,
+                                            qct::NC_SMEM_BYTES,
+                                            static_cast<cudaStream_t>(stream)>>>(
+      ks, inv, qct::make_schedule(mus, n_scaled, n_quad, n_hi), tripped);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,23 +364,10 @@ extern "C" int qct_ns_inverse_scaled_build_256(const float* hp, const float* g9,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int qct_ns_inverse_warm_256(const float* ks, const float* init, float* inv, int b,
-                                       const float* mus, int n_scaled, int n_quad, int n_hi,
-                                       int n_wquad, int n_whi, float guard, void* stream) {
-  if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_warm_256_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b == 0) return 0;
-  qct::ns_inverse_warm_256_kernel<<<b * qct::NC_CTAS, qct::NC_THREADS, qct::NC_SMEM_BYTES,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      ks, init, inv, qct::make_schedule(mus, n_scaled, n_quad, n_hi), n_wquad, n_whi, guard);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Clusters of the 256-tile kernel the card can hold at once (0: it cannot
 // run). For the record in chip_smoke.py; the launches do not need it.
 extern "C" int qct_ns_cluster_max_active(int* clusters) {
-  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_scaled_256_kernel);
+  cudaError_t err = qct::allow_cluster_smem(qct::ns_inverse_scaled_256_kernel<false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(qct::NC_CTAS * 64, 1, 1);
@@ -449,5 +381,5 @@ extern "C" int qct_ns_cluster_max_active(int* clusters) {
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(clusters, qct::ns_inverse_scaled_256_kernel, &cfg));
+      cudaOccupancyMaxActiveClusters(clusters, qct::ns_inverse_scaled_256_kernel<false>, &cfg));
 }

@@ -1,7 +1,7 @@
 // Newton-Schulz core at the 128 tile, the products on the tensor cores. The
-// factorization kernels of ns_inverse.cu run it (K2, K3, K6, K7, and K9 on a
-// batch through K3's kernel), and so do the five factorizations of the fused solve
-// K5 (fused_admm.cu), with the tiles' roles rotated.
+// factorization kernels of ns_inverse.cu run it (K2, K3, and K3 as the cold
+// branch of K7), and so do the five factorizations of the fused solve K5
+// (fused_admm.cu), with the tiles' roles rotated.
 //
 // One 256-thread block owns one Jacobi-scaled SPD system and keeps K, the
 // iterate X and one scratch tile T resident in shared memory for the whole

@@ -1,13 +1,31 @@
-// The warm Newton-Schulz refinement K6 on Hopper's wgmma, at both tiles.
+// Newton-Schulz steps on Hopper's wgmma: the warm refinement K6 and the guard
+// and warm branch of the guarded warm NS K7 at both tiles, and the plain fp32
+// NS K9 on a batch at the 128 tile. One kernel template, ns_refine_kernel<kN,
+// kMode>; the mode (RF_REFINE, RF_WARM, RF_PLAIN) is what a system runs.
 //
-// ns_refine_kernel<128> and ns_refine_kernel<256> replace the TPU kernel
+// ns_refine_kernel<128, RF_REFINE> and <256, RF_REFINE> replace the TPU kernel
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_refine (_kernel_refine),
 //   npad 128 and 256
+// ns_refine_kernel<128, RF_WARM> and <256, RF_WARM>, with K3's kernel as the
+// cold branch (qct_ns_inverse_warm[_256] makes both launches), replace
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_warm (_kernel_warm),
+//   npad 128 and 256
+// ns_refine_kernel<128, RF_PLAIN> replaces
+//   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_blocked (_kernel_blocked),
+//   npad 128 (ns_plain.cu has it at 256, and ns_inverse_pallas, K8)
 //
-// What they compute, as the TPU kernel does: from init X0, in the Jacobi
+// What they compute, as the TPU kernels do. K6: from init X0, in the Jacobi
 // scaling of ks (the caller guarantees ||I - ks X0|| < 1), n_quad quadratic
 // steps X <- X (2I - K X) with bf16x3 products, then n_hi with fp32-grade
-// ones. bf16x3: both operands split into bf16 hi and lo (round to nearest,
+// ones. K7: the guard r0 = max_i sum_j |I - K X0|_ij from the bf16x3
+// product K X0 (a NaN row sum counts as infinite); below `guard` the first
+// step completes from that product (X = X0 (2I - K X0)), then max(n_quad -
+// 1, 0) bf16x3 and n_hi fp32 steps; otherwise the system's flag in
+// `tripped` is set and nothing is stored: a second launch, K3's own kernel
+// masked to the flagged systems (ns_inverse.cu, ns_cluster.cu), runs the
+// cold schedule on them, so a tripped system's result is K3's bit for bit.
+// K9: X0 = I / max_i sum_j |K_ij|, then n_hi fp32 steps. bf16x3: both
+// operands split into bf16 hi and lo (round to nearest,
 // split_pair), hi*hi + hi*lo + lo*hi summed into one fp32 accumulator, per
 // 16 k the three passes in that order (the order of the 128-tile core and of
 // ns_cluster.cu). fp32: 3xTF32 (hi = tf32(a), lo = tf32(a - hi), cvt.rna),
@@ -47,6 +65,19 @@
 // the accumulators of an issued wgmma stay put until the wait (wg_hold).
 // Each element of B is split once per CTA.
 //
+// K7's guard. Its product is the first bf16x3 step's K X0, so the guard is
+// that step with a check between its two products: each thread sums |I -
+// K X0| over its accumulators as it stores T, and the largest row sum is
+// taken over the CTA and, at 256, over the cluster's four CTAs by
+// distributed shared memory, so every CTA of a system takes the same
+// branch. The check puts 112 bytes of spill stores into the 256 instance
+// (116 against K6's 4), all in its own code: not inlined (36 bytes) it ran
+// at the same speed on the card (PERF.md, section 6). A tripped system
+// leaves no last product for the next ks to stream under: its copy is
+// exposed. K9's start is formed from K's tile in shared memory as soon as
+// it has arrived (exposed too). K7 and K9 keep their row sums and maxima in
+// 1 KB beyond K6's layout.
+//
 // Persistence. The grid is as many CTAs (clusters) as the card holds at
 // once, and each walks systems s, s + grid, ... The next system's ks
 // streams into K's tile by 16-byte cp.async during the last product X T (K
@@ -76,6 +107,7 @@
 #include <cstdint>
 
 #include "mma.cuh"
+#include "ns_core.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -83,6 +115,12 @@ namespace qct {
 
 constexpr int RF_THREADS = 256;  // two warpgroups
 constexpr int RF_SLOT = 4096;    // floats of a ring slot (its hi and lo planes)
+constexpr int RF_SCRATCH = 256;  // floats of K7's row sums and maxima, K9's maxima
+
+// What ns_refine_kernel runs on each system (kMode)
+constexpr int RF_REFINE = 0;     // K6: n_quad bf16x3 and n_hi fp32 steps from init
+constexpr int RF_WARM = 1;       // K7: the guard, then the warm steps or the flag
+constexpr int RF_PLAIN = 2;      // K9: n_hi fp32 steps from I / ||K||_inf
 
 // One instance: npad kN.
 template <int kN>
@@ -356,24 +394,16 @@ __device__ __forceinline__ void rf_product(const float* __restrict__ A, const fl
   }
 }
 
-// One quadratic step on the system: T = 2I - K X, then X = X T. q is the
-// CTA's rank in the cluster (0 at 128). In the system's last step, next_k
-// streams into K during the second product and the result goes straight
-// from the accumulators to out (the system's inverse in device memory); X
-// is then free once the step returns.
+// The second half of a quadratic step, X = X T, once T is complete in every
+// CTA. q is the CTA's rank in the cluster (0 at 128). In the system's last
+// step, next_k streams into K during the product and the result goes
+// straight from the accumulators to out (the system's inverse in device
+// memory); X is then free once the step returns.
 template <int kN, bool kBf16>
-__device__ __forceinline__ void rf_step(float* K, float* X, float* T, float* ring, int q,
-                                        const float* next_k, float* out) {
+__device__ __forceinline__ void rf_finish(float* K, float* X, const float* T, float* ring, int q,
+                                          const float* next_k, float* out) {
   using S = RefineShape<kN>;
   float acc[64];
-  rf_product<kN, kBf16, true>(K, X, ring, acc, q, nullptr, nullptr);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    int r, c;
-    rf_place<kN>(i, r, c);
-    T[blk<kN>(r, c)] = (S::kRows * q + r == c ? 2.f : 0.f) - acc[i];
-  }
-  rf_sync<kN>();  // T complete in every CTA; every read of X and of K done
   rf_product<kN, kBf16, false>(X, T, ring, acc, q, next_k, K);
   __syncthreads();  // this CTA's reads of X are done
   if (out != nullptr) {
@@ -395,75 +425,199 @@ __device__ __forceinline__ void rf_step(float* K, float* X, float* T, float* rin
   rf_sync<kN>();  // X complete in every CTA; every read of T done
 }
 
-// ks, init (b, kN, kN) -> inv (b, kN, kN): n_quad bf16x3 and n_hi fp32
-// quadratic steps from init. Grid: kCtas CTAs (one cluster at 256) for each
-// system the card runs at once; unit u walks systems u, u + units, ...
+// K7's guard from the calling thread's parts of the row sums of |I - K X0|
+// (its 32 accumulators of each of its two rows, rf_place: bit 1 of i):
+// whether r0 = max_i sum_j |I - K X0|_ij is below `guard`, the same answer
+// in every CTA of the system. The four threads of a row add their parts by
+// shuffles, the two warpgroups of a 256-tile row through shared memory; a
+// NaN row sum counts as infinite. scr: RF_SCRATCH floats, [0, 128) the
+// row sums' parts, [128, 136) the warps' maxima, 136 the CTA's largest row
+// sum (read by the peers at 256). Its barriers end every read of K and X
+// in the system.
 template <int kN>
+__device__ __forceinline__ bool rf_guard(float (&part)[2], float* scr, float guard) {
+  using S = RefineShape<kN>;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the 4 threads of a row hold its 128 columns of the warpgroup
+    part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+    part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+  }
+  if ((tid & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int r, c;
+      rf_place<kN>(2 * h, r, c);
+      scr[(kN == 128 ? 0 : S::kRows * (tid >> 7)) + r] = part[h];
+    }
+  }
+  __syncthreads();  // every part of the CTA's row sums stored
+  float row = 0.f;
+  if (tid < S::kRows) {
+    row = kN == 128 ? scr[tid] : scr[tid] + scr[S::kRows + tid];
+    if (isnan(row)) row = INFINITY;  // fmaxf drops NaN: a NaN start trips
+  }
+  float r0 = cta_max(row, scr + 128);
+  if constexpr (S::kCtas > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (tid == 0) scr[136] = r0;
+    cluster.sync();  // every CTA's maximum stored; every read of X done
+#pragma unroll
+    for (int p = 0; p < S::kCtas; ++p) r0 = fmaxf(r0, *cluster.map_shared_rank(scr + 136, p));
+  }
+  return r0 < guard;
+}
+
+// One quadratic step on the system: T = 2I - K X, then X = X T (rf_finish).
+// kGuard and `check` (K7's first step): between the two products, the
+// guard on K X (rf_guard); a system that trips returns false at once, with
+// X unchanged and nothing stored.
+template <int kN, bool kBf16, bool kGuard = false>
+__device__ __forceinline__ bool rf_step(float* K, float* X, float* T, float* ring, int q,
+                                        const float* next_k, float* out, bool check = false,
+                                        float guard = 0.f, float* scr = nullptr) {
+  using S = RefineShape<kN>;
+  float acc[64], part[2] = {0.f, 0.f};
+  rf_product<kN, kBf16, true>(K, X, ring, acc, q, nullptr, nullptr);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    int r, c;
+    rf_place<kN>(i, r, c);
+    const bool diag = S::kRows * q + r == c;
+    T[blk<kN>(r, c)] = (diag ? 2.f : 0.f) - acc[i];
+    if constexpr (kGuard) part[(i >> 1) & 1] += fabsf((diag ? 1.f : 0.f) - acc[i]);
+  }
+  if constexpr (kGuard) {
+    if (check && !rf_guard<kN>(part, scr, guard)) return false;
+  }
+  rf_sync<kN>();  // T complete in every CTA; every read of X and of K done
+  rf_finish<kN, kBf16>(K, X, T, ring, q, next_k, out);
+  return true;
+}
+
+// K9's start X = alpha I (blk's layout), alpha = 1 / max_i sum_j |K_ij|, from
+// K's tile (complete in shared memory): row i on thread i, its columns from
+// column i on. scr: RF_SCRATCH floats (the warps' maxima).
+template <int kN>
+__device__ __forceinline__ void rf_plain_start(const float* K, float* X, float* scr) {
+  static_assert(RefineShape<kN>::kCtas == 1, "one CTA holds the whole of K");
+  const int tid = threadIdx.x;
+  float row = 0.f;
+  if (tid < kN) {
+    for (int j = 0; j < kN; ++j) row += fabsf(K[ksw<kN>(tid, (j + tid) & (kN - 1))]);
+  }
+  const float alpha = 1.f / cta_max(row, scr);
+  for (int f = tid; f < kN * kN; f += RF_THREADS) {
+    const int r = f / kN, c = f % kN;
+    X[blk<kN>(r, c)] = r == c ? alpha : 0.f;
+  }
+}
+
+// Dynamic shared memory of instance (kN, kMode): K6's three tiles and ring,
+// and for K7 and K9 their scratch.
+template <int kN, int kMode>
+constexpr size_t rf_smem_bytes() {
+  return RefineShape<kN>::kSmemBytes + (kMode == RF_REFINE ? 0 : RF_SCRATCH * sizeof(float));
+}
+
+// ks, init (b, kN, kN) -> inv (b, kN, kN). RF_REFINE: n_quad bf16x3 and n_hi
+// fp32 quadratic steps from init. RF_WARM: the guard, then below it the warm
+// steps from init (n_quad as the TPU kernel's n_wquad), else tripped[s] = 1
+// and nothing stored (tripped[s] = 0 for a warm system). RF_PLAIN: n_hi fp32
+// steps from I / ||K||_inf (init not read). Grid: kCtas CTAs (one cluster
+// at 256) for each system the card runs at once; unit u walks systems u,
+// u + units, ...
+template <int kN, int kMode>
 __global__ void __launch_bounds__(RF_THREADS, 1)
 ns_refine_kernel(const float* __restrict__ ks, const float* __restrict__ init,
-                 float* __restrict__ inv, int b, int n_quad, int n_hi) {
+                 float* __restrict__ inv, int* __restrict__ tripped, int b, int n_quad, int n_hi,
+                 float guard) {
   using S = RefineShape<kN>;
   extern __shared__ __align__(128) float smem[];
   float* K = smem;
   float* X = K + S::kTile;
   float* T = X + S::kTile;
   float* ring = T + S::kTile;
+  float* scr = ring + 2 * RF_SLOT;  // RF_WARM and RF_PLAIN only
   int q = 0;
   if constexpr (S::kCtas > 1) q = static_cast<int>(cg::this_cluster().block_rank());
   const int unit = blockIdx.x / S::kCtas, units = gridDim.x / S::kCtas;
   const size_t sys_floats = static_cast<size_t>(kN) * kN, rows = static_cast<size_t>(S::kTile) * q;
-  const int steps = n_quad + n_hi;
   if (unit >= b) return;
   rf_copy_tile<kN, true>(K, ks + unit * sys_floats + rows);
-  rf_copy_tile<kN, false>(T, init + unit * sys_floats + rows);
-  cp_async_wait_all();
-  __syncthreads();  // init's rows complete in T
-  rf_transpose<kN>(T, X);
+  if constexpr (kMode == RF_PLAIN) {
+    cp_async_wait_all();
+    __syncthreads();  // K complete
+    rf_plain_start<kN>(K, X, scr);
+  } else {
+    rf_copy_tile<kN, false>(T, init + unit * sys_floats + rows);
+    cp_async_wait_all();
+    __syncthreads();  // init's rows complete in T
+    rf_transpose<kN>(T, X);
+  }
   rf_sync<kN>();  // K and X complete in every CTA
   for (int sys = unit; sys < b; sys += units) {
     const int next = sys + units;
     const float* next_k = next < b ? ks + next * sys_floats + rows : nullptr;
     float* out = inv + sys * sys_floats;
-    for (int it = 0; it < steps; ++it) {
-      const bool last = it + 1 == steps;
-      if (it < n_quad) {
-        rf_step<kN, true>(K, X, T, ring, q, last ? next_k : nullptr, last ? out : nullptr);
+    // K7: the first of max(n_quad, 1) bf16x3 steps is the guard's (X0
+    // (2I - K X0), as the TPU kernel reuses K X0)
+    const int nq = kMode == RF_WARM ? max(n_quad, 1) : n_quad, ns = nq + n_hi;
+    bool warm = true;
+    for (int it = 0; it < ns; ++it) {
+      const bool last = it + 1 == ns;
+      if (it < nq) {
+        warm = rf_step<kN, true, kMode == RF_WARM>(K, X, T, ring, q, last ? next_k : nullptr,
+                                                   last ? out : nullptr, it == 0, guard, scr);
+        if (!warm) break;
       } else {
         rf_step<kN, false>(K, X, T, ring, q, last ? next_k : nullptr, last ? out : nullptr);
       }
     }
-    if (steps == 0) {  // no step: the result is init itself
+    if constexpr (kMode == RF_WARM) {
+      if (q == 0 && threadIdx.x == 0) tripped[sys] = warm ? 0 : 1;
+      // a tripped system (K3's launch runs it) leaves K free for the next ks
+      if (!warm && next_k != nullptr) rf_copy_tile<kN, true>(K, next_k);
+    }
+    if (ns == 0) {  // no step: the result is the start itself
       for (int f = threadIdx.x; f < S::kTile; f += RF_THREADS)
         out[rows + f] = X[blk<kN>(f / kN, f % kN)];
       __syncthreads();
       if (next_k != nullptr) rf_copy_tile<kN, true>(K, next_k);
     }
     if (next < b) {
-      if constexpr (S::kCtas > 1) cg::this_cluster().sync();  // the peers' reads of T are done
-      rf_copy_tile<kN, false>(T, init + next * sys_floats + rows);
-      cp_async_wait_all();
-      __syncthreads();  // the next init's rows complete in T
-      rf_transpose<kN>(T, X);
+      if constexpr (kMode == RF_PLAIN) {
+        cp_async_wait_all();
+        __syncthreads();  // the next K complete; every read of X done
+        rf_plain_start<kN>(K, X, scr);
+      } else {
+        if constexpr (S::kCtas > 1) cg::this_cluster().sync();  // the peers' reads of T are done
+        rf_copy_tile<kN, false>(T, init + next * sys_floats + rows);
+        cp_async_wait_all();
+        __syncthreads();  // the next init's rows complete in T
+        rf_transpose<kN>(T, X);
+      }
     }
     cp_async_wait_all();
     rf_sync<kN>();  // the next K and X complete in every CTA
   }
 }
 
-// The launch configuration of instance kN for b systems: as many CTAs (4-CTA
-// clusters at 256) as the card holds at once, at most b of them.
-template <int kN>
+// The launch configuration of instance (kN, kMode) for b systems: as many
+// CTAs (4-CTA clusters at 256) as the card holds at once, at most b of them.
+template <int kN, int kMode>
 cudaError_t refine_config(int b, cudaStream_t stream, cudaLaunchConfig_t& cfg,
                           cudaLaunchAttribute& attr) {
   using S = RefineShape<kN>;
-  const auto kernel = ns_refine_kernel<kN>;
+  constexpr size_t smem = rf_smem_bytes<kN, kMode>();
+  const auto kernel = ns_refine_kernel<kN, kMode>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(S::kSmemBytes));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(64 * S::kCtas), 1, 1);
   cfg.blockDim = dim3(RF_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = S::kSmemBytes;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = S::kCtas;
@@ -479,8 +633,7 @@ cudaError_t refine_config(int b, cudaStream_t stream, cudaLaunchConfig_t& cfg,
     err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, RF_THREADS,
-                                                          S::kSmemBytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, RF_THREADS, smem);
     units = sms * per_sm;
   }
   if (err == cudaSuccess && units < 1) err = cudaErrorInvalidConfiguration;
@@ -488,28 +641,83 @@ cudaError_t refine_config(int b, cudaStream_t stream, cudaLaunchConfig_t& cfg,
   return err;
 }
 
-template <int kN>
-int launch_refine(const float* ks, const float* init, float* inv, int b, int n_quad, int n_hi,
-                  void* stream) {
+template <int kN, int kMode>
+int launch_refine(const float* ks, const float* init, float* inv, int* tripped, int b, int n_quad,
+                  int n_hi, float guard, void* stream) {
   if (b == 0) return 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = refine_config<kN>(b, static_cast<cudaStream_t>(stream), cfg, attr);
+  cudaError_t err = refine_config<kN, kMode>(b, static_cast<cudaStream_t>(stream), cfg, attr);
   if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&cfg, ns_refine_kernel<kN>, ks, init, inv, b, n_quad, n_hi);
+    err = cudaLaunchKernelEx(&cfg, ns_refine_kernel<kN, kMode>, ks, init, inv, tripped, b, n_quad,
+                             n_hi, guard);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace qct
 
-// C entry points (loaded with ctypes). Each returns the launch's cudaError_t;
-// the caller checks bounds and types.
+// K3's kernel masked to the flagged systems: ns_inverse.cu and ns_cluster.cu.
+extern "C" int qct_ns_inverse_scaled_masked(const float* ks, float* inv, const int* tripped, int b,
+                                            const float* mus, int n_scaled, int n_quad, int n_hi,
+                                            void* stream);
+extern "C" int qct_ns_inverse_scaled_masked_256(const float* ks, float* inv, const int* tripped,
+                                                int b, const float* mus, int n_scaled,
+                                                int n_quad, int n_hi, void* stream);
+
+// C entry points (loaded with ctypes). Each returns the first failed launch's
+// cudaError_t (0 when every launch went); the caller checks bounds and types.
 extern "C" int qct_ns_inverse_refine(const float* ks, const float* init, float* inv, int b,
                                      int n_quad, int n_hi, void* stream) {
-  return qct::launch_refine<128>(ks, init, inv, b, n_quad, n_hi, stream);
+  return qct::launch_refine<128, qct::RF_REFINE>(ks, init, inv, nullptr, b, n_quad, n_hi, 0.f,
+                                                 stream);
 }
 
 extern "C" int qct_ns_inverse_refine_256(const float* ks, const float* init, float* inv, int b,
                                          int n_quad, int n_hi, void* stream) {
-  return qct::launch_refine<256>(ks, init, inv, b, n_quad, n_hi, stream);
+  return qct::launch_refine<256, qct::RF_REFINE>(ks, init, inv, nullptr, b, n_quad, n_hi, 0.f,
+                                                 stream);
+}
+
+// K9 at the 128 tile: `iters` fp32 steps from I / ||K||_inf.
+extern "C" int qct_ns_inverse_plain(const float* ks, float* inv, int b, int iters, void* stream) {
+  return qct::launch_refine<128, qct::RF_PLAIN>(ks, nullptr, inv, nullptr, b, 0, iters, 0.f,
+                                                stream);
+}
+
+// K7's first launch alone (npad 128 or 256): the guard and the warm branch,
+// tripped (b int32) set per system. For timing the two launches apart.
+extern "C" int qct_ns_warm_guarded(const float* ks, const float* init, float* inv, int* tripped,
+                                   int b, int n_wquad, int n_whi, float guard, int npad,
+                                   void* stream) {
+  if (npad == 128)
+    return qct::launch_refine<128, qct::RF_WARM>(ks, init, inv, tripped, b, n_wquad, n_whi, guard,
+                                                 stream);
+  if (npad == 256)
+    return qct::launch_refine<256, qct::RF_WARM>(ks, init, inv, tripped, b, n_wquad, n_whi, guard,
+                                                 stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7: the guard and the warm branch, then K3's cold schedule (mus, n_scaled,
+// n_quad, n_hi) on the systems whose guard tripped, both on `stream`.
+extern "C" int qct_ns_inverse_warm(const float* ks, const float* init, float* inv, int* tripped,
+                                   int b, const float* mus, int n_scaled, int n_quad, int n_hi,
+                                   int n_wquad, int n_whi, float guard, void* stream) {
+  if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
+  int err = qct_ns_warm_guarded(ks, init, inv, tripped, b, n_wquad, n_whi, guard, 128, stream);
+  if (err == 0)
+    err = qct_ns_inverse_scaled_masked(ks, inv, tripped, b, mus, n_scaled, n_quad, n_hi, stream);
+  return err;
+}
+
+extern "C" int qct_ns_inverse_warm_256(const float* ks, const float* init, float* inv,
+                                       int* tripped, int b, const float* mus, int n_scaled,
+                                       int n_quad, int n_hi, int n_wquad, int n_whi, float guard,
+                                       void* stream) {
+  if (n_scaled > qct::NS_MAX_MUS) return static_cast<int>(cudaErrorInvalidValue);
+  int err = qct_ns_warm_guarded(ks, init, inv, tripped, b, n_wquad, n_whi, guard, 256, stream);
+  if (err == 0)
+    err = qct_ns_inverse_scaled_masked_256(ks, inv, tripped, b, mus, n_scaled, n_quad, n_hi,
+                                           stream);
+  return err;
 }

@@ -46,8 +46,11 @@ _SIGNATURES = {
     "qct_ns_inverse_plain_256": ((_P, _P, _I, _I, _P), _I),
     "qct_ns_inverse_plain_one": ((_P, _P, _I, _I, _P), _I),
     "qct_ns_plain_clusters": ((_I, _P, _P), _I),
-    "qct_ns_inverse_warm": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P), _I),
-    "qct_ns_inverse_warm_256": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P), _I),
+    "qct_ns_inverse_warm": ((_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P), _I),
+    "qct_ns_inverse_warm_256": ((_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P), _I),
+    "qct_ns_warm_guarded": ((_P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    "qct_ns_inverse_scaled_masked": ((_P, _P, _P, _I, _P, _I, _I, _I, _P), _I),
+    "qct_ns_inverse_scaled_masked_256": ((_P, _P, _P, _I, _P, _I, _I, _I, _P), _I),
     "qct_fused_admm_solve": (
         (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P), _I),
     "qct_ns_cluster_max_active": ((_P,), _I),

@@ -23,6 +23,14 @@ def check(t: torch.Tensor, name: str, shape: tuple, device: torch.device | None 
         raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its data starts on a 16-byte boundary, else a contiguous
+    copy of it, which the allocator aligns: the kernels read their inputs 16
+    bytes at a time (float4 loads, 16-byte cp.async), and a view that starts
+    at another offset would fault there."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -101,8 +101,7 @@ def form_packed(bfam_s, smat, r, smask, h: int, ms: int, pack: int, alpha: float
     if not bfam_s.is_cuda:
         return form_packed_reference(bfam_s, smat, r, smask, h, ms, pack, alpha)
     n_pair = pack * 3 * ms * h
-    if bfam_s.data_ptr() % 16:
-        raise ValueError("bfam_s: the kernel reads it as float4s; expected 16-byte alignment")
+    bfam_s, smat, r, smask = map(_launch.aligned, (bfam_s, smat, r, smask))
     lib = _build.load()
     smem = lib.qct_form_packed_smem_bytes(h, ms)
     if smem > _SMEM_LIMIT:

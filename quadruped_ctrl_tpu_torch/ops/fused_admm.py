@@ -146,9 +146,7 @@ def fused_admm_solve(a_dense, hess, grad, l, u, rho, *,
               alpha_rx=alpha_rx, w_act=w_act, act_tol=act_tol, infty=infty)
     if not hess.is_cuda:
         return fused_admm_solve_reference(a_dense, hess, grad, l, u, rho, **kw)
-    if any(t.data_ptr() % 16 for t in (a_dense, hess, grad)):
-        raise ValueError("fused_admm_solve: a_dense, hess and grad must be 16-byte aligned "
-                         "(the kernel reads them as float4)")
+    a_dense, hess, grad, l, u, rho = map(_launch.aligned, (a_dense, hess, grad, l, u, rho))
     lib = _build.load()
     x = torch.empty_like(grad)
     P = _launch.ptr

@@ -22,14 +22,17 @@ The counterpart of `quadruped_ctrl_tpu/ops/ns_inverse.py`:
 The schedule: X0 = I / ||K||_inf, then `mu_schedule(a0, n_scaled)` scaled
 steps X <- mu X (2I - mu K X) and n_quad quadratic steps in bf16x3, then n_hi
 fp32 steps. On a CUDA tensor the wrappers launch the hand-written kernels:
-`csrc/ns_inverse.cu` at the 128 tile (one block per system) and
-`csrc/ns_cluster.cu` at the 256 tile (one cluster of 4 blocks per system);
-the warm refinement K6 runs `csrc/ns_refine.cu` at both tiles (its products
-as `wgmma`; as many blocks, or 4-block clusters at 256, as the card holds
-at once, each walking systems in turn); the plain NS runs `csrc/ns_plain.cu` (K8 on one cluster of 8 blocks at 128
-and of 16 at 256, K9 at 256 on a cluster of 4 a system), but for K9 at the
-128 tile, K3's kernel on a schedule of fp32 steps. On a CPU tensor they run
-the `_reference` functions, the same arithmetic in plain PyTorch.
+K2 and K3 run `csrc/ns_inverse.cu` at the 128 tile (one block per system)
+and `csrc/ns_cluster.cu` at the 256 tile (one cluster of 4 blocks per
+system); K6, K7's guard and warm branch, and K9 at the 128 tile run
+`csrc/ns_refine.cu` (its products as `wgmma`; as many blocks, or 4-block
+clusters at 256, as the card holds at once, each walking systems in turn),
+K7's cold branch K3's own kernel on the systems whose guard tripped; the
+plain NS K8 and K9 at 256 run `csrc/ns_plain.cu` (K8 on one cluster of 8
+blocks at 128 and of 16 at 256, K9 at 256 on a cluster of 4 a system).
+Every wrapper hands its kernel 16-byte aligned inputs (`_launch.aligned`).
+On a CPU tensor they run the `_reference` functions, the same arithmetic
+in plain PyTorch.
 
 The TPU kernels group G = 8 systems per grid step and need the batch padded
 to a multiple of G; the CUDA kernels take any batch. `G` stays here because
@@ -158,6 +161,7 @@ def ns_inverse_scaled(ks, a0: float = 1e-5, n_scaled: int = 9, n_quad: int = 2,
     _check_schedule(n_scaled)
     if not ks.is_cuda:
         return ns_inverse_scaled_reference(ks, a0, n_scaled, n_quad, n_hi)
+    ks = _launch.aligned(ks)
     lib = _build.load()
     entry = lib.qct_ns_inverse_scaled if npad == N else lib.qct_ns_inverse_scaled_256
     inv = torch.empty_like(ks)
@@ -219,6 +223,7 @@ def ns_inverse_scaled_build(hp, g9, a0: float = 1e-5, n_scaled: int = 9,
     _check_schedule(n_scaled)
     if not hp.is_cuda:
         return ns_inverse_scaled_build_reference(hp, g9, a0, n_scaled, n_quad, n_hi)
+    hp, g9 = _launch.aligned(hp), _launch.aligned(g9)
     lib = _build.load()
     inv = torch.empty_like(hp)
     d_row = torch.empty((b, 1, npad), dtype=torch.float32, device=hp.device)
@@ -260,6 +265,7 @@ def ns_inverse_refine(ks, init, n_quad: int = 1, n_hi: int = 1):
     _check_tile(npad)
     if not ks.is_cuda:
         return ns_inverse_refine_reference(ks, init, n_quad, n_hi)
+    ks, init = _launch.aligned(ks), _launch.aligned(init)
     lib = _build.load()
     entry = lib.qct_ns_inverse_refine if npad == N else lib.qct_ns_inverse_refine_256
     inv = torch.empty_like(ks)
@@ -300,8 +306,12 @@ def ns_inverse_warm(ks, init, a0: float = 1e-5, n_scaled: int = 9, n_quad: int =
     r0 = max_i sum_j |I - ks init|_ij below `guard` runs max(n_wquad, 1)
     bf16x3 and n_whi fp32 quadratic steps from init; the others run the cold
     schedule (a0, n_scaled, n_quad, n_hi) of `ns_inverse_scaled`, so the
-    result is factorization-grade either way. One CUDA block (a 4-CTA
-    cluster at 256) owns a system and takes one branch."""
+    result is factorization-grade either way. On the card one call makes
+    two launches on the stream: the guard and the warm branch on
+    `csrc/ns_refine.cu`'s persistent grid, which flags each system whose
+    guard trips and stores nothing for it, then K3's own kernel on the
+    flagged systems alone (a masked instance), so a tripped system's result
+    is K3's bit for bit."""
     b = ks.shape[0] if ks.dim() == 3 else None
     npad = ks.shape[-1] if ks.dim() == 3 else None
     _launch.check(ks, "ks", (b, npad, npad))
@@ -311,12 +321,14 @@ def ns_inverse_warm(ks, init, a0: float = 1e-5, n_scaled: int = 9, n_quad: int =
     if not ks.is_cuda:
         return ns_inverse_warm_reference(ks, init, a0, n_scaled, n_quad, n_hi, n_wquad, n_whi,
                                          guard)
+    ks, init = _launch.aligned(ks), _launch.aligned(init)
     lib = _build.load()
     entry = lib.qct_ns_inverse_warm if npad == N else lib.qct_ns_inverse_warm_256
     inv = torch.empty_like(ks)
+    tripped = torch.empty(b, dtype=torch.int32, device=ks.device)   # the guard's flags
     with torch.cuda.device(ks.device):
-        rc = entry(_launch.ptr(ks), _launch.ptr(init), _launch.ptr(inv), b,
-                   _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, n_wquad, n_whi, guard,
+        rc = entry(_launch.ptr(ks), _launch.ptr(init), _launch.ptr(inv), _launch.ptr(tripped),
+                   b, _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, n_wquad, n_whi, guard,
                    _launch.stream(ks))
     _launch.raise_on_error(rc, f"ns_inverse_warm at the {npad} tile")
     _launch.count(_K7, npad)
@@ -346,6 +358,7 @@ def ns_inverse(ks, iters: int = 25):
     _check_tile(npad)
     if not ks.is_cuda:
         return ns_inverse_reference(ks, iters)
+    ks = _launch.aligned(ks)
     lib = _build.load()
     inv = torch.empty_like(ks)
     with torch.cuda.device(ks.device):
@@ -362,13 +375,15 @@ _K8 = _launch.new_count(ns_inverse)
 def ns_inverse_blocked(ks, iters: int = 25):
     """`ns_inverse` on a batch ks (B, npad, npad), npad in {128, 256}, any B
     (the JAX kernel's multiple of G is the caller's padding contract). On the
-    card: a 4-CTA cluster a system at 256, K3's kernel on fp32 steps at 128."""
+    card: a 4-CTA cluster a system at 256; at 128 `csrc/ns_refine.cu`'s
+    persistent grid, its fp32 step as `wgmma`."""
     b = ks.shape[0] if ks.dim() == 3 else None
     npad = ks.shape[-1] if ks.dim() == 3 else None
     _launch.check(ks, "ks", (b, npad, npad))
     _check_tile(npad)
     if not ks.is_cuda:
         return ns_inverse_blocked_reference(ks, iters)
+    ks = _launch.aligned(ks)
     lib = _build.load()
     entry = lib.qct_ns_inverse_plain if npad == N else lib.qct_ns_inverse_plain_256
     inv = torch.empty_like(ks)

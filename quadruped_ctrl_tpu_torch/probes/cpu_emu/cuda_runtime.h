@@ -10,9 +10,10 @@
 // the warp. Dynamic shared memory is
 // one arena per block, filled with garbage; a peer's arena is what
 // map_shared_rank and mapa / ld.shared::cluster (emu_mma.h) reach. Static
-// __shared__ variables become function statics, shared by every block: right
-// only while one block runs at a time, so a kernel launched on clusters keeps
-// all its shared memory in the dynamic arena.
+// __shared__ variables live in the same arena, above the most dynamic shared
+// memory a block may have: emulate.py rewrites each declaration into a call
+// of emu::cta_static, which gives every variable one offset, the same in
+// every block, so map_shared_rank reaches a peer's copy too.
 #pragma once
 
 #include <math.h>
@@ -27,6 +28,7 @@
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -34,7 +36,6 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __shared__ static
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __cluster_dims__(...)
@@ -144,6 +145,28 @@ inline thread_local unsigned cluster_size = 1;
 inline thread_local char* const* cluster_arenas = nullptr;
 inline thread_local std::barrier<>* cluster_bar = nullptr;
 
+// Static __shared__ variables: kStaticBytes at kStaticBase of each arena.
+constexpr size_t kStaticBase = 232448, kStaticBytes = 16384;
+inline size_t static_alloc(size_t bytes, size_t align) {
+  static std::mutex mu;
+  static size_t top = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  top = (top + align - 1) / align * align;
+  const size_t at = top;
+  top += bytes;
+  if (top > kStaticBytes) {
+    std::fprintf(stderr, "static __shared__ variables over %zu bytes\n", kStaticBytes);
+    std::abort();
+  }
+  return at;
+}
+// The calling block's copy of static __shared__ variable kId (of type T).
+template <typename T, int kId>
+inline T& cta_static() {
+  static const size_t at = static_alloc(sizeof(T), alignof(T));
+  return *reinterpret_cast<T*>(arena + kStaticBase + at);
+}
+
 inline void launch(int grid, int block, size_t smem, cudaStream_t,
                    const std::function<void()>& kernel, int cluster = 1) {
   for (int c0 = 0; c0 < grid; c0 += cluster) {
@@ -153,7 +176,7 @@ inline void launch(int grid, int block, size_t smem, cudaStream_t,
     std::vector<std::unique_ptr<Warp[]>> ws;
     std::vector<std::unique_ptr<WarpGroup[]>> wgs;
     for (int r = 0; r < cluster; ++r) {
-      bufs.emplace_back(smem + 256, 0x7f);
+      bufs.emplace_back(kStaticBase + kStaticBytes + 256, 0x7f);
       arenas.push_back(reinterpret_cast<char*>(
           (reinterpret_cast<uintptr_t>(bufs.back().data()) + 127) & ~uintptr_t(127)));
       bars.push_back(std::make_unique<std::barrier<>>(block));

@@ -1,37 +1,38 @@
-"""Run the 128-tile kernels of csrc/ns_inverse.cu, csrc/fused_admm.cu and
-csrc/formation_pack.cu, and the kernels of csrc/ns_plain.cu and
-csrc/ns_refine.cu, clusters included, on the CPU.
+"""Run the kernels of csrc/ on the CPU, clusters included.
 
-    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9 plain]
+    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9 plain warm]
 
 For a machine without nvcc: the CUDA sources are compiled by g++ (C++20)
 against the stand-in headers beside this file (cuda_runtime.h, cuda_bf16.h,
 emu_mma.h for the inline PTX of mma.cuh, cooperative_groups.h), each block
 running as one std::thread per CUDA thread. Every csrc/*.cu is first
-checked to compile that way; then ns_inverse.cu is built into a shared
-library and its C entry points run on a few systems against the plain
-PyTorch references, printing residuals and how far apart the two are, and
-the shared-memory wavefronts per ldmatrix matrix (1.0 when free of bank
-conflicts). `k5` builds fused_admm.cu into a library of its own and runs
-the single-launch solve K5 on the first two systems of the h=10 fused
-path's operands against fused_admm_solve_reference. `k1` builds
-formation_pack.cu into a library of its own and runs the packed formation
-K1 at the four lanes' shapes (h=10 and h=16 at max_stance 4, 2 and 3), with
-masked steps, at an n_c that is no multiple of 4, and at the two largest
-shapes whose planes leave no room for the padded row stride, against
-form_packed_reference, with the count of mma.sync it runs and its ldmatrix
-wavefronts per matrix. `plain` builds ns_plain.cu into a library of its own
-and runs the plain NS K8 on one system at the 128 tile (a cluster of 2 x 4
-CTAs) and K9 on two systems at the 256 tile (4 x 1 CTAs each), the CTAs of a
-cluster concurrently, against ns_inverse_reference and
-ns_inverse_blocked_reference (`plain k8_256` adds K8 at the 256 tile, 4 x 4
-CTAs). `k6` builds ns_refine.cu into a library of its own and runs the warm
-refinement K6 on three systems at each tile (the emulated card holds two
+checked to compile that way; then ns_inverse.cu, ns_cluster.cu and
+ns_refine.cu are built into one shared library (compile_ns: K7's entry
+points launch K3's kernels of the other two) and the NS entry points run on
+a few systems against the plain PyTorch references, printing residuals and
+how far apart the two are, and the shared-memory wavefronts per ldmatrix
+matrix (1.0 when free of bank conflicts). `k5` builds fused_admm.cu into a
+library of its own and runs the single-launch solve K5 on the first two
+systems of the h=10 fused path's operands against
+fused_admm_solve_reference. `k1` builds formation_pack.cu into a library of
+its own and runs the packed formation K1 at the four lanes' shapes (h=10 and
+h=16 at max_stance 4, 2 and 3), with masked steps, at an n_c that is no
+multiple of 4, and at the two largest shapes whose planes leave no room for
+the padded row stride, against form_packed_reference, with the count of
+mma.sync it runs and its ldmatrix wavefronts per matrix. `plain` builds
+ns_plain.cu into a library of its own and runs the plain NS K8 on one
+system at the 128 tile (a cluster of 2 x 4 CTAs) and K9 on two systems at
+the 256 tile (4 x 1 CTAs each), the CTAs of a cluster concurrently, against
+ns_inverse_reference and ns_inverse_blocked_reference (`plain k8_256` adds
+K8 at the 256 tile, 4 x 4 CTAs). `k6` runs the warm refinement K6 of
+ns_refine.cu on three systems at each tile (the emulated card holds two
 blocks at 128 and two 4-CTA clusters at 256, so one of them walks two
-systems) against ns_inverse_refine_reference. It shows that the indexing,
-the layouts and the barriers are right; it says nothing of speed, and
-ns_cluster.cu's kernels, whose static shared variables would be shared by a
-cluster's concurrent CTAs here, only compile. A run takes a few minutes.
+systems) against ns_inverse_refine_reference; `warm` the guarded warm NS K7
+at each tile on a batch of a tripped, two warm and a NaN start (its cold
+branch K3's kernels of ns_inverse.cu and ns_cluster.cu), and K9 at the 128
+tile, against their references. It shows that the indexing, the layouts
+and the barriers are right; it says nothing of speed. A run takes a few
+minutes.
 """
 
 from __future__ import annotations
@@ -67,13 +68,25 @@ PTX_FUNCTIONS = ("to_tf32", "mma_bf16", "mma_tf32", "ldsm_x4_trans", "map_rank",
 
 def prepare(csrc: Path, out: Path):
     """Copy csrc into out with the CUDA-only syntax rewritten: dynamic
-    shared memory reads the emulator's arena, <<<...>>> launches become
-    emu::launch calls, and mma.cuh's inline-PTX functions give way to
+    shared memory reads the emulator's arena, static __shared__ variables
+    become per-block copies in it (emu::cta_static), <<<...>>> launches
+    become emu::launch calls (on clusters for a kernel declared with
+    __cluster_dims__), and mma.cuh's inline-PTX functions give way to
     emu_mma.h's."""
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    for path in csrc.iterdir():
-        src = path.read_text()
+    sources = {path: path.read_text() for path in csrc.iterdir()}
+    clusters = {m[2]: m[1] for src in sources.values() for m in re.finditer(
+        r"__cluster_dims__\((\w+), 1, 1\)\s*(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(", src)}
+    static_ids = iter(range(1 << 20))
+
+    def launch(m):
+        name = re.sub(r"<.*>", "", m[1]).split("::")[-1]
+        dims = clusters.get(name)
+        cluster = "" if dims is None else ", " + (dims if dims.isdigit() else f"qct::{dims}")
+        return f"emu::launch({m[2]}, [&] {{ {m[1]}({m[3]}); }}{cluster});"
+
+    for path, src in sources.items():
         if path.name == "mma.cuh":
             for name in PTX_FUNCTIONS:
                 start = re.search(rf"__device__ __forceinline__ \w+ {name}\(", src).start()
@@ -81,8 +94,10 @@ def prepare(csrc: Path, out: Path):
             src = src.replace("namespace qct {\n", '#include "emu_mma.h"\n\nnamespace qct {\n', 1)
         src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
                      r"\1* \2 = reinterpret_cast<\1*>(emu::arena);", src)
-        src = re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);",
-                     lambda m: f"emu::launch({m[2]}, [&] {{ {m[1]}({m[3]}); }});", src, flags=re.S)
+        src = re.sub(r"__shared__ (?:__align__\(\d+\) )?(\w+) (\w+)((?:\[[^\]]*\])*);",
+                     lambda m: f"{m[1]} (&{m[2]}){m[3]} = "
+                               f"emu::cta_static<{m[1]}{m[3]}, {next(static_ids)}>();", src)
+        src = re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", launch, src, flags=re.S)
         (out / path.name).write_text(src)
 
 
@@ -90,11 +105,19 @@ FLAGS = ("g++", "-std=c++20", "-Wno-unknown-pragmas", f"-I{HERE}", "-x", "c++")
 
 
 def compile_all(out: Path) -> ctypes.CDLL:
-    """Check that every .cu in out compiles; ns_inverse.cu's library."""
+    """Check that every .cu in out compiles; the NS kernels' library
+    (compile_ns)."""
     for cu in sorted(out.glob("*.cu")):
         subprocess.run([*FLAGS, "-fsyntax-only", str(cu)], check=True)
         print(f"compiles: {cu.name}")
-    return _library(out, "ns_inverse")
+    return compile_ns(out)
+
+
+def compile_ns(out: Path) -> ctypes.CDLL:
+    """One library of ns_inverse.cu, ns_cluster.cu and ns_refine.cu (K2, K3,
+    K6, K7, K9 at 128): K7's entry points launch K3's kernel of the other
+    two. Built once per out."""
+    return _library(out, "ns", ("ns_inverse", "ns_cluster", "ns_refine"))
 
 
 def compile_fused(out: Path) -> ctypes.CDLL:
@@ -113,15 +136,16 @@ def compile_plain(out: Path) -> ctypes.CDLL:
     return _library(out, "ns_plain")
 
 
-def compile_refine(out: Path) -> ctypes.CDLL:
-    """ns_refine.cu's library (K6 at both tiles)."""
-    return _library(out, "ns_refine")
-
-
-def _library(out: Path, stem: str) -> ctypes.CDLL:
+def _library(out: Path, stem: str, parts: tuple[str, ...] | None = None) -> ctypes.CDLL:
+    """The library of out/<stem>.cu, or of the sources `parts` compiled as
+    one translation unit; built once per out."""
     lib_path = out / f"lib{stem}_emu.so"
-    subprocess.run([*FLAGS, "-O2", "-shared", "-fPIC", "-o", str(lib_path),
-                    str(out / f"{stem}.cu"), "-lpthread"], check=True)
+    if parts is not None:
+        (out / f"{stem}.cc").write_text("".join(f'#include "{p}.cu"\n' for p in parts))
+    if not lib_path.exists():
+        subprocess.run([*FLAGS, "-O2", "-shared", "-fPIC", "-o", str(lib_path),
+                        str(out / (f"{stem}.cc" if parts else f"{stem}.cu")), "-lpthread"],
+                       check=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _build._SIGNATURES.items():
         if hasattr(lib, name):
@@ -164,6 +188,7 @@ def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
     polish = (s.ns_a0, s.ns_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
     mus = lambda sched: NI._mus_arg(sched[0], sched[1])  # noqa: E731
     b, out = 2, {}
+    lib.emu_reset_counts()  # the counters are one per process (inline variables)
     if "k3" in which:
         for name, cond, sched, metric in (("k3_admm", 2.1e3, admm, 0),
                                           ("k3_polish", 1e4, polish, 1)):
@@ -185,15 +210,16 @@ def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
         out["k2"] = dict(rc=rc, rel_ks=rel(ks, ks_r), rel_d=rel(d, d_r),
                          residual=resid(ks_r, inv)[0], reference=resid(ks_r, inv_r)[0])
     if "k6" in which:
-        r = run_refine(compile_refine(Path(lib._name).parent), (NI.N,), b)[f"k6_{NI.N}"]
+        r = run_refine(lib, (NI.N,), b)[f"k6_{NI.N}"]
         out["k6"] = {k: v for k, v in r.items() if k not in ("finite", "equal")}
     if "k7" in which:
         ks = spd(8, b, 120, 1e3)
         init = torch.linalg.inv(ks.double()).float()
         init[1] = 17.0                      # system 1 trips the guard
         inv, cold = torch.empty_like(ks), torch.empty_like(ks)
-        rc = lib.qct_ns_inverse_warm(ptr(ks), ptr(init), ptr(inv), b, mus(admm), *admm[1:],
-                                     3, 1, 0.5, None)
+        tripped = torch.empty(b, dtype=torch.int32)
+        rc = lib.qct_ns_inverse_warm(ptr(ks), ptr(init), ptr(inv), ptr(tripped), b, mus(admm),
+                                     *admm[1:], 3, 1, 0.5, None)
         lib.qct_ns_inverse_scaled(ptr(ks), ptr(cold), b, mus(admm), *admm[1:], None)
         ref = NI.ns_inverse_warm_reference(ks, init, *admm, 3, 1, 0.5)
         out["k7"] = dict(rc=rc, rel_warm=rel(inv[0], ref[0]),
@@ -241,6 +267,83 @@ def run_refine(lib: ctypes.CDLL, tiles=(NI.N, NI.N_BIG), b: int = 3,
                                  reference=resid(ks, ref)[1], rel=rel(inv, ref),
                                  finite=bool(inv.isfinite().all()),
                                  equal=bool(torch.equal(inv, ref)))
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
+# K7's batch: system 0 starts at 17.0 everywhere (its guard trips), 1 and 2
+# at the exact inverse (warm), 3 at NaN (a NaN row sum trips). The emulated
+# card's two units walk 0 then 2, and 1 then 3: a tripped system and a warm
+# one each precede another system.
+WARM_STARTS = ("tripped", "warm", "warm", "nan")
+WARM_KW = (3, 1, 0.5)                          # n_wquad, n_whi, guard: the config's
+
+
+def warm_operands(npad: int, seed: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ks, init) of K7's batch: SPD systems of cond 1e3 (n = 120 at the 128
+    tile, 192 at 256) and the starts of WARM_STARTS."""
+    ks = spd(seed, len(WARM_STARTS), 120 if npad == NI.N else 192, 1e3, npad)
+    init = torch.linalg.inv(ks.double()).float()
+    for i, kind in enumerate(WARM_STARTS):
+        if kind != "warm":
+            init[i] = 17.0 if kind == "tripped" else float("nan")
+    return ks, init
+
+
+def run_warm(lib: ctypes.CDLL, tiles=(NI.N, NI.N_BIG), sched=None) -> dict:
+    """K7 (qct_ns_inverse_warm[_256]: the guard and warm branch of
+    ns_refine.cu, then K3's kernel on the tripped systems) on warm_operands
+    with the cold schedule sched (default the ADMM one) against
+    ns_inverse_warm_reference, and K3 (qct_ns_inverse_scaled[_256]) alone
+    on the systems that should trip: the flags the guard set, the warm
+    systems' largest difference relative to the reference's largest entry
+    and their max |I - K X| beside the reference's, whether the tripped
+    systems equal K3's result bit for bit, and whether all is finite;
+    prints them."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    s = default_config().solver
+    sched = sched or (s.ns_admm_a0, s.ns_admm_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
+    warm = [i for i, k in enumerate(WARM_STARTS) if k == "warm"]
+    cold = [i for i, k in enumerate(WARM_STARTS) if k != "warm"]
+    out = {}
+    for npad in tiles:
+        ks, init = warm_operands(npad)
+        b = ks.shape[0]
+        inv = torch.full_like(ks, float("nan"))
+        tripped = torch.full((b,), -1, dtype=torch.int32)
+        entry = lib.qct_ns_inverse_warm if npad == NI.N else lib.qct_ns_inverse_warm_256
+        rc = entry(ptr(ks), ptr(init), ptr(inv), ptr(tripped), b, NI._mus_arg(*sched[:2]),
+                   *sched[1:], *WARM_KW, None)
+        ks_c = ks[cold].contiguous()
+        k3 = torch.full_like(ks_c, float("nan"))
+        k3_entry = lib.qct_ns_inverse_scaled if npad == NI.N else lib.qct_ns_inverse_scaled_256
+        rc3 = k3_entry(ptr(ks_c), ptr(k3), len(cold), NI._mus_arg(*sched[:2]), *sched[1:], None)
+        ref = NI.ns_inverse_warm_reference(ks, init, *sched, *WARM_KW)
+        out[f"k7_{npad}"] = dict(rc=rc, rc_k3=rc3, tripped=tripped.tolist(),
+                                 rel_warm=rel(inv[warm], ref[warm]),
+                                 residual=resid(ks[warm], inv[warm])[0],
+                                 reference=resid(ks[warm], ref[warm])[0],
+                                 cold_is_k3=bool(torch.equal(inv[cold], k3)),
+                                 finite=bool(inv.isfinite().all()))
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
+def run_plain128(lib: ctypes.CDLL, b: int = 3, iters: int = 25) -> dict:
+    """K9 at the 128 tile (ns_refine.cu's fp32 steps from I / ||K||_inf,
+    qct_ns_inverse_plain) on b SPD systems of cond 1e3, n = 120, against
+    ns_inverse_blocked_reference: max |I - K X| of both, the largest
+    difference relative to max |reference|, finite; prints them. The
+    emulated card's two blocks walk the systems in turn."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    ks = spd(9, b, 120, 1e3)
+    inv = torch.full_like(ks, float("nan"))
+    rc = lib.qct_ns_inverse_plain(ptr(ks), ptr(inv), b, iters, None)
+    ref = NI.ns_inverse_blocked_reference(ks, iters)
+    out = {"k9_128": dict(rc=rc, residual=resid(ks, inv)[0], reference=resid(ks, ref)[0],
+                          rel=rel(inv, ref), finite=bool(inv.isfinite().all()))}
     for name, numbers in out.items():
         print(name, numbers)
     return out
@@ -331,6 +434,7 @@ def run_k5(lib: ctypes.CDLL) -> dict:
     ops = fused_operands()
     f_max = default_config().mpc.f_max
     out = {}
+    lib.emu_reset_counts()  # the counters are one per process (inline variables)
     for name, kw in (("k5", dict(n_iter=60, polish_rounds=2)),
                      ("k5_admm", dict(n_iter=30, polish_rounds=0))):
         x = k5(lib, ops, **kw)
@@ -395,8 +499,10 @@ def run_k1(lib: ctypes.CDLL, cases=K1_CASES) -> dict:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "plain")
-    own = {"k1", "k5", "k6", "plain", "k8_256"}  # the checks with a library of their own
+    which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "plain", "warm")
+    # the checks apart from run()'s (warm: K7 at both tiles and K9/128 on
+    # their own batches)
+    own = {"k1", "k5", "k6", "plain", "k8_256", "warm"}
     prepare(PKG / "csrc", OUT)
     lib = compile_all(OUT)
     if set(which) - own:
@@ -405,7 +511,10 @@ if __name__ == "__main__":
         run_plain(compile_plain(OUT), ("k8_128", "k9_256") + (("k8_256",) if "k8_256" in which
                                                               else ()))
     if "k6" in which:
-        run_refine(compile_refine(OUT))
+        run_refine(compile_ns(OUT))
+    if "warm" in which:
+        run_warm(compile_ns(OUT))
+        run_plain128(compile_ns(OUT))
     if "k5" in which:
         run_k5(compile_fused(OUT))
     if "k1" in which:

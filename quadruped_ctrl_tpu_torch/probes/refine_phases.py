@@ -64,9 +64,13 @@ STAGE_RECORD = (
     "        k[0] += c1 - c0; k[1] += c2 - c1; k[2] += c3 - c2;\n"
     "        k[3] += c4 - c3; k[4] += c5 - c4; k[5] += c6 - c5; k[6] += 1;\n"
     "      }\n")
+# (the first product is rf_step's, the second rf_finish's: the first two
+# stamps cross over in qct_clocks[38], [39])
 STEP_STAMPS = (
     ("  rf_product<kN, kBf16, true>(K, X, ring, acc, q, nullptr, nullptr);\n",
-     "  long long u0 = clock64();\n", "  long long u1 = clock64();\n"),
+     "  long long u0 = clock64();\n",
+     "  if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
+     "    qct_clocks[38] = u0; qct_clocks[39] = clock64();\n  }\n"),
     ("  rf_sync<kN>();  // T complete", "", ""),
     ("  rf_product<kN, kBf16, false>(X, T, ring, acc, q, next_k, K);\n",
      "  long long u2 = clock64();\n", ""),
@@ -75,7 +79,7 @@ STEP_STAMPS = (
 )
 STEP_RECORD = (
     "  if (threadIdx.x == 0 && blockIdx.x == 0) {{\n"
-    "    long long u4 = clock64();\n"
+    "    long long u4 = clock64(), u0 = qct_clocks[38], u1 = qct_clocks[39];\n"
     "    unsigned long long* k = qct_clocks + (kBf16 ? 16 : 24);\n"
     "    k[0] += u1 - u0; k[1] += u2 - u1; k[2] += u3 - u2; k[3] += u4 - u3; k[4] += 1;\n"
     "  }}\n")
@@ -123,7 +127,7 @@ def clocked_source(src: str) -> str:
     src = replace_once(src, "  rf_sync<kN>();  // X complete in every CTA; every read of T done\n",
                        "  rf_sync<kN>();  // X complete in every CTA; every read of T done\n"
                        + record)
-    tail0 = "    if (next < b) {\n      if constexpr (S::kCtas > 1) cg::this_cluster().sync();"
+    tail0 = "    if (next < b) {\n      if constexpr (kMode == RF_PLAIN) {"
     src = replace_once(src, tail0, "    long long v0 = clock64();\n" + tail0)
     tail1 = "    rf_sync<kN>();  // the next K and X complete in every CTA\n"
     src = replace_once(src, tail1, tail1 + "    if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
@@ -154,11 +158,13 @@ def build() -> dict:
         out = root / name
         out.mkdir(parents=True, exist_ok=True)
         (out / "ns_refine.cu").write_text(src)
-        (out / "mma.cuh").write_text((_build.CSRC / "mma.cuh").read_text())
+        for other in ("mma.cuh", "ns_core.cuh", "ns_inverse.cu", "ns_cluster.cu"):
+            (out / other).write_text((_build.CSRC / other).read_text())
+        # ns_refine.cu's K7 entry points call the masked K3 of the other two
         procs[name] = (out / "lib.so", subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out / "lib.so"),
-             str(out / "ns_refine.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+             *(str(out / f) for f in ("ns_refine.cu", "ns_inverse.cu", "ns_cluster.cu"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (path, proc) in procs.items():
         log = proc.communicate()[0]

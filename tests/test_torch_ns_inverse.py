@@ -172,14 +172,16 @@ def test_tensor_core_plain_schedule_holds_the_gate(order, n):
 
 def test_kernel_sources_run_in_cpu_emulation(tmp_path):
     """The 128-tile kernels' CUDA source (csrc/ns_inverse.cu on ns_core.cuh
-    and mma.cuh) compiled by g++ against the emulation headers of
-    quadruped_ctrl_tpu_torch/probes/cpu_emu (one thread per CUDA thread;
-    mma.sync and ldmatrix on their PTX fragment layouts) and run on b = 2
-    systems against the references: every csrc/*.cu compiles; K3's, K2's, K6's
-    and K9's residuals under the gates above and within 2x of the reference's,
-    their inverses within 1e-3 relative (measured <= 7.6e-5); K2's ks and
-    d_row within 1e-6 (measured 0); K7's tripped system equal to K3 bit for
-    bit; ldmatrix free of bank conflicts (1 wavefront a matrix)."""
+    and mma.cuh; K6, K7's guard and warm branch and K9 in csrc/ns_refine.cu,
+    built into one library with them and csrc/ns_cluster.cu) compiled by g++
+    against the emulation headers of quadruped_ctrl_tpu_torch/probes/cpu_emu
+    (one thread per CUDA thread; mma.sync, ldmatrix and wgmma on their PTX
+    fragment layouts) and run on b = 2 systems against the references: every
+    csrc/*.cu compiles; K3's, K2's, K6's and K9's residuals under the gates
+    above and within 2x of the reference's, their inverses within 1e-3
+    relative (measured <= 7.6e-5); K2's ks and d_row within 1e-6 (measured
+    0); K7's tripped system equal to K3 bit for bit; ldmatrix free of bank
+    conflicts (1 wavefront a matrix)."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the CPU emulation of the kernels")
     path = Path(NI.__file__).parents[1] / "probes" / "cpu_emu" / "emulate.py"

@@ -32,7 +32,8 @@ from tests.test_torch_package import _one_thread  # noqa: F401 (autouse)
 
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
-    """The emulate module and ns_refine.cu's emulated library."""
+    """The emulate module and the NS kernels' emulated library (ns_refine.cu
+    with ns_inverse.cu and ns_cluster.cu)."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the CPU emulation of the kernels")
     path = Path(NI.__file__).parents[1] / "probes" / "cpu_emu" / "emulate.py"
@@ -41,7 +42,7 @@ def emu_lib(tmp_path_factory):
     spec.loader.exec_module(emu)
     out = tmp_path_factory.mktemp("cpu_emu")
     emu.prepare(emu.PKG / "csrc", out)
-    return emu, emu.compile_refine(out)
+    return emu, emu.compile_ns(out)
 
 
 @pytest.fixture(scope="module")
