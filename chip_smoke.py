@@ -59,12 +59,22 @@
 4d. drives the per-scenario path (solve_batch, solve_compressed_batch at
    batch 1024, h=10; torch.func.vmap over admm_mpc, no kernel, as in JAX):
    forces, and the share within 1 N of solve_packed_batch;
+4e. drives the closed loop through `sim/batch_rollout.batch_rollout` at the
+   sweep users run (batch 4096 on the plane: 16 mode-1 stand macros solved
+   uncompressed, then 25 trot sweep macros stance-compressed and packed,
+   h_sol 10, every MPC solve warm-started through K1/128 and K2/128): one MPC
+   tick through the kernels against the plain branch from the same state at a
+   stand tick and at a warm sweep tick (fr_des within 0.5 N, gated by the
+   share, beside a plain run with its rpy nudged by one ulp), the launches
+   per MPC tick, survival and safety rates, robot ticks/s, the MPC and plain
+   tick times by CUDA events, and a profile of one macro;
 5. profiles one solve of h10, h16_full, h16_trot, h16_midband, h10_fused,
    h10_woodbury, h16_full with the Woodbury polish and scenario_full (device
    time by kernel, device idle share);
 6. prints a JSON line with the kernels (one entry per kernel and tile, with
-   its bound on this card and the time of torch.linalg.inv beside K2/K3),
-   then the result line.
+   its bound on this card and the time of torch.linalg.inv beside K2/K3;
+   K1/128's and K2/128's also carry their closed-loop launches per MPC
+   tick), then the result line.
 
 Exits non-zero when no CUDA device is present, when a kernel fails to build
 or launch, or when any check fails. Needs no JAX.
@@ -87,11 +97,15 @@ from pathlib import Path
 import torch
 
 from quadruped_ctrl_tpu_torch import default_config
+from quadruped_ctrl_tpu_torch.control import controller as ctrl
+from quadruped_ctrl_tpu_torch.core.types import Command, vmap
 from quadruped_ctrl_tpu_torch.mpc import formation, pipeline
 from quadruped_ctrl_tpu_torch.ops import _build, _launch
 from quadruped_ctrl_tpu_torch.ops import formation_pack as FP
 from quadruped_ctrl_tpu_torch.ops import fused_admm as FA
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
+from quadruped_ctrl_tpu_torch.sim import batch_rollout as br
+from quadruped_ctrl_tpu_torch.sim import engine
 from quadruped_ctrl_tpu_torch.solver import admm
 
 BATCH, H, MS, PACK = 4096, 10, 2, 2
@@ -927,7 +941,7 @@ def scenario_admm_ks(cfg, inputs) -> torch.Tensor:
             admm._make_solver = real
         return made[0].ks
 
-    return pipeline._vmap_scenarios(one, inputs)
+    return vmap(one)(inputs)
 
 
 def check_plain_ns(cfg, label, ks_log, npad, results):
@@ -1530,13 +1544,163 @@ def phase_fused_woodbury(cfg, dev, name_power, results):
     return times
 
 
-def phase_profile(cfg, label, inputs, solve=pipeline.solve_packed_batch, **solve_kw) -> dict:
+# the closed loop (phase 4e): `cli sweep --batch 4096 --gaits trot`'s first
+# checkpoint chunk, 16 mode-1 stand macros then 25 trot sweep macros, h_sol 10
+CL_BATCH, CL_STAND, CL_SWEEP, CL_H = 4096, 16, 25, 10
+
+
+def closed_loop_compare(cfg, label, states, sims, cmds, terr, max_stance):
+    """One MPC tick (`batch_rollout._mpc_tick_batched`) from the same state
+    through the kernels and through their plain versions (use_kernels=False):
+    K1/128 and K2/128 launched, and the share of scenarios whose fr_des is
+    within 0.5 N of the plain branch. The gate is phase 4's 0.98, or, where
+    the reference arithmetic itself falls short of it, the share of the plain
+    branch against a second plain run whose rpy is scaled by (1 + 2^-23),
+    less 0.02, measured here."""
+    reset_counts()
+    kern, _ = br._mpc_tick_batched(cfg, states, sims, cmds, terr, CL_H, None,
+                                   max_stance=max_stance)
+    torch.cuda.synchronize()
+    c = counts()
+    print(f"  {label}: launches in one MPC tick: {c}")
+    check(c["K1/128"] == 1 and c["K2/128"] > 0
+          and all(v == 0 for k, v in c.items() if k not in ("K1/128", "K2/128")),
+          f"{label}: the MPC tick launches K1/128 once and K2/128 "
+          f"({c['K2/128']} times), nothing else")
+    plain, _ = br._mpc_tick_batched(cfg, states, sims, cmds, terr, CL_H, None,
+                                    max_stance=max_stance, use_kernels=False)
+    st, ctx = ctrl.control_tick_batched(
+        cfg, states, vmap(lambda s: engine.sensors_from_sim(cfg, s))(sims), cmds)
+    se = ctx["se"]
+    nudged = ctrl.mpc_update_batched(
+        cfg, st, dict(ctx, se=se.replace(rpy=se.rpy * (1.0 + 2.0 ** -23))), h_sol=CL_H,
+        iterations=cfg.solver.warm_iterations, max_stance=max_stance, use_kernels=False)
+    fr_k, fr_p = kern.core.locomotion.fr_des, plain.core.locomotion.fr_des
+    fr_n = nudged.core.locomotion.fr_des
+    check(bool(torch.isfinite(fr_k).all()), f"{label}: fr_des finite")
+    d_k = (fr_k - fr_p).abs().amax(dim=(1, 2))
+    d_n = (fr_n - fr_p).abs().amax(dim=(1, 2))
+    share = float((d_k <= 0.5).float().mean())
+    ref_share = float((d_n <= 0.5).float().mean())
+    gate = 0.98 if ref_share >= 0.98 else ref_share - 0.02
+    print(f"  {label}: fr_des vs plain branch: share within 0.5 N {share:.4f} (max "
+          f"{float(d_k.max()):.3e} N, median {float(d_k.median()):.3e} N); plain vs plain "
+          f"with rpy x (1 + 2^-23): {ref_share:.4f} (max {float(d_n.max()):.3e} N); "
+          f"gate {gate:.4f}")
+    check(share >= gate, f"{label}: >= {gate:.4f} of scenarios' fr_des within 0.5 N of the "
+          "plain branch")
+    return dict(launches=c["K1/128"], k2_launches=c["K2/128"], share=share,
+                reference_share=ref_share, gate=gate, max_abs_err=float(d_k.max()))
+
+
+def phase_closed_loop(cfg, dev, name_power, results):
+    """The closed loop through its entry point, `batch_rollout`, at the
+    sweep users run (SWEEP_r05.json): batch 4096 on the plane, 16 mode-1
+    stand macros (uncompressed, 4096 systems of n = 120), then 25 trot sweep
+    macros (max_stance 2, pack 2: 2048 systems of n = 120), each MPC solve
+    warm-started with warm_iterations. Kernel against plain from the same
+    state at a stand tick and a warm sweep tick; launches per MPC tick;
+    survival and safety; robot ticks/s, MPC and plain tick times, a profile
+    of one macro."""
+    print(f"phase 4e: the closed loop, batch_rollout at batch {CL_BATCH}: {CL_STAND} stand "
+          f"macros (mode 1), then {CL_SWEEP} trot sweep macros (max_stance {MS}), h_sol {CL_H}")
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    terr = br.batch_terrains(CL_BATCH, gen, device=dev)
+    states0, sims0 = br.batch_init(cfg, terr, CL_BATCH, device=dev)
+    stand = Command(vel=torch.zeros((CL_BATCH, 3), device=dev),
+                    gait_type=torch.full((CL_BATCH,), 9, dtype=torch.int32, device=dev),
+                    robot_mode=torch.ones((CL_BATCH,), dtype=torch.int32, device=dev))
+    sweep = br.sweep_commands(cfg, (0.0, 1.0), (-0.3, 0.3), (-0.5, 0.5), [9], CL_BATCH, gen,
+                              device=dev)
+    torch.cuda.synchronize()
+    out = dict(batch=CL_BATCH, setup_s=time.perf_counter() - t0, card=name_power)
+
+    # 1. the stand tick: warm-up and prologue (n_macro 0), then one MPC tick
+    s, m, _ = br.batch_rollout(cfg, states0, sims0, stand, terr, 0, h_sol=CL_H)
+    out["stand_tick"] = closed_loop_compare(cfg, "stand tick (uncompressed, cold triple)",
+                                            s, m, stand, terr, None)
+
+    # 2. the sweep, each path with the counts set to 0 just before it
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, m, _ = br.batch_rollout(cfg, states0, sims0, stand, terr, CL_STAND, h_sol=CL_H)
+    torch.cuda.synchronize()
+    t_stand = time.perf_counter() - t0
+    c_stand = counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    s, m, recs = br.batch_rollout(cfg, s, m, sweep, terr, CL_SWEEP, h_sol=CL_H, cont=True,
+                                  max_stance=MS)
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    c_sweep = counts()
+    for label, c, n in (("stand", c_stand, CL_STAND), ("sweep", c_sweep, CL_SWEEP)):
+        print(f"  {label} ({n} MPC ticks): launches {c}; per MPC tick K1/128 "
+              f"{c['K1/128'] / n:.2f}, K2/128 {c['K2/128'] / n:.2f}")
+        check(c["K1/128"] == n and c["K2/128"] >= n
+              and all(v == 0 for k, v in c.items() if k not in ("K1/128", "K2/128")),
+              f"{label}: K1/128 once per MPC tick, K2/128 at least once, nothing else")
+        out[f"{label}_launches"] = {k: c[k] for k in ("K1/128", "K2/128")}
+    for k in ("K1/128", "K2/128"):
+        results[k]["closed_loop"] = {
+            "stand_per_mpc_tick": c_stand[k] / CL_STAND, "sweep_per_mpc_tick": c_sweep[k] / CL_SWEEP}
+    survival = float((m.p[:, 2] > 0.12).float().mean())
+    safety_rate = float(recs["safety"][-1].float().mean())
+    fails = s.core.locomotion.mpc_fail_count
+    fail_share = float(fails.sum()) / (CL_BATCH * (CL_STAND + CL_SWEEP))
+    _, ctx = ctrl.control_tick_batched(
+        cfg, s, vmap(lambda x: engine.sensors_from_sim(cfg, x))(m), sweep)
+    _, outs = vmap(lambda st, c: ctrl.leg_commands(cfg, st, c))(s, ctx)
+    print(f"  survival_rate {survival:.6f} (base z > 0.12), safety_rate {safety_rate:.6f}; "
+          f"share of MPC solves that failed {fail_share:.6f} ({int(fails.sum())} of "
+          f"{CL_BATCH * (CL_STAND + CL_SWEEP)})")
+    check(survival >= 0.999 and safety_rate >= 0.999,
+          "survival and safety rates >= 0.999 (at most 4 of 4096 scenarios fail)")
+    check(fails.dtype == torch.int32 and int(fails.min()) >= 0
+          and bool(torch.isfinite(s.core.locomotion.fr_des).all()),
+          "mpc_fail_count counted, fr_des finite")
+    check(bool(torch.isfinite(outs.tau).all()), "every torque of the tick after the sweep finite")
+
+    # 1b. a warm sweep tick from the sweep's end (packed)
+    out["sweep_tick"] = closed_loop_compare(cfg, "sweep tick (packed, warm triple)",
+                                            s, m, sweep, terr, MS)
+    for k in ("K1/128", "K2/128"):
+        results[k]["closed_loop"]["max_abs_err"] = max(
+            out["stand_tick"]["max_abs_err"], out["sweep_tick"]["max_abs_err"])
+
+    # 3. times
+    ticks = 13 * CL_SWEEP
+    out.update(stand_s=t_stand, sweep_s=t_sweep, survival_rate=survival,
+               safety_rate=safety_rate, mpc_fail_share=fail_share,
+               robot_ticks_per_s_sweep=CL_BATCH * ticks / t_sweep,
+               robot_ticks_per_s=CL_BATCH * 13 * (CL_STAND + CL_SWEEP) / (t_stand + t_sweep))
+    out["mpc_tick_ms"] = event_ms(lambda: br._mpc_tick_batched(
+        cfg, s, m, sweep, terr, CL_H, None, max_stance=MS), n=5)
+    out["plain_tick_ms"] = event_ms(lambda: br._plain_tick(cfg, s, m, sweep, terr), n=10)
+    print(f"  stand {t_stand:.2f} s, sweep {t_sweep:.2f} s: {out['robot_ticks_per_s_sweep']:.0f} "
+          f"robot ticks/s over the sweep, {out['robot_ticks_per_s']:.0f} over stand + sweep "
+          f"(host clock, synchronized); one MPC tick {out['mpc_tick_ms']:.2f} ms, one plain "
+          f"tick {out['plain_tick_ms']:.2f} ms (CUDA events) ({name_power})")
+    out["profile_macro"] = phase_profile(
+        cfg, "closed_loop_sweep macro (one MPC tick + 12 plain ticks)", None,
+        solve=lambda c, _: br.batch_rollout(c, s, m, sweep, terr, 1, h_sol=CL_H, cont=True,
+                                            max_stance=MS),
+        batch=CL_BATCH)
+    return out
+
+
+def phase_profile(cfg, label, inputs, solve=pipeline.solve_packed_batch, batch=None,
+                  **solve_kw) -> dict:
     """Device time by kernel and the device's idle share over one solve,
     from torch.profiler's CUDA activity (the profiler's own host overhead
     widens the span, so the idle share is an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
-    print(f"phase 5: torch.profiler over one {label} solve at batch {inputs.rpy.shape[0]}")
+    batch = inputs.rpy.shape[0] if batch is None else batch
+    print(f"phase 5: torch.profiler over one {label}{' solve' if inputs is not None else ''} "
+          f"at batch {batch}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         solve(cfg, inputs, **solve_kw)
         torch.cuda.synchronize()
@@ -1616,6 +1780,8 @@ def main() -> int:
     t2 = time.perf_counter()
     times.update(phase_scenario_path(cfg, dev, name_power))
     t2d = time.perf_counter()
+    closed_loop = phase_closed_loop(cfg, dev, name_power, results)
+    t2e = time.perf_counter()
     profile = phase_profile(cfg, "h10", pipeline.random_inputs(seed=0, batch=BATCH, h=H,
                                                                device=dev))
     profiles16 = {lane: phase_profile(cfg, lane, lane_inputs(1, B16, H16, kind, dev),
@@ -1632,7 +1798,7 @@ def main() -> int:
     profile_scn = phase_profile(cfg, "scenario_full (solve_batch)", pipeline.random_inputs(
         seed=0, batch=B_SCN, h=H, device=dev), solve=pipeline.solve_batch)
     print(f"phase seconds: kernels {t1 - t0:.1f}, 3d {t1d - t1:.1f}, paths {t2 - t1d:.1f}, "
-          f"4d {t2d - t2:.1f}, profiles {time.perf_counter() - t2d:.1f}")
+          f"4d {t2d - t2:.1f}, 4e {t2e - t2d:.1f}, profiles {time.perf_counter() - t2e:.1f}")
     print(name_power)       # again, near the end: the output's head may be cut
     print(json.dumps({"phase_ms": times, "batch": BATCH, "phase_ms_h16": times16,
                       "batch_h16": B16, "batch_h10_fused": B_FUSED, "profile": profile,
@@ -1640,7 +1806,8 @@ def main() -> int:
                       "profile_h10_fused": profile_fused,
                       "profile_h10_woodbury": profile_wb,
                       "profile_h16_woodbury": profile_wb16, "batch_scenario": B_SCN,
-                      "profile_scenario_full": profile_scn, "card": name_power}))
+                      "profile_scenario_full": profile_scn, "closed_loop": closed_loop,
+                      "card": name_power}))
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1652,7 +1819,8 @@ def main() -> int:
         + (("device_ms", "library_device_ms") if k.startswith("K6") else ())
         + (("phases_ms",) if k.startswith("K5") else ())
         + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
-           else ())}
+           else ())
+        + (("closed_loop",) if k in ("K1/128", "K2/128") else ())}
         for k in KERNEL_INFO]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

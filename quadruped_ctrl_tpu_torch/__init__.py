@@ -5,7 +5,9 @@ It covers the MPC solve: the batched packed solve
 factorization, ADMM iterate and polish) and the per-scenario solve
 (`mpc.pipeline.solve`, `solve_compressed` and their vmapped batches), with
 hand-written CUDA kernels for Hopper (sm_90a) in `csrc/` wherever the JAX
-package runs a Pallas kernel.
+package runs a Pallas kernel, and the batched closed loop that drives it
+(`sim.batch_rollout.batch_rollout`: the controller, its estimators and gait,
+the SRB simulator).
 The configuration tree is the port's own copy (`config.py`); nothing here
 imports JAX or the JAX package.
 """

@@ -15,6 +15,9 @@ Kalman-filter Cholesky going NaN under reduced-precision products.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -36,3 +39,18 @@ def use_kernels(t: torch.Tensor, use_kernels: bool | None = None) -> bool:
     """True when the kernel branch runs for data `t`: `t.is_cuda` unless the
     caller passes `use_kernels` explicitly."""
     return t.is_cuda if use_kernels is None else bool(use_kernels)
+
+
+def constant(values, dev, dtype=torch.float32) -> torch.Tensor:
+    """A constant array as a tensor on `dev`, built once per (values, dtype,
+    device) and shared: the per-tick control code reads its tables (hip
+    locations, gains, the gait tables) through this, so no tick copies them
+    from the host again. Callers never write into the result."""
+    arr = np.asarray(values)
+    return _constant(arr.tobytes(), arr.shape, arr.dtype.str, dtype, torch.device(dev))
+
+
+@functools.lru_cache(maxsize=512)
+def _constant(data: bytes, shape: tuple, np_dtype: str, dtype, dev) -> torch.Tensor:
+    arr = np.frombuffer(data, dtype=np.dtype(np_dtype)).reshape(shape)
+    return torch.as_tensor(arr.copy(), dtype=dtype, device=dev)

@@ -16,12 +16,13 @@ import torch
 
 from quadruped_ctrl_tpu_torch import device as _device
 from quadruped_ctrl_tpu_torch.config import FrameworkConfig
+from quadruped_ctrl_tpu_torch.core.types import Tree, vmap
 from quadruped_ctrl_tpu_torch.mpc import formation
 from quadruped_ctrl_tpu_torch.solver import admm
 
 
 @dataclasses.dataclass(frozen=True)
-class MPCInputs:
+class MPCInputs(Tree):
     """Per-scenario solver inputs with a leading batch axis (the reference's
     update_data_t, convexMPC_interface.h:10-38). All float32."""
 
@@ -34,26 +35,16 @@ class MPCInputs:
     gait_table: torch.Tensor   # (B,h,4)
     x_drag: torch.Tensor       # (B,)
 
-    def replace(self, **changes) -> "MPCInputs":
-        return dataclasses.replace(self, **changes)
-
-    def to(self, device) -> "MPCInputs":
-        return MPCInputs(**{f.name: getattr(self, f.name).to(device)
-                            for f in dataclasses.fields(self)})
-
     @classmethod
     def from_numpy(cls, arrays: dict, device=None) -> "MPCInputs":
         """From a dict of arrays keyed by field name (for example
         `np.asarray` of each field of the JAX package's MPCInputs), on
-        `device`: cuda:0 unless the caller names another device."""
+        `device`: cuda:0 unless the caller names another device. Every
+        field becomes float32 (a 0/1 integer gait table too)."""
         dev = _device.resolve(device)
         return cls(**{f.name: torch.as_tensor(np.array(arrays[f.name], np.float32),
                                               device=dev)
                       for f in dataclasses.fields(cls)})
-
-    def to_numpy(self) -> dict:
-        return {f.name: getattr(self, f.name).detach().cpu().numpy()
-                for f in dataclasses.fields(self)}
 
 
 def random_inputs(seed: int, batch: int, h: int, device=None) -> MPCInputs:
@@ -86,14 +77,6 @@ def random_inputs(seed: int, batch: int, h: int, device=None) -> MPCInputs:
         x_drag=np.zeros((batch,), np.float32)), device=device)
 
 
-def _vmap_scenarios(fn, inputs: MPCInputs):
-    """torch.func.vmap of fn (one scenario's MPCInputs -> tensor) over the
-    leading batch axis of every field of `inputs`."""
-    names = [f.name for f in dataclasses.fields(MPCInputs)]
-    return torch.func.vmap(lambda *fields: fn(MPCInputs(*fields)))(
-        *(getattr(inputs, name) for name in names))
-
-
 def _dynamics(cfg: FrameworkConfig, inp: MPCInputs):
     """One scenario's (Adt, Bdt, x0)."""
     a_ct, b_ct = formation.srb_ct_dynamics(cfg.mpc, inp.r_feet, inp.rpy[2], inp.x_drag)
@@ -119,7 +102,7 @@ def solve(cfg: FrameworkConfig, inp: MPCInputs, h: int | None = None,
 
 def solve_batch(cfg: FrameworkConfig, inputs: MPCInputs, **kw):
     """`solve` vmapped over the leading batch axis: forces (B, h, 4, 3)."""
-    return _vmap_scenarios(lambda i: solve(cfg, i, **kw), inputs)
+    return vmap(lambda i: solve(cfg, i, **kw))(inputs)
 
 
 def solve_compressed(cfg: FrameworkConfig, inp: MPCInputs, max_stance: int,
@@ -142,7 +125,7 @@ def solve_compressed(cfg: FrameworkConfig, inp: MPCInputs, max_stance: int,
 
 def solve_compressed_batch(cfg: FrameworkConfig, inputs: MPCInputs, max_stance: int, **kw):
     """`solve_compressed` vmapped over the leading batch axis."""
-    return _vmap_scenarios(lambda i: solve_compressed(cfg, i, max_stance, **kw), inputs)
+    return vmap(lambda i: solve_compressed(cfg, i, max_stance, **kw))(inputs)
 
 
 def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,

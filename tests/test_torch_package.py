@@ -40,6 +40,14 @@ def test_package_and_chip_smoke_import_no_jax():
         "from quadruped_ctrl_tpu_torch.ops import _build, _launch, formation_pack, fused_admm\n"
         "from quadruped_ctrl_tpu_torch.ops import ns_inverse\n"
         "from quadruped_ctrl_tpu_torch.solver import admm, ipm, problem_generator\n"
+        "from quadruped_ctrl_tpu_torch.core import interpolation, precision, rotations, types\n"
+        "from quadruped_ctrl_tpu_torch.models import leg_kinematics\n"
+        "from quadruped_ctrl_tpu_torch.gait import gait\n"
+        "from quadruped_ctrl_tpu_torch.mpc import reference\n"
+        "from quadruped_ctrl_tpu_torch.control import (controller, desired_state,\n"
+        "                                              leg_controller, safety, swing)\n"
+        "from quadruped_ctrl_tpu_torch.estimation import linear_kf, orientation\n"
+        "from quadruped_ctrl_tpu_torch.sim import batch_rollout, engine, terrain\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'quadruped_ctrl_tpu'))\n"
@@ -62,14 +70,35 @@ def test_config_equals_the_jax_config_field_by_field():
 
 
 def test_entry_points_default_to_the_card():
-    """random_inputs and MPCInputs.from_numpy build on cuda:0 unless told
-    otherwise: without a CUDA device they raise, never fall back to the CPU."""
-    from quadruped_ctrl_tpu_torch import device
+    """random_inputs, MPCInputs.from_numpy and the closed loop's
+    constructors (init_state, sim_init, batch_init, Terrain.plane,
+    sweep_commands, batch_terrains) build on cuda:0 unless told otherwise:
+    with device="cpu" they build on the CPU, and without a CUDA device and
+    without device= they raise, never fall back to the CPU."""
+    from quadruped_ctrl_tpu_torch import default_config, device
+    from quadruped_ctrl_tpu_torch.control import controller
     from quadruped_ctrl_tpu_torch.mpc import pipeline
+    from quadruped_ctrl_tpu_torch.sim import batch_rollout, engine
+    from quadruped_ctrl_tpu_torch.sim.terrain import Terrain
 
     assert device.resolve("cpu") == torch.device("cpu")
     inp = pipeline.random_inputs(0, 2, 4, device="cpu")
     assert inp.rpy.device.type == "cpu"
+    cfg = default_config()
+    gen = torch.Generator()
+    cpu_plane = Terrain.plane(device="cpu")
+    cpu_terrains = batch_rollout.batch_terrains(2, gen, device="cpu")
+    calls = {
+        "init_state": lambda **kw: controller.init_state(cfg, **kw).core.safety_ok,
+        "sim_init": lambda **kw: engine.sim_init(cfg, cpu_plane, **kw).p,
+        "batch_init": lambda **kw: batch_rollout.batch_init(cfg, cpu_terrains, 2, **kw)[1].p,
+        "Terrain.plane": lambda **kw: Terrain.plane(**kw).kind,
+        "sweep_commands": lambda **kw: batch_rollout.sweep_commands(
+            cfg, (0.0, 1.0), (-0.3, 0.3), (-0.5, 0.5), [9], 2, gen, **kw).vel,
+        "batch_terrains": lambda **kw: batch_rollout.batch_terrains(2, gen, **kw).kind,
+    }
+    for name, call in calls.items():
+        assert call(device="cpu").device.type == "cpu", name
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is that device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -78,6 +107,51 @@ def test_entry_points_default_to_the_card():
         pipeline.MPCInputs.from_numpy(inp.to_numpy())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.resolve()
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_state_trees_equal_the_jax_trees_field_by_field():
+    """Each port dataclass has its JAX namesake's fields, in the same order,
+    and where both build a default instance, the same dtypes and shapes."""
+    import jax
+    import numpy as np
+
+    from quadruped_ctrl_tpu.config import default_config as jax_default_config
+    from quadruped_ctrl_tpu.control import controller as jc, desired_state as jd
+    from quadruped_ctrl_tpu.core import types as jt
+    from quadruped_ctrl_tpu.sim import engine as je, terrain as jte
+    from quadruped_ctrl_tpu_torch import default_config
+    from quadruped_ctrl_tpu_torch.control import controller as tc, desired_state as td
+    from quadruped_ctrl_tpu_torch.core import types as tt
+    from quadruped_ctrl_tpu_torch.sim import engine as te, terrain as tte
+
+    pairs = [(getattr(jt, n), getattr(tt, n)) for n in (
+        "Sensors", "Command", "StateEstimate", "EstimatorState", "LegData", "GaitParams",
+        "LocomotionState", "ControllerState", "ControllerOutput")]
+    pairs += [(jc.FullControllerState, tc.FullControllerState),
+              (jd.DesiredStateCommandState, td.DesiredStateCommandState),
+              (je.SimState, te.SimState), (jte.Terrain, tte.Terrain)]
+    for jcls, tcls in pairs:
+        assert [f.name for f in dataclasses.fields(tcls)] == \
+            [f.name for f in dataclasses.fields(jcls)], tcls.__name__
+
+    cfg = default_config()
+    jcfg = jax_default_config()
+    built = [(jt.Command.create(0.1, 0.2, 0.3), tt.Command.create(0.1, 0.2, 0.3, device="cpu")),
+             (jc.init_state(jcfg), tc.init_state(cfg, device="cpu")),
+             (jte.Terrain.plane(), tte.Terrain.plane(device="cpu")),
+             (je.sim_init(jcfg, jte.Terrain.plane()),
+              te.sim_init(cfg, tte.Terrain.plane(device="cpu"), device="cpu"))]
+    for jtree, ttree in built:
+        jleaves = [np.asarray(x) for x in jax.tree.leaves(jtree)]
+        tleaves = [x.numpy() for x in tt.tree_flatten(ttree)[0]]
+        assert len(jleaves) == len(tleaves), type(ttree).__name__
+        for a, b in zip(tleaves, jleaves):
+            assert a.dtype == b.dtype and a.shape == b.shape, (type(ttree).__name__, a.dtype,
+                                                               b.dtype)
+            np.testing.assert_array_equal(a, b)
 
 
 def test_build_module_without_nvcc(monkeypatch, tmp_path):
