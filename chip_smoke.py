@@ -68,13 +68,30 @@
    share, beside a plain run with its rpy nudged by one ulp), the launches
    per MPC tick, survival and safety rates, robot ticks/s, the MPC and plain
    tick times by CUDA events, and a profile of one macro;
+4f. drives the single-robot sessions, whose paths run no kernel (as in the
+   JAX package): `cli sim --gait trot --vx 0.5 --ticks 1000` through the
+   port's CLI (the full model, h_max 16, the 200-tick stand, then trot) held
+   to tests/test_closed_loop.py's trot gates on its tail and its first 100
+   ticks to a CPU run (0.02 m); the articulated session (800 ticks, the
+   400-tick stand) held to tests/test_articulated.py's height, torque and
+   safety gates; `render_depth` at its last pose against the CPU; the
+   stage-wise `solve_sparse` against `pipeline.solve` (tests/
+   test_sparse_mpc.py's 3 N / 12 N); for both sessions, ms a tick of
+   `controller_step` and of the simulator by CUDA events, kernel launches
+   and host syncs a tick, and the realtime factor;
+4g. drives `cli sweep --batch 4096` through the port's CLI: one macro with
+   a checkpoint, then `--macros 2` resumed from it (it must print `resumed
+   ... at macro 1/2`), against an uninterrupted `--macros 2` run: survival
+   and safety equal, K1/128 and K2/128 launched on every MPC tick, and the
+   largest difference of the two final states (and whether they are
+   bit-equal);
 5. profiles one solve of h10, h16_full, h16_trot, h16_midband, h10_fused,
    h10_woodbury, h16_full with the Woodbury polish and scenario_full (device
    time by kernel, device idle share);
 6. prints a JSON line with the kernels (one entry per kernel and tile, with
    its bound on this card and the time of torch.linalg.inv beside K2/K3;
-   K1/128's and K2/128's also carry their closed-loop launches per MPC
-   tick), then the result line.
+   K1/128's and K2/128's also carry their closed-loop and `cli sweep`
+   launches per MPC tick), then the result line.
 
 Exits non-zero when no CUDA device is present, when a kernel fails to build
 or launch, or when any check fails. Needs no JAX.
@@ -85,27 +102,32 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from quadruped_ctrl_tpu_torch import default_config
+from quadruped_ctrl_tpu_torch import cli, default_config
 from quadruped_ctrl_tpu_torch.control import controller as ctrl
-from quadruped_ctrl_tpu_torch.core.types import Command, vmap
-from quadruped_ctrl_tpu_torch.mpc import formation, pipeline
+from quadruped_ctrl_tpu_torch.core.types import Command, tree_map, vmap
+from quadruped_ctrl_tpu_torch.models.floating_base import MiniCheetahModel
+from quadruped_ctrl_tpu_torch.mpc import formation, pipeline, sparse
 from quadruped_ctrl_tpu_torch.ops import _build, _launch
 from quadruped_ctrl_tpu_torch.ops import formation_pack as FP
 from quadruped_ctrl_tpu_torch.ops import fused_admm as FA
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
+from quadruped_ctrl_tpu_torch.sim import articulated, camera, engine, rollout
 from quadruped_ctrl_tpu_torch.sim import batch_rollout as br
-from quadruped_ctrl_tpu_torch.sim import engine
+from quadruped_ctrl_tpu_torch.sim.terrain import Terrain
 from quadruped_ctrl_tpu_torch.solver import admm
 
 BATCH, H, MS, PACK = 4096, 10, 2, 2
@@ -1691,6 +1713,327 @@ def phase_closed_loop(cfg, dev, name_power, results):
     return out
 
 
+# the single-robot sessions (phase 4f): `cli sim --gait trot --vx 0.5` on the
+# Mini-Cheetah's full model (h_max 16), the 200-tick stand, then trot; the
+# articulated session, its 400-tick stand, then trot; and `cli sweep` at the
+# batch its users run (phase 4g)
+SIM_TICKS, SIM_CPU_TICKS, ART_TICKS, ART_STAND = 1000, 100, 800, 400
+SWEEP_BATCH = 4096
+TROT = (0.5, 0.0, 0.0)
+LOOP_TICKS = 13                 # one MPC cadence
+
+
+def run_cli(argv) -> tuple[int, dict, str]:
+    """cli.main(argv), with what it prints echoed: (exit code, its last
+    line as JSON, all it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    print("  " + text.rstrip().replace("\n", "\n  "))
+    return rc, json.loads(text.strip().splitlines()[-1]), text
+
+
+@contextlib.contextmanager
+def kept_sessions():
+    """A list that holds what each `rollout.run_session` call returns while
+    the block runs (the CLI prints only its metrics)."""
+    kept, original = [], rollout.run_session
+
+    def keep(*args, **kwargs):
+        kept.append(original(*args, **kwargs))
+        return kept[-1]
+
+    rollout.run_session = keep
+    try:
+        yield kept
+    finally:
+        rollout.run_session = original
+
+
+def runtime_calls(fn) -> dict:
+    """What fn() asks of the card, from torch.profiler's CUDA activity alone
+    (host ops untraced: tracing them costs ~10x the run): kernel launches
+    and host synchronizations among the CUDA runtime calls, counted as
+    probes/loop_times.py counts them (the synchronize that closes the window
+    is not counted), and the kernels' device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict(launches=0, syncs=-1, device_ms=0.0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out["device_ms"] += e.device_time_total / 1e3
+        elif "LaunchKernel" in e.key:
+            out["launches"] += e.count
+        elif e.key.startswith("cu") and "Synchronize" in e.key:
+            out["syncs"] += e.count
+    return out
+
+
+def loop_ticks(cfg, state, sim, cmd, sensors, step, n: int = LOOP_TICKS) -> dict:
+    """n consecutive closed-loop ticks from (state, sim): ms a tick of
+    `controller_step` and of the simulator (its sensors and its `step`) by
+    CUDA events around each call; then the same n ticks under
+    torch.profiler, and `controller_step` alone over them: launches and host
+    syncs a tick (the simulator's are the difference), the device's busy ms
+    a tick and its idle share over the tick's time by events."""
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n)]
+    s, m = state, sim
+    for e in ev:
+        e[0].record()
+        sens = sensors(m)
+        e[1].record()
+        s, out = ctrl.controller_step(cfg, s, sens, cmd)
+        e[2].record()
+        m = step(m, out)
+        e[3].record()
+    torch.cuda.synchronize()
+    ctrl_ms = sum(e[1].elapsed_time(e[2]) for e in ev) / n
+    sim_ms = sum(e[0].elapsed_time(e[1]) + e[2].elapsed_time(e[3]) for e in ev) / n
+
+    def ticks(with_sim: bool):
+        s, m = state, sim
+        for _ in range(n):
+            s, out = ctrl.controller_step(cfg, s, sensors(m), cmd)
+            if with_sim:
+                m = step(m, out)
+
+    whole = runtime_calls(lambda: ticks(True))
+    alone = runtime_calls(lambda: ticks(False))
+    busy = whole["device_ms"] / n
+    out = dict(ticks=n, controller_step_ms=ctrl_ms, sim_ms=sim_ms,
+               launches=whole["launches"] / n, syncs=whole["syncs"] / n,
+               controller_step_launches=alone["launches"] / n,
+               controller_step_syncs=alone["syncs"] / n, device_busy_ms=busy,
+               idle_share=1.0 - busy / (ctrl_ms + sim_ms))
+    print(f"  {n} ticks from the session's end: controller_step {ctrl_ms:.2f} ms a tick, the "
+          f"simulator {sim_ms:.2f} ms (CUDA events); a tick {out['launches']:.1f} kernel "
+          f"launches and {out['syncs']:.2f} host syncs ({out['controller_step_launches']:.1f} "
+          f"and {out['controller_step_syncs']:.2f} in controller_step); the device busy "
+          f"{busy:.3f} ms a tick (torch.profiler), idle share {out['idle_share']:.4f}")
+    return out
+
+
+@contextlib.contextmanager
+def nudged_filter():
+    """`controller.init_state` with the Kalman filter's initial covariance
+    scaled by (1 + 2^-23), one ulp, while the block runs."""
+    original = ctrl.init_state
+
+    def init_state(cfg, device=None):
+        state = original(cfg, device=device)
+        est = state.core.estimator
+        est = est.replace(kf_P=est.kf_P * (1.0 + 2.0 ** -23))
+        return state.replace(core=state.core.replace(estimator=est))
+
+    ctrl.init_state = init_state
+    try:
+        yield
+    finally:
+        ctrl.init_state = original
+
+
+def session_against_cpu(cfg, dev, traj, terrain, cmd) -> dict:
+    """The session's first SIM_CPU_TICKS ticks on the card against the same
+    ticks on the CPU: base position within 0.02 m (the gate of
+    tests/test_torch_rollout.py) widened by what the card's own run moves
+    when the filter's initial covariance (100 I) changes by one ulp. The
+    first updates of that filter are a cancellation in float32 (in the JAX
+    package too: ROADMAP queue 3), so the card's and the CPU's rounding
+    part the two runs' estimates by centimetres from the warm-up on."""
+    cpu = torch.device("cpu")
+    n = SIM_CPU_TICKS
+    _, _, ref = rollout.run_session(cfg, Terrain.plane(device=cpu), cmd.to(cpu), n_ticks=n,
+                                    device=cpu)
+    with nudged_filter():
+        _, _, nudged = rollout.run_session(cfg, terrain, cmd, n_ticks=n, device=dev)
+    gap = float((traj["p"][:n].cpu() - ref["p"]).abs().max())
+    spread = float((traj["p"][:n] - nudged["p"]).abs().max())
+    est_gap = float((traj["est_p"][:n].cpu() - ref["est_p"]).abs().max())
+    check(gap <= 0.02 + spread,
+          f"the first {n} ticks within 0.02 m + {spread:.3e} m (the card's own run with the "
+          f"filter's initial covariance one ulp larger) of the CPU run: {gap:.3e} m (the "
+          f"estimates {est_gap:.3e} m apart)")
+    return dict(ticks=n, gap_m=gap, spread_m=spread, estimate_gap_m=est_gap)
+
+
+def tick_against_cpu(cfg, state, sim, cmd) -> dict:
+    """One tick without an MPC solve (control_tick, leg_commands, sim_step)
+    from the same state on the card and on the CPU: torques within 1e-4 N m
+    and the base position within 1e-6 m."""
+    cpu = torch.device("cpu")
+    outs = []
+    for st, sm, c in ((state, sim, cmd), (state.to(cpu), sim.to(cpu), cmd.to(cpu))):
+        st, ctx = ctrl.control_tick(cfg, st, engine.sensors_from_sim(cfg, sm), c)
+        _, o = ctrl.leg_commands(cfg, st, ctx)
+        outs.append((o.tau.cpu(), engine.sim_step(cfg, sm, o, Terrain.plane(device=sm.p.device)
+                                                  ).p.cpu()))
+    dtau = float((outs[0][0] - outs[1][0]).abs().max())
+    dp = float((outs[0][1] - outs[1][1]).abs().max())
+    check(dtau <= 1e-4 and dp <= 1e-6,
+          f"one tick from the same state, card against CPU: tau within {dtau:.3e} N m (<= 1e-4), "
+          f"base position within {dp:.3e} m (<= 1e-6)")
+    return dict(tau_max_abs_err=dtau, p_max_abs_err=dp)
+
+
+def phase_sessions(cfg, dev, name_power) -> dict:
+    """Phase 4f: the single-robot sessions on the card, none of whose paths
+    runs a kernel (as in the JAX package): `cli sim` against the trot gates
+    of tests/test_closed_loop.py and its first ticks against the CPU, the
+    articulated session against tests/test_articulated.py's gates, the
+    depth camera at its last pose against the CPU, and the stage-wise MPC
+    against the dense solve."""
+    print(f"phase 4f: the single-robot sessions ({name_power})")
+    dev_args = [] if dev == torch.device("cuda", 0) else ["--device", str(dev)]
+    cpu = torch.device("cpu")
+    out = {}
+
+    # (a) cli sim, the counts set to 0 just before it
+    reset_counts()
+    with kept_sessions() as kept:
+        rc, m, _ = run_cli(["sim", "--gait", "trot", "--vx", str(TROT[0]),
+                            "--ticks", str(SIM_TICKS)] + dev_args)
+    c = counts()
+    check(all(v == 0 for v in c.values()),
+          "cli sim launches no kernel (the JAX package's sim path runs no Pallas kernel)")
+    state, sim, traj = kept[0]
+    check(rc == 0 and traj["p"].device == dev, f"cli sim ran on {dev} and exited 0")
+    tail = traj["p"][SIM_TICKS // 2:, 2]
+    check(m["vx_err"] < 0.1 and 0.22 < m["height_mean"] < 0.30 and m["safety_ok"]
+          and not m["fell"] and 0.22 < float(tail.min()) and float(tail.max()) < 0.30
+          and all(bool(torch.isfinite(v.float()).all()) for v in traj.values()),
+          f"cli sim meets the trot gates on its tail: vx_err {m['vx_err']:.4f} < 0.1, "
+          f"height {float(tail.min()):.4f}..{float(tail.max()):.4f} in (0.22, 0.30), safety, "
+          "finite")
+    terrain = Terrain.plane(device=dev)
+    cmd = Command.create(*TROT, gait_type=9, device=dev)
+    out["sim_cpu"] = session_against_cpu(cfg, dev, traj, terrain, cmd)
+    out["sim_tick_cpu"] = tick_against_cpu(cfg, state, sim, cmd)
+    out["sim"] = dict(metrics=m, realtime_factor=m["realtime_factor"],
+                      kernel_counts=c, **loop_ticks(
+                          cfg, state, sim, cmd, lambda x: engine.sensors_from_sim(cfg, x),
+                          lambda x, o: engine.sim_step(cfg, x, o, terrain)))
+
+    # (b) the articulated session
+    model = MiniCheetahModel(device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, sim, traj = articulated.run_articulated_session(
+        cfg, terrain, cmd, n_ticks=ART_TICKS, stand_ticks=ART_STAND, model=model, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    check(all(v == 0 for v in c.values()), "the articulated session launches no kernel")
+    p, v, tau = traj["p"], traj["v"], traj["tau"]
+    height = float(p[-500:, 2].mean())
+    check(0.22 < height < 0.30 and float(tau.abs().max()) < 30.0 and bool(traj["safety"][-1])
+          and all(bool(torch.isfinite(x.float()).all()) for x in traj.values()),
+          f"articulated session: height over the last 500 ticks {height:.4f} in (0.22, 0.30), "
+          f"|tau| max {float(tau.abs().max()):.2f} < 30 N m, safety, finite")
+    vx_800 = float(v[-800:, 0].mean())
+    vx_tail = float(v[ART_TICKS // 2:, 0].mean())
+    print(f"  vx (not gated: at {ART_TICKS} ticks the port's CPU run misses "
+          f"tests/test_articulated.py's vx gate, whose last 800 ticks hold the stand): mean "
+          f"over the last 800 ticks {vx_800:.4f}, over the trot {vx_tail:.4f}")
+    rtf = ART_TICKS * cfg.dt / wall
+    print(f"  {ART_TICKS} ticks in {wall:.2f} s: realtime factor {rtf:.4f} (host clock)")
+    out["articulated"] = dict(height=height, tau_max=float(tau.abs().max()), vx_last_800=vx_800,
+                              vx_trot=vx_tail, wall_s=wall, realtime_factor=rtf, kernel_counts=c,
+                              **loop_ticks(
+                                  cfg, state, sim, cmd,
+                                  lambda x: articulated.sensors_from_articulated(cfg, x),
+                                  lambda x, o: articulated.articulated_step(cfg, model, x, o.tau,
+                                                                            terrain)))
+
+    # (c) the depth camera at the articulated session's last pose, robot in frame
+    pose = (sim.p, sim.quat)
+    robot = (cfg.robot, sim.q.reshape(4, 3))
+    depth, _, _, is_robot, _ = camera.render_depth(terrain, *pose, robot=robot)
+    ref = camera.render_depth(Terrain.plane(device=cpu), *(x.cpu() for x in pose),
+                              robot=(cfg.robot, robot[1].cpu()))
+    same = float(((depth.cpu() - ref[0]).abs() <= 1e-5).float().mean())
+    mask = float((is_robot.cpu() == ref[3]).float().mean())
+    render_ms = event_ms(lambda: camera.render_depth(terrain, *pose, robot=robot), n=10)
+    check(same >= 0.99 and mask >= 0.99,
+          f"render_depth on the card against the CPU: share of pixels within 1e-5 m {same:.4f}, "
+          f"robot mask {mask:.4f} (>= 0.99); {render_ms:.3f} ms a frame (CUDA events)")
+    out["camera"] = dict(depth_share=same, mask_share=mask, ms=render_ms)
+
+    # (d) the stage-wise MPC against the dense solve (tests/test_sparse_mpc.py)
+    inp = pipeline.random_inputs(seed=7, batch=3, h=10, device=dev)
+    worst = [0.0, 0.0]
+    for b in range(3):
+        one = tree_map(lambda t: t[b], inp)
+        f_sparse = sparse.solve_sparse(cfg, one, weights=cfg.mpc.weights, mu=cfg.mpc.mu,
+                                       iterations=250, polish_rounds=8)
+        f_dense = pipeline.solve(cfg, one)
+        d = (f_sparse[0] - f_dense[0]).abs()
+        worst = [max(worst[0], float(d[:, 2].max())), max(worst[1], float(d.max()))]
+    check(worst[0] <= 3.0 and worst[1] <= 12.0,
+          f"solve_sparse against pipeline.solve, h=10, 3 scenarios: first-step fz within "
+          f"{worst[0]:.3e} N (<= 3), forces within {worst[1]:.3e} N (<= 12)")
+    out["sparse"] = dict(fz_max_abs_err=worst[0], max_abs_err=worst[1])
+    return out
+
+
+def phase_cli_sweep(cfg, dev, name_power, results) -> dict:
+    """Phase 4g: `cli sweep` at batch 4096 through the port's CLI: one macro
+    with a checkpoint, then --macros 2 resumed from it, against an
+    uninterrupted --macros 2 run; launches per MPC tick of each run."""
+    print(f"phase 4g: cli sweep --batch {SWEEP_BATCH} (trot on the plane, h_sol 10), "
+          f"checkpointed and resumed ({name_power})")
+    dev_args = [] if dev == torch.device("cuda", 0) else ["--device", str(dev)]
+    base = ["sweep", "--batch", str(SWEEP_BATCH), "--gaits", "trot"] + dev_args
+    out = {}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        resumed, full = f"{tmp}/resumed.npz", f"{tmp}/full.npz"
+        runs = {"first": base + ["--macros", "1", "--checkpoint", resumed],
+                "resumed": base + ["--macros", "2", "--checkpoint", resumed],
+                "uninterrupted": base + ["--macros", "2", "--checkpoint", full]}
+        for name, argv in runs.items():
+            reset_counts()
+            t0 = time.perf_counter()
+            rc, m, text = run_cli(argv)
+            c = counts()
+            mpc_ticks = {"first": 17, "resumed": 1, "uninterrupted": 18}[name]
+            check(rc == 0 and c["K1/128"] == mpc_ticks and c["K2/128"] >= mpc_ticks
+                  and all(v == 0 for k, v in c.items() if k not in ("K1/128", "K2/128")),
+                  f"cli sweep ({name}): K1/128 once per MPC tick ({mpc_ticks}), K2/128 "
+                  f"{c['K2/128']} times, nothing else")
+            out[name] = dict(metrics=m, seconds=time.perf_counter() - t0,
+                             k1_launches=c["K1/128"], k2_launches=c["K2/128"])
+            if name == "resumed":
+                check("resumed" in text and "at macro 1/2" in text,
+                      "the second run resumed from the checkpoint at macro 1/2")
+        a, b = out["resumed"]["metrics"], out["uninterrupted"]["metrics"]
+        check(a["survival_rate"] == b["survival_rate"] and a["safety_rate"] == b["safety_rate"]
+              and b["survival_rate"] >= 0.999 and b["safety_rate"] >= 0.999,
+              f"resumed survival {a['survival_rate']:.6f} and safety {a['safety_rate']:.6f} "
+              "equal the uninterrupted run's, both >= 0.999")
+        with np.load(resumed) as ra, np.load(full) as fa:
+            n = int(fa["n_leaves"])
+            diffs = [np.abs(ra[f"leaf_{i}"].astype(np.float64)
+                            - fa[f"leaf_{i}"].astype(np.float64)).max(initial=0.0)
+                     for i in range(n)]
+            # the payload's keys sort as done, sims, states, wall: the last
+            # leaf is the wall clock, which differs from run to run
+            equal = all(np.array_equal(ra[f"leaf_{i}"], fa[f"leaf_{i}"]) for i in range(n - 1))
+        gap = max(diffs[:-1])
+        print(f"  resumed against uninterrupted final state: largest difference {gap:.3e} over "
+              f"{n - 1} leaves (the wall clock aside), bit-equal {equal}")
+        out["final_state_max_abs_diff"], out["final_state_bit_equal"] = gap, equal
+    for k in ("K1/128", "K2/128"):
+        results[k]["cli_sweep"] = {"per_mpc_tick": out["uninterrupted"][
+            "k1_launches" if k == "K1/128" else "k2_launches"] / 18}
+    return out
+
+
 def phase_profile(cfg, label, inputs, solve=pipeline.solve_packed_batch, batch=None,
                   **solve_kw) -> dict:
     """Device time by kernel and the device's idle share over one solve,
@@ -1782,6 +2125,10 @@ def main() -> int:
     t2d = time.perf_counter()
     closed_loop = phase_closed_loop(cfg, dev, name_power, results)
     t2e = time.perf_counter()
+    sessions = phase_sessions(cfg, dev, name_power)
+    t2f = time.perf_counter()
+    cli_sweep = phase_cli_sweep(cfg, dev, name_power, results)
+    t2g = time.perf_counter()
     profile = phase_profile(cfg, "h10", pipeline.random_inputs(seed=0, batch=BATCH, h=H,
                                                                device=dev))
     profiles16 = {lane: phase_profile(cfg, lane, lane_inputs(1, B16, H16, kind, dev),
@@ -1798,7 +2145,8 @@ def main() -> int:
     profile_scn = phase_profile(cfg, "scenario_full (solve_batch)", pipeline.random_inputs(
         seed=0, batch=B_SCN, h=H, device=dev), solve=pipeline.solve_batch)
     print(f"phase seconds: kernels {t1 - t0:.1f}, 3d {t1d - t1:.1f}, paths {t2 - t1d:.1f}, "
-          f"4d {t2d - t2:.1f}, 4e {t2e - t2d:.1f}, profiles {time.perf_counter() - t2e:.1f}")
+          f"4d {t2d - t2:.1f}, 4e {t2e - t2d:.1f}, 4f {t2f - t2e:.1f}, 4g {t2g - t2f:.1f}, "
+          f"profiles {time.perf_counter() - t2g:.1f}")
     print(name_power)       # again, near the end: the output's head may be cut
     print(json.dumps({"phase_ms": times, "batch": BATCH, "phase_ms_h16": times16,
                       "batch_h16": B16, "batch_h10_fused": B_FUSED, "profile": profile,
@@ -1807,7 +2155,7 @@ def main() -> int:
                       "profile_h10_woodbury": profile_wb,
                       "profile_h16_woodbury": profile_wb16, "batch_scenario": B_SCN,
                       "profile_scenario_full": profile_scn, "closed_loop": closed_loop,
-                      "card": name_power}))
+                      "sessions": sessions, "cli_sweep": cli_sweep, "card": name_power}))
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1820,7 +2168,7 @@ def main() -> int:
         + (("phases_ms",) if k.startswith("K5") else ())
         + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
            else ())
-        + (("closed_loop",) if k in ("K1/128", "K2/128") else ())}
+        + (("closed_loop", "cli_sweep") if k in ("K1/128", "K2/128") else ())}
         for k in KERNEL_INFO]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,12 @@ It covers the MPC solve: the batched packed solve
 factorization, ADMM iterate and polish) and the per-scenario solve
 (`mpc.pipeline.solve`, `solve_compressed` and their vmapped batches), with
 hand-written CUDA kernels for Hopper (sm_90a) in `csrc/` wherever the JAX
-package runs a Pallas kernel, and the batched closed loop that drives it
+package runs a Pallas kernel, the batched closed loop that drives it
 (`sim.batch_rollout.batch_rollout`: the controller, its estimators and gait,
-the SRB simulator).
+the SRB simulator), and the single-robot sessions on the SRB and the 18-DoF
+articulated simulators (`sim.rollout`, `sim.articulated`, `models`) with the
+camera, the stage-wise MPC, checkpoints and the `cli` commands `sim` and
+`sweep`.
 The configuration tree is the port's own copy (`config.py`); nothing here
 imports JAX or the JAX package.
 """

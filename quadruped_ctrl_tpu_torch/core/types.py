@@ -33,7 +33,9 @@ def tree_flatten(tree):
     """(leaves, spec): the tensors of `tree` in a fixed order, and what
     `tree_unflatten` needs to rebuild it. Dataclasses, dicts, tuples and
     lists are nodes; tensors are leaves; None and other values are kept in
-    the spec."""
+    the spec. The order is `jax.tree.flatten`'s: dataclass fields as
+    declared, dict keys sorted, so a checkpoint's leaves line up between
+    the two packages."""
     leaves = []
 
     def walk(node):
@@ -44,7 +46,7 @@ def tree_flatten(tree):
             names = [f.name for f in dataclasses.fields(node)]
             return ("dc", type(node), names, [walk(getattr(node, n)) for n in names])
         if isinstance(node, dict):
-            keys = list(node)
+            keys = sorted(node)
             return ("dict", keys, [walk(node[k]) for k in keys])
         if isinstance(node, (tuple, list)):
             return (type(node).__name__, [walk(v) for v in node])

@@ -47,10 +47,12 @@ class MPCInputs(Tree):
                       for f in dataclasses.fields(cls)})
 
 
-def random_inputs(seed: int, batch: int, h: int, device=None) -> MPCInputs:
-    """Random-but-realistic trotting scenario batch with the JAX package's
+def random_inputs(seed: int, batch: int, h: int, trot: bool = True,
+                  device=None) -> MPCInputs:
+    """Random-but-realistic scenario batch with the JAX package's
     distributions (the JCQP ProblemGenerator pattern), drawn from a numpy
-    Generator seeded with `seed`, on `device` (cuda:0 unless named)."""
+    Generator seeded with `seed`, on `device` (cuda:0 unless named). The
+    gait table is a trot (`trot=True`) or all four feet in stance."""
     rng = np.random.default_rng(seed)
 
     def uniform(lo, hi, shape):
@@ -66,10 +68,13 @@ def random_inputs(seed: int, batch: int, h: int, device=None) -> MPCInputs:
     traj = np.zeros((batch, h, 13), np.float32)
     traj[:, :, 5] = 0.25
     traj[:, :, 9] = v[:, None, 0]
-    half = h // 2
-    tbl = np.zeros((h, 4), np.float32)
-    tbl[:half, 0] = tbl[:half, 3] = 1.0
-    tbl[half:, 1] = tbl[half:, 2] = 1.0
+    if trot:
+        half = h // 2
+        tbl = np.zeros((h, 4), np.float32)
+        tbl[:half, 0] = tbl[:half, 3] = 1.0
+        tbl[half:, 1] = tbl[half:, 2] = 1.0
+    else:
+        tbl = np.ones((h, 4), np.float32)
     gait = np.broadcast_to(tbl, (batch, h, 4))
     return MPCInputs.from_numpy(dict(
         rpy=rpy, position=position, omega_world=omega, v_world=v,

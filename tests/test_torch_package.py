@@ -46,8 +46,13 @@ def test_package_and_chip_smoke_import_no_jax():
         "from quadruped_ctrl_tpu_torch.mpc import reference\n"
         "from quadruped_ctrl_tpu_torch.control import (controller, desired_state,\n"
         "                                              leg_controller, safety, swing)\n"
-        "from quadruped_ctrl_tpu_torch.estimation import linear_kf, orientation\n"
-        "from quadruped_ctrl_tpu_torch.sim import batch_rollout, engine, terrain\n"
+        "from quadruped_ctrl_tpu_torch.estimation import cheater, linear_kf, orientation\n"
+        "from quadruped_ctrl_tpu_torch.sim import (articulated, batch_rollout, camera, engine,\n"
+        "                                          rollout, terrain)\n"
+        "from quadruped_ctrl_tpu_torch.models import actuator, floating_base, spatial\n"
+        "from quadruped_ctrl_tpu_torch.mpc import sparse\n"
+        "from quadruped_ctrl_tpu_torch.utils import checkpoint, metrics, timer\n"
+        "from quadruped_ctrl_tpu_torch import cli\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'quadruped_ctrl_tpu'))\n"
@@ -70,15 +75,19 @@ def test_config_equals_the_jax_config_field_by_field():
 
 
 def test_entry_points_default_to_the_card():
-    """random_inputs, MPCInputs.from_numpy and the closed loop's
-    constructors (init_state, sim_init, batch_init, Terrain.plane,
-    sweep_commands, batch_terrains) build on cuda:0 unless told otherwise:
-    with device="cpu" they build on the CPU, and without a CUDA device and
-    without device= they raise, never fall back to the CPU."""
-    from quadruped_ctrl_tpu_torch import default_config, device
+    """random_inputs, MPCInputs.from_numpy, the closed loop's constructors
+    (init_state, sim_init, batch_init, Terrain.plane, sweep_commands,
+    batch_terrains), the single-robot sessions (MiniCheetahModel,
+    articulated_init, run_session, run_articulated_session) and the CLI
+    build on cuda:0 unless told otherwise: with device="cpu" (`--device cpu`)
+    they build on the CPU, and without a CUDA device and without device=
+    they raise, never fall back to the CPU."""
+    from quadruped_ctrl_tpu_torch import cli, default_config, device
     from quadruped_ctrl_tpu_torch.control import controller
+    from quadruped_ctrl_tpu_torch.core.types import Command
+    from quadruped_ctrl_tpu_torch.models.floating_base import MiniCheetahModel
     from quadruped_ctrl_tpu_torch.mpc import pipeline
-    from quadruped_ctrl_tpu_torch.sim import batch_rollout, engine
+    from quadruped_ctrl_tpu_torch.sim import articulated, batch_rollout, engine, rollout
     from quadruped_ctrl_tpu_torch.sim.terrain import Terrain
 
     assert device.resolve("cpu") == torch.device("cpu")
@@ -88,6 +97,8 @@ def test_entry_points_default_to_the_card():
     gen = torch.Generator()
     cpu_plane = Terrain.plane(device="cpu")
     cpu_terrains = batch_rollout.batch_terrains(2, gen, device="cpu")
+    cpu_model = MiniCheetahModel(device="cpu")
+    cpu_cmd = Command.create(0.3, device="cpu")
     calls = {
         "init_state": lambda **kw: controller.init_state(cfg, **kw).core.safety_ok,
         "sim_init": lambda **kw: engine.sim_init(cfg, cpu_plane, **kw).p,
@@ -96,9 +107,17 @@ def test_entry_points_default_to_the_card():
         "sweep_commands": lambda **kw: batch_rollout.sweep_commands(
             cfg, (0.0, 1.0), (-0.3, 0.3), (-0.5, 0.5), [9], 2, gen, **kw).vel,
         "batch_terrains": lambda **kw: batch_rollout.batch_terrains(2, gen, **kw).kind,
+        "MiniCheetahModel": lambda **kw: MiniCheetahModel(**kw).inertias,
+        "articulated_init": lambda **kw: articulated.articulated_init(
+            cfg, cpu_model, cpu_plane, **kw).p,
+        "run_session": lambda **kw: rollout.run_session(
+            cfg, cpu_plane, cpu_cmd, n_ticks=1, **kw)[1].p,
+        "run_articulated_session": lambda **kw: articulated.run_articulated_session(
+            cfg, cpu_plane, cpu_cmd, n_ticks=1, model=cpu_model, **kw)[1].p,
     }
     for name, call in calls.items():
         assert call(device="cpu").device.type == "cpu", name
+    assert cli.main(["sim", "--ticks", "1", "--device", "cpu"]) == 0
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is that device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -110,6 +129,9 @@ def test_entry_points_default_to_the_card():
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    for command in (["sim", "--ticks", "1"], ["sweep", "--batch", "2", "--macros", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(command)
 
 
 def test_state_trees_equal_the_jax_trees_field_by_field():
@@ -121,18 +143,19 @@ def test_state_trees_equal_the_jax_trees_field_by_field():
     from quadruped_ctrl_tpu.config import default_config as jax_default_config
     from quadruped_ctrl_tpu.control import controller as jc, desired_state as jd
     from quadruped_ctrl_tpu.core import types as jt
-    from quadruped_ctrl_tpu.sim import engine as je, terrain as jte
+    from quadruped_ctrl_tpu.sim import articulated as ja, engine as je, terrain as jte
     from quadruped_ctrl_tpu_torch import default_config
     from quadruped_ctrl_tpu_torch.control import controller as tc, desired_state as td
     from quadruped_ctrl_tpu_torch.core import types as tt
-    from quadruped_ctrl_tpu_torch.sim import engine as te, terrain as tte
+    from quadruped_ctrl_tpu_torch.sim import articulated as ta, engine as te, terrain as tte
 
     pairs = [(getattr(jt, n), getattr(tt, n)) for n in (
         "Sensors", "Command", "StateEstimate", "EstimatorState", "LegData", "GaitParams",
         "LocomotionState", "ControllerState", "ControllerOutput")]
     pairs += [(jc.FullControllerState, tc.FullControllerState),
               (jd.DesiredStateCommandState, td.DesiredStateCommandState),
-              (je.SimState, te.SimState), (jte.Terrain, tte.Terrain)]
+              (je.SimState, te.SimState), (jte.Terrain, tte.Terrain),
+              (ja.ArticulatedState, ta.ArticulatedState)]
     for jcls, tcls in pairs:
         assert [f.name for f in dataclasses.fields(tcls)] == \
             [f.name for f in dataclasses.fields(jcls)], tcls.__name__
