@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MPC solves once on one CUDA card.
+"""Drive the PyTorch port's MPC solves and entry points once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -85,10 +85,29 @@
    and safety equal, K1/128 and K2/128 launched on every MPC tick, and the
    largest difference of the two final states (and whether they are
    bit-equal);
-5. profiles one solve of h10, h16_full, h16_trot, h16_midband, h10_fused,
+5. drives the port's other entry points, each with the launch counts set to
+   0 just before it and read just after (the kernels line keeps them per
+   path under `launches_phase5`):
+5a. `cli bench` at bench.py's sizes (the bench twin: the eight lanes, 48 / 16
+   chained reps timed by CUDA events): every lane measured, `lane_errors`
+   null, every phase's share of its bound <= 100%, the launches exactly
+   those of the lanes' chained solves, h10 solves/s printed beside phase 4's;
+5b. `cli latency` (the bench_latency.py twin: 200 host round trips of a
+   tick, 200 launch+copy pairs, 40 13-tick macros), no kernel;
+5c. `cli kernels-smoke --full`: every case at production batches, 0 failed,
+   K1, K2, K3, K6 at both tiles, K4 and K5 launched;
+5d. `cli scaling` on a one-rank NCCL group, then `sharded_mpc_solve` at world
+   size 1 on batch 4096, h=10, bit-equal to `solve_packed_batch` with the
+   reduced mean equal to the local one;
+5e. `NativeController` through the native runtime's FFI: 10 pre_work and 300
+   stand ticks of the SRB sim (base height 0.2-0.32, the library's latency
+   summary), then 20 ticks bit-equal to direct `controller_step` calls;
+   native/ unchanged;
+5f. `graft_entry.entry()` once and `dryrun_multichip(1)` (K1/128 and K2/128);
+6. profiles one solve of h10, h16_full, h16_trot, h16_midband, h10_fused,
    h10_woodbury, h16_full with the Woodbury polish and scenario_full (device
    time by kernel, device idle share);
-6. prints a JSON line with the kernels (one entry per kernel and tile, with
+7. prints a JSON line with the kernels (one entry per kernel and tile, with
    its bound on this card and the time of torch.linalg.inv beside K2/K3;
    K1/128's and K2/128's also carry their closed-loop and `cli sweep`
    launches per MPC tick), then the result line.
@@ -102,6 +121,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -2034,6 +2054,240 @@ def phase_cli_sweep(cfg, dev, name_power, results) -> dict:
     return out
 
 
+BENCH_REPS, BENCH_REPS16 = 48, 16   # bench.py's chained reps (h=10, h=16 lanes)
+# bench.py's lanes: (the bench twin's JSON key that carries the lane, its
+# launches per solve on the card)
+BENCH_LANES = {"h10_full": ("value", dict(K1_128=1, K2_128=5)),
+               "h10_nopolish": ("phases", dict(K1_128=1, K2_128=2)),
+               "h10_form_fact": ("phases", dict(K1_128=1, K2_128=2)),
+               "h10_form_only": ("phases", dict(K1_128=1)),
+               "h10_two_step_build": ("two_step_build_solves_per_s", dict(K1_128=1, K3_128=5)),
+               "h16_full": ("h16_solves_per_s", dict(K1_256=1, K2_256=5)),
+               "h16_trot": ("h16_trot_solves_per_s", dict(K1_256=1, K2_256=5)),
+               "h16_midband": ("h16_midband_solves_per_s", dict(K1_256=1, K3_128=2, K2_256=3))}
+FFI_STAND, FFI_EQUAL = 300, 20          # phase 5e: stand ticks, ticks held bit-equal
+
+
+def path_launches(results, path: str, c: dict):
+    """Record one phase-5 path's launches by kernel in the kernels line."""
+    for k, n in c.items():
+        results[k].setdefault("launches_phase5", {})[path] = n
+
+
+def phase_bench(cfg, dev, name_power, results, h10_ms: float) -> dict:
+    """Phase 5a: `cli bench` at bench.py's sizes through the port's CLI: all
+    eight lanes, no lane error, every phase within its bound, the launches
+    each lane's chained reps make (a warm-up chain and three timed ones)."""
+    print(f"phase 5a: cli bench (bench.py's lanes, sizes and reps; {name_power})")
+    dev_args = [] if dev == torch.device("cuda", 0) else ["--device", str(dev)]
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, rep, _ = run_cli(["bench"] + dev_args)
+    seconds = time.perf_counter() - t0
+    c = counts()
+    print(f"  launches: {c} ({seconds:.1f} s)")
+    expect = dict.fromkeys(c, 0)
+    for lane, (_, per_solve) in BENCH_LANES.items():
+        calls = 4 * (BENCH_REPS if lane.startswith("h10") else BENCH_REPS16)
+        for k, n in per_solve.items():
+            expect[k.replace("_", "/")] += calls * n
+    check(c == expect, "the eight lanes' chained reps launched K1/K2/K3 as routed, "
+                       "nothing else")
+    path_launches(results, "bench", c)
+    lanes_ok = all(rep[key] is not None for key, _ in BENCH_LANES.values())
+    check(rc == 0 and lanes_ok and rep["lane_errors"] is None,
+          "cli bench: all eight lanes measured, lane_errors null")
+    pct = [p["attained_pct"] for p in rep["phases"]]
+    check(all(p is not None and 0 < p <= 100 for p in pct),
+          f"every phase within its bound: attained_pct {pct}")
+    print(f"  h10: {rep['value']:.1f} solves/s (bench twin: CUDA events over 48 chained reps) "
+          f"beside phase 4's {BATCH / h10_ms * 1e3:.1f} (host clock, median of 5 "
+          f"synchronised calls); h16_full {rep['h16_solves_per_s']}, h16_trot "
+          f"{rep['h16_trot_solves_per_s']}, h16_midband {rep['h16_midband_solves_per_s']} "
+          f"solves/s ({name_power})")
+    return dict(report=rep, seconds=seconds, launches=c,
+                phase4_h10_solves_per_s=BATCH / h10_ms * 1e3)
+
+
+def phase_latency(cfg, dev, name_power, results) -> dict:
+    """Phase 5b: `cli latency` (bench_latency.py's measurements) through the
+    port's CLI; the single-robot tick runs no kernel."""
+    print(f"phase 5b: cli latency ({name_power})")
+    dev_args = [] if dev == torch.device("cuda", 0) else ["--device", str(dev)]
+    reset_counts()
+    rc, rep, _ = run_cli(["latency"] + dev_args)
+    c = counts()
+    path_launches(results, "latency", c)
+    check(rc == 0 and all(v == 0 for v in c.values()) and rep["host_roundtrip_p99_ms"] > 0
+          and rep["device_per_tick_ms"] > 0 and rep["backend"] == dev.type,
+          "cli latency: measured, no kernel on the single-robot tick (as in JAX)")
+    return rep
+
+
+def phase_kernels_smoke(cfg, dev, name_power, results) -> dict:
+    """Phase 5c: `cli kernels-smoke --full`: every case at production
+    batches on the card, 0 failed, each of K1-K6 launched."""
+    print(f"phase 5c: cli kernels-smoke --full ({name_power})")
+    dev_args = [] if dev == torch.device("cuda", 0) else ["--device", str(dev)]
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["kernels-smoke", "--full"] + dev_args)
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    print("  " + text.rstrip().replace("\n", "\n  "))
+    c = counts()
+    print(f"  launches: {c} ({seconds:.1f} s)")
+    path_launches(results, "kernels_smoke", c)
+    tail = text.strip().splitlines()[-1]
+    check(rc == 0 and tail.endswith(" 0 failed") and "FAIL" not in text
+          and "BAD-VALUES" not in text, f"kernels-smoke --full: {tail}")
+    ran = ("K1/128", "K1/256", "K2/128", "K2/256", "K3/128", "K3/256", "K5/128", "K6/128",
+           "K6/256")
+    check(all(c[k] > 0 for k in ran) and all(c[k] == 0 for k in c if k not in ran),
+          "kernels-smoke launched K1, K2, K3, K6 at both tiles, K4 (K3/128 inside) and K5; "
+          "no K7, K8, K9")
+    return dict(summary=tail, seconds=seconds, launches=c)
+
+
+def phase_scaling(cfg, dev, name_power, results) -> dict:
+    """Phase 5d: `cli scaling` on a one-rank NCCL group on the card, then
+    sharded_mpc_solve at world size 1 held bit for bit to
+    solve_packed_batch on the same inputs."""
+    from quadruped_ctrl_tpu_torch.parallel import mesh as mesh_mod
+
+    print(f"phase 5d: scale-out at world size 1 ({mesh_mod.backend_for(dev)} on {dev}; "
+          f"{name_power})")
+    dev_args = [] if dev == torch.device("cuda", 0) else ["--device", str(dev)]
+    reset_counts()
+    rc, rep, _ = run_cli(["scaling"] + dev_args)
+    c = counts()
+    path_launches(results, "scaling", c)
+    check(rc == 0 and [r["devices"] for r in rep["rows"]] == [1]
+          and rep["process_group_backend"] == mesh_mod.backend_for(dev)
+          and rep["rows"][0]["solves_per_s"] > 0
+          and c["K1/128"] > 0 and c["K2/128"] > 0,
+          f"cli scaling: one row, {rep['rows'][0]['solves_per_s']} solves/s on a one-rank "
+          f"{rep['process_group_backend']} group, K1/128 and K2/128 launched")
+    inputs = pipeline.random_inputs(0, BATCH, H, device=dev)
+    reset_counts()
+    with mesh_mod.local_group(dev):
+        mesh = mesh_mod.make_mesh(1, device=dev)
+        forces, mean_abs = mesh_mod.sharded_mpc_solve(cfg, mesh, H)(
+            mesh_mod.shard_batch(inputs, mesh))
+        torch.cuda.synchronize()
+    c = counts()
+    path_launches(results, "sharded_solve", c)
+    local = pipeline.solve_packed_batch(cfg, inputs)
+    local_mean = local.abs().sum() / local.numel()
+    gap = float((forces - local).abs().max())
+    check(torch.equal(forces, local) and bool(mean_abs == local_mean)
+          and c == want(K1_128=1, K2_128=5),
+          f"sharded_mpc_solve at world size 1, batch {BATCH}: bit-equal to solve_packed_batch "
+          f"(largest difference {gap:.3e}), reduced mean {float(mean_abs):.6f} equal to the "
+          f"local one, launches K1/128=1, K2/128=5")
+    return dict(report=rep, sharded_max_abs_diff=gap, mean_abs=float(mean_abs))
+
+
+def tree_digest(path: Path) -> dict:
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest() for p in sorted(path.iterdir())
+            if p.is_file()}
+
+
+def phase_native(cfg, dev, name_power, results) -> dict:
+    """Phase 5e: NativeController on the card through the FFI
+    (tests/test_native_runtime.py's closed loop): 10 pre_work ticks, 300
+    stand ticks of the SRB sim, then 20 ticks held bit for bit to direct
+    controller_step calls from the same state; native/ left unchanged."""
+    from quadruped_ctrl_tpu_torch.core.types import ControllerOutput, Sensors
+    from quadruped_ctrl_tpu_torch.runtime import native
+
+    print(f"phase 5e: the native runtime's FFI on {dev} ({name_power})")
+    native_dir = Path(native.__file__).resolve().parents[2] / "native"
+    before = tree_digest(native_dir)
+    reset_counts()
+    nc = native.NativeController(cfg, mpc_iterations=20, device=dev)
+    nc.init_controller(500.0, [100.0, 1.0, 0.0, 0.05])
+    nc.set_gait_type(4)
+    terrain = Terrain.plane(device=dev)
+    sim = engine.sim_init(cfg, terrain, device=dev)
+
+    def arrays(sim):
+        s = engine.sensors_from_sim(cfg, sim)
+        return (torch.cat([s.accelerometer, s.quat, s.gyro]).cpu().numpy().astype(np.float64),
+                torch.cat([s.q, s.qd]).cpu().numpy().astype(np.float64))
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    imu, leg = arrays(sim)
+    for _ in range(10):
+        nc.pre_work(imu, leg)
+    for _ in range(FFI_STAND):
+        imu, leg = arrays(sim)
+        tau = nc.torque_calculator(imu, leg)
+        st = nc._state
+        out = ControllerOutput(
+            tau=f32(tau), p_foot_des=st.swing_p_cur, v_foot_des=st.swing_v_cur,
+            fr_des=st.core.locomotion.fr_des, contact_state=torch.ones(4, device=dev),
+            swing_state=torch.zeros(4, device=dev), p_body_des=torch.zeros(3, device=dev),
+            v_body_des=torch.zeros(3, device=dev), estimate=None)
+        sim = engine.sim_step(cfg, sim, out, terrain)
+    z = float(sim.p[2])
+    stats = nc.latency_summary()
+    print(f"  latency summary (the library's histogram, us): {stats}")
+    check(0.2 < z < 0.32 and stats["count"] >= FFI_STAND and stats["p50_us"] > 0,
+          f"{FFI_STAND} stand ticks through the FFI: base height {z:.4f} in (0.2, 0.32)")
+    # 20 ticks through the FFI against controller_step called directly
+    state = nc._state
+    cmd = Command(vel=f32([0.0, 0.0, 0.0]), gait_type=torch.tensor(4, dtype=torch.int32,
+                                                                   device=dev),
+                  robot_mode=torch.tensor(0, dtype=torch.int32, device=dev))
+    equal = True
+    for _ in range(FFI_EQUAL):
+        imu, leg = arrays(sim)
+        tau_ffi = nc.torque_calculator(imu, leg)
+        sensors = Sensors(quat=f32(imu[3:7]), gyro=f32(imu[7:10]), accelerometer=f32(imu[0:3]),
+                          q=f32(leg[:12]), qd=f32(leg[12:]))
+        state, out = ctrl.controller_step(cfg, state, sensors, cmd, mpc_iterations=20)
+        equal &= bool(np.array_equal(tau_ffi, out.tau.cpu().numpy().astype(np.float64)))
+        sim = engine.sim_step(cfg, sim, out, terrain)
+    c = counts()
+    path_launches(results, "native_ffi", c)
+    check(equal, f"{FFI_EQUAL} FFI ticks bit-equal to direct controller_step calls")
+    check(all(v == 0 for v in c.values()), "the FFI's ticks launch no kernel (as in JAX)")
+    unchanged = tree_digest(native_dir) == before
+    git = subprocess.run(["git", "status", "--porcelain", "native/"], cwd=native_dir.parent,
+                         capture_output=True, text=True)
+    porcelain = git.stdout.strip() if git.returncode == 0 else "(no git repository here)"
+    check(unchanged and (git.returncode != 0 or not porcelain),
+          f"native/ unchanged (sha256 of each file; git status: {porcelain or 'clean'}); the "
+          f"library built into {native.build().parent.name}/")
+    return dict(stand_height=z, latency_us=stats, ffi_bit_equal=equal)
+
+
+def phase_graft(cfg, dev, name_power, results) -> dict:
+    """Phase 5f: graft_entry.entry()'s controller step once, and
+    dryrun_multichip(1) on a one-rank NCCL group."""
+    from quadruped_ctrl_tpu_torch import graft_entry
+
+    print(f"phase 5f: the graft entry points on {dev} ({name_power})")
+    fn, args = graft_entry.entry(device=dev)
+    _, tau = fn(*args)
+    check(tau.shape == (12,) and tau.device == dev and bool(torch.isfinite(tau).all()),
+          "entry(): one controller step on the card, 12 finite torques")
+    reset_counts()
+    mean_tau = graft_entry.dryrun_multichip(1, device=dev)
+    torch.cuda.synchronize()
+    c = counts()
+    path_launches(results, "graft_dryrun", c)
+    check(math.isfinite(mean_tau) and c == want(K1_128=1, K2_128=5),
+          f"dryrun_multichip(1): mean |tau| {mean_tau:.6f}, finite; launches K1/128=1, "
+          "K2/128=5")
+    return dict(mean_tau=mean_tau, launches=c)
+
+
 def phase_profile(cfg, label, inputs, solve=pipeline.solve_packed_batch, batch=None,
                   **solve_kw) -> dict:
     """Device time by kernel and the device's idle share over one solve,
@@ -2042,7 +2296,7 @@ def phase_profile(cfg, label, inputs, solve=pipeline.solve_packed_batch, batch=N
     from torch.profiler import ProfilerActivity, profile
 
     batch = inputs.rpy.shape[0] if batch is None else batch
-    print(f"phase 5: torch.profiler over one {label}{' solve' if inputs is not None else ''} "
+    print(f"phase 6: torch.profiler over one {label}{' solve' if inputs is not None else ''} "
           f"at batch {batch}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         solve(cfg, inputs, **solve_kw)
@@ -2129,6 +2383,13 @@ def main() -> int:
     t2f = time.perf_counter()
     cli_sweep = phase_cli_sweep(cfg, dev, name_power, results)
     t2g = time.perf_counter()
+    entry_points = dict(bench=phase_bench(cfg, dev, name_power, results, times["full"]),
+                        latency=phase_latency(cfg, dev, name_power, results),
+                        kernels_smoke=phase_kernels_smoke(cfg, dev, name_power, results),
+                        scaling=phase_scaling(cfg, dev, name_power, results),
+                        native_ffi=phase_native(cfg, dev, name_power, results),
+                        graft=phase_graft(cfg, dev, name_power, results))
+    t5 = time.perf_counter()
     profile = phase_profile(cfg, "h10", pipeline.random_inputs(seed=0, batch=BATCH, h=H,
                                                                device=dev))
     profiles16 = {lane: phase_profile(cfg, lane, lane_inputs(1, B16, H16, kind, dev),
@@ -2146,7 +2407,7 @@ def main() -> int:
         seed=0, batch=B_SCN, h=H, device=dev), solve=pipeline.solve_batch)
     print(f"phase seconds: kernels {t1 - t0:.1f}, 3d {t1d - t1:.1f}, paths {t2 - t1d:.1f}, "
           f"4d {t2d - t2:.1f}, 4e {t2e - t2d:.1f}, 4f {t2f - t2e:.1f}, 4g {t2g - t2f:.1f}, "
-          f"profiles {time.perf_counter() - t2g:.1f}")
+          f"5 {t5 - t2g:.1f}, profiles {time.perf_counter() - t5:.1f}")
     print(name_power)       # again, near the end: the output's head may be cut
     print(json.dumps({"phase_ms": times, "batch": BATCH, "phase_ms_h16": times16,
                       "batch_h16": B16, "batch_h10_fused": B_FUSED, "profile": profile,
@@ -2155,7 +2416,8 @@ def main() -> int:
                       "profile_h10_woodbury": profile_wb,
                       "profile_h16_woodbury": profile_wb16, "batch_scenario": B_SCN,
                       "profile_scenario_full": profile_scn, "closed_loop": closed_loop,
-                      "sessions": sessions, "cli_sweep": cli_sweep, "card": name_power}))
+                      "sessions": sessions, "cli_sweep": cli_sweep, "entry_points": entry_points,
+                      "card": name_power}))
     kernels = [{key: results[k][key] for key in (
         "name", "route", "source", "replaces", "tile", "launches", "counted_in",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2168,7 +2430,8 @@ def main() -> int:
         + (("phases_ms",) if k.startswith("K5") else ())
         + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
            else ())
-        + (("closed_loop", "cli_sweep") if k in ("K1/128", "K2/128") else ())}
+        + (("closed_loop", "cli_sweep") if k in ("K1/128", "K2/128") else ())
+        + ("launches_phase5",)}
         for k in KERNEL_INFO]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

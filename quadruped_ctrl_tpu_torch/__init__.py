@@ -10,7 +10,12 @@ package runs a Pallas kernel, the batched closed loop that drives it
 the SRB simulator), and the single-robot sessions on the SRB and the 18-DoF
 articulated simulators (`sim.rollout`, `sim.articulated`, `models`) with the
 camera, the stage-wise MPC, checkpoints and the `cli` commands `sim` and
-`sweep`.
+`sweep`; and the entry points around them: the twins of the JAX package's
+`bench.py` and `bench_latency.py` (`bench`, `bench_latency`), scale-out over
+`torch.distributed` (`parallel`), the kernel smoke lane
+(`utils.kernels_smoke`), the native runtime's C ABI (`runtime.native`), the
+PyBullet bridge, the `cli` commands `bench`, `latency`, `kernels-smoke` and
+`scaling`, and `graft_entry`.
 The configuration tree is the port's own copy (`config.py`); nothing here
 imports JAX or the JAX package.
 """

@@ -1,13 +1,19 @@
 """Command-line entry points of the PyTorch port — the counterpart of
-`quadruped_ctrl_tpu/cli.py`'s `sim` and `sweep` (the replacement for the
-reference's ROS launch/param/topic surface):
+`quadruped_ctrl_tpu/cli.py` (the replacement for the reference's ROS
+launch/param/topic surface):
 
     python -m quadruped_ctrl_tpu_torch.cli sim   --gait trot --vx 0.5 --terrain plane
     python -m quadruped_ctrl_tpu_torch.cli sweep --batch 256 --terrains plane,random
+    python -m quadruped_ctrl_tpu_torch.cli bench            # MPC solves/s, 8 lanes
+    python -m quadruped_ctrl_tpu_torch.cli latency          # control-cycle latency
+    python -m quadruped_ctrl_tpu_torch.cli kernels-smoke    # every kernel, production shapes
+    python -m quadruped_ctrl_tpu_torch.cli scaling          # data-parallel scaling report
 
-Both run on cuda:0 unless `--device` names another device (`--device cpu`
-runs the plain PyTorch versions on the CPU), and print the JAX CLI's JSON
-line. Gait names follow the reference numbering
+Each runs on cuda:0 unless `--device` names another device (`--device cpu`
+runs the plain PyTorch versions on the CPU) and prints the JAX CLI's JSON
+line (`kernels-smoke` its case lines); `bench`, `latency`, `kernels-smoke`
+and `scaling` write a file only to the path given as `--out`. Gait names
+follow the reference numbering
 (ConvexMPCLocomotion.cpp:149-172). A YAML config file (--config) overrides
 any FrameworkConfig field with dotted keys, e.g. `mpc.horizon: 10`.
 """
@@ -240,6 +246,72 @@ def cmd_sweep(args):
     return 0
 
 
+def cmd_bench(args):
+    from quadruped_ctrl_tpu_torch import bench
+    from quadruped_ctrl_tpu_torch import device as _device
+
+    dev = _device.resolve(args.device)
+    with _trace_ctx(args.profile, dev):
+        bench.main(batch=args.batch, batch16=args.batch16, n_reps=args.reps,
+                   n_reps16=args.reps16, device=dev, out=args.out)
+    return 0
+
+
+def cmd_latency(args):
+    from quadruped_ctrl_tpu_torch import bench_latency
+
+    bench_latency.main(ticks=args.ticks, macros=args.macros, device=args.device,
+                       out=args.out)
+    return 0
+
+
+def cmd_kernels_smoke(args):
+    """Run every kernel of the port at production (batch, tile) shapes on the
+    device. Non-zero exit on any failure; artifact via --out."""
+    import torch
+
+    from quadruped_ctrl_tpu_torch import device as _device
+    from quadruped_ctrl_tpu_torch.utils import kernels_smoke
+
+    dev = _device.resolve(args.device)
+    where = (f"{torch.cuda.get_device_name(dev)} ({dev})" if dev.type == "cuda"
+             else "cpu: the kernels' plain PyTorch versions")
+    header = (f"kernel smoke: device={where}\n"
+              "# times are the wall clock of one synchronised call, best of 2 "
+              "after a warm-up; the gate is launch+finiteness+residual; "
+              "per-solve device timing lives in the bench command")
+    print(header, flush=True)
+    lines, failed = kernels_smoke.run_smoke(full=args.full, device=dev)
+    tail = f"{len(lines)} cases, {failed} failed"
+    print(tail)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(header + "\n" + "\n".join(lines) + "\n" + tail + "\n")
+    return 1 if failed else 0
+
+
+def cmd_scaling(args):
+    import json
+
+    from quadruped_ctrl_tpu_torch.parallel import multihost
+
+    cfg = load_config(args.config)
+    rep = multihost.scaling_report(
+        cfg, per_device_batch=args.per_device_batch, reps=args.reps, device=args.device
+    )
+    if args.multiprocess:
+        rep["multiprocess"] = multihost.multiprocess_scaling(
+            num_processes=args.multiprocess,
+            per_device_batch=args.per_device_batch, reps=args.reps,
+        )
+    out = json.dumps(rep)
+    print(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(out)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="quadruped_ctrl_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
@@ -291,6 +363,50 @@ def main(argv=None):
     s.add_argument("--device", default=None,
                    help="torch device to run on (default cuda:0)")
     s.set_defaults(fn=cmd_sweep)
+
+    s = sub.add_parser("bench", help="MPC solves/s benchmark")
+    s.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace into DIR")
+    s.add_argument("--batch", type=int, default=4096, help="h=10 lanes' batch")
+    s.add_argument("--batch16", type=int, default=2048, help="h=16 lanes' batch")
+    s.add_argument("--reps", type=int, default=48, help="h=10 lanes' chained reps")
+    s.add_argument("--reps16", type=int, default=16, help="h=16 lanes' chained reps")
+    s.add_argument("--out", default=None, help="also write the JSON here")
+    s.add_argument("--device", default=None,
+                   help="torch device to run on (default cuda:0)")
+    s.set_defaults(fn=cmd_bench)
+
+    s = sub.add_parser("latency", help="control-cycle latency benchmark")
+    s.add_argument("--ticks", type=int, default=200,
+                   help="timed round trips, of a tick and of the launch+copy pair")
+    s.add_argument("--macros", type=int, default=40, help="13-tick macro-cycles timed")
+    s.add_argument("--out", default=None, help="also write the JSON here")
+    s.add_argument("--device", default=None,
+                   help="torch device to run on (default cuda:0)")
+    s.set_defaults(fn=cmd_latency)
+
+    s = sub.add_parser(
+        "kernels-smoke",
+        help="run every kernel at production shapes (on-device gate; --out "
+             "records the artifact)")
+    s.add_argument("--out", default=None)
+    s.add_argument("--full", action="store_true", default=None,
+                   help="force production batches (default: on the card only)")
+    s.add_argument("--device", default=None,
+                   help="torch device to run on (default cuda:0)")
+    s.set_defaults(fn=cmd_kernels_smoke)
+
+    s = sub.add_parser("scaling", help="multi-device scaling-efficiency report")
+    s.add_argument("--per-device-batch", type=int, default=256)
+    s.add_argument("--reps", type=int, default=3)
+    s.add_argument("--multiprocess", type=int, default=0,
+                   help="also measure N-process torch.distributed weak scaling "
+                        "(CPU harness for the multi-host axis)")
+    s.add_argument("--out", default=None, help="also write the JSON here")
+    s.add_argument("--config", default=None)
+    s.add_argument("--device", default=None,
+                   help="torch device to run on (default cuda:0)")
+    s.set_defaults(fn=cmd_scaling)
 
     args = ap.parse_args(argv)
     return args.fn(args)

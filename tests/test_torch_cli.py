@@ -6,7 +6,10 @@ checkpoint round trip and resume, `tracking_metrics` against JAX, and
 `cli sweep`'s checkpoint payload at batch 2 (a dict of the `states` and
 `sims` trees and two counters) written by either package loading into the
 other's tree leaf for leaf (every leaf given distinct values, so a leaf in
-the wrong place shows)."""
+the wrong place shows); and the four measurement subcommands at small sizes
+on the CPU: `bench` (with `--profile` writing a trace and `--out` the JSON
+line), `latency`, `kernels-smoke` (exit 1 on a failed case) and `scaling`
+(with the two-process harness)."""
 
 import dataclasses
 import json
@@ -215,3 +218,56 @@ def test_port_checkpoint_loads_into_jax(tmp_path, batch2_trees):
     checkpoint.save(path, ttree, fingerprint={"seed": 3})
     got = j_ckpt.load(path, jtree, fingerprint={"seed": 3})
     _assert_same(_named(got), _named(ttree))
+
+
+def _last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def test_cli_bench_profile_and_out(tmp_path, capsys):
+    prof, out = tmp_path / "trace", tmp_path / "bench.json"
+    rc = cli.main(["bench", "--batch", "4", "--batch16", "2", "--reps", "1", "--reps16", "1",
+                   "--profile", str(prof), "--out", str(out), "--device", "cpu"])
+    assert rc == 0
+    assert list(prof.glob("*.pt.trace.json")), "no profiler trace written"
+    line = _last_json(capsys.readouterr().out)
+    assert line == json.loads(out.read_text())
+    assert line["lane_errors"] is None and line["value"] > 0
+    assert "batch=4" in line["unit"] and len(line["phases"]) == 4
+
+
+def test_cli_latency(tmp_path, capsys):
+    out = tmp_path / "lat.json"
+    assert cli.main(["latency", "--ticks", "3", "--macros", "1", "--out", str(out),
+                     "--device", "cpu"]) == 0
+    line = _last_json(capsys.readouterr().out)
+    assert line == json.loads(out.read_text())
+    assert line["metric"] == "control_cycle_latency" and line["backend"] == "cpu"
+
+
+def test_cli_kernels_smoke(tmp_path, capsys, monkeypatch):
+    out = tmp_path / "lane.txt"
+    assert cli.main(["kernels-smoke", "--out", str(out), "--device", "cpu"]) == 0
+    printed = capsys.readouterr().out
+    assert "16 cases, 0 failed" in printed and "device=cpu" in printed
+    assert out.read_text().strip().endswith("16 cases, 0 failed")
+    from quadruped_ctrl_tpu_torch.utils import kernels_smoke
+
+    monkeypatch.setattr(kernels_smoke, "run_smoke",
+                        lambda full=None, device=None: (["case  FAIL  RuntimeError"], 1))
+    assert cli.main(["kernels-smoke", "--device", "cpu"]) == 1
+    assert "1 cases, 1 failed" in capsys.readouterr().out
+
+
+def test_cli_scaling_with_multiprocess(tmp_path, capsys):
+    out = tmp_path / "scaling.json"
+    assert cli.main(["scaling", "--per-device-batch", "2", "--reps", "1", "--multiprocess",
+                     "2", "--out", str(out), "--device", "cpu"]) == 0
+    rep = _last_json(capsys.readouterr().out)
+    assert rep == json.loads(out.read_text())
+    assert [r["devices"] for r in rep["rows"]] == [1]
+    assert rep["rows"][0]["weak_efficiency"] == 1.0
+    mp = rep["multiprocess"]
+    assert mp["processes"] == 2 and mp["global_devices"] == 4 and mp["backend"] == "cpu"
+    assert mp["solves_per_s_single_process"] > 0 and mp["solves_per_s_multi_process"] > 0
+    assert mp["cross_process_efficiency"] > 0

@@ -53,6 +53,11 @@ def test_package_and_chip_smoke_import_no_jax():
         "from quadruped_ctrl_tpu_torch.mpc import sparse\n"
         "from quadruped_ctrl_tpu_torch.utils import checkpoint, metrics, timer\n"
         "from quadruped_ctrl_tpu_torch import cli\n"
+        "from quadruped_ctrl_tpu_torch import bench, bench_latency, graft_entry\n"
+        "from quadruped_ctrl_tpu_torch.parallel import _throughput_worker, mesh, multihost\n"
+        "from quadruped_ctrl_tpu_torch.utils import kernels_smoke\n"
+        "from quadruped_ctrl_tpu_torch.runtime import native\n"
+        "from quadruped_ctrl_tpu_torch.sim import pybullet_bridge\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'quadruped_ctrl_tpu'))\n"
@@ -129,9 +134,82 @@ def test_entry_points_default_to_the_card():
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    for command in (["sim", "--ticks", "1"], ["sweep", "--batch", "2", "--macros", "1"]):
+    for command in (["sim", "--ticks", "1"], ["sweep", "--batch", "2", "--macros", "1"],
+                    ["bench"], ["latency"], ["kernels-smoke"], ["scaling"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(command)
+
+
+def test_new_entry_points_default_to_the_card():
+    """The native runtime, the bench and latency twins, the kernel smoke
+    lane, the scale-out mesh and solve, the scaling report and the two
+    graft entry points build on cuda:0 unless told otherwise: without a
+    CUDA device and without device= they raise."""
+    from quadruped_ctrl_tpu_torch import bench, bench_latency, default_config, graft_entry
+    from quadruped_ctrl_tpu_torch.parallel import mesh, multihost
+    from quadruped_ctrl_tpu_torch.runtime.native import NativeController
+    from quadruped_ctrl_tpu_torch.utils.kernels_smoke import run_smoke
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is that device")
+    cfg = default_config()
+
+    def sharded_mpc_solve():
+        with mesh.local_group("cpu"):
+            mesh.sharded_mpc_solve(cfg, mesh.make_mesh(1), 10)
+
+    calls = {"NativeController": NativeController, "bench.main": bench.main,
+             "bench_latency.main": bench_latency.main, "run_smoke": run_smoke,
+             "sharded_mpc_solve": sharded_mpc_solve, "local_group": mesh.local_group().__enter__,
+             "scaling_report": lambda: multihost.scaling_report(cfg),
+             "graft_entry.entry": graft_entry.entry,
+             "dryrun_multichip": lambda: graft_entry.dryrun_multichip(1)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert not torch.distributed.is_initialized(), name
+
+
+# (JAX module, port module) pairs whose top-level functions and classes the
+# port keeps by name
+NAMESAKES = [("bench.py", "quadruped_ctrl_tpu_torch.bench"),
+             ("bench_latency.py", "quadruped_ctrl_tpu_torch.bench_latency"),
+             ("__graft_entry__.py", "quadruped_ctrl_tpu_torch.graft_entry"),
+             ("quadruped_ctrl_tpu/parallel/mesh.py", "quadruped_ctrl_tpu_torch.parallel.mesh"),
+             ("quadruped_ctrl_tpu/parallel/multihost.py",
+              "quadruped_ctrl_tpu_torch.parallel.multihost"),
+             ("quadruped_ctrl_tpu/parallel/_throughput_worker.py",
+              "quadruped_ctrl_tpu_torch.parallel._throughput_worker"),
+             ("quadruped_ctrl_tpu/utils/kernels_smoke.py",
+              "quadruped_ctrl_tpu_torch.utils.kernels_smoke"),
+             ("quadruped_ctrl_tpu/runtime/native.py", "quadruped_ctrl_tpu_torch.runtime.native"),
+             ("quadruped_ctrl_tpu/sim/pybullet_bridge.py",
+              "quadruped_ctrl_tpu_torch.sim.pybullet_bridge")]
+
+
+@pytest.mark.parametrize("jax_path,port_module", NAMESAKES, ids=[p for p, _ in NAMESAKES])
+def test_port_defines_its_namesakes_top_level_names(jax_path, port_module):
+    """Every top-level function, class and public module constant of
+    the JAX file is defined in its port counterpart, and a function keeps
+    the JAX positional parameters in order (the port may add keywords after
+    them)."""
+    import ast
+    import importlib
+    import inspect
+
+    tree = ast.parse((REPO / jax_path).read_text())
+    port = importlib.import_module(port_module)
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            assert hasattr(port, node.name), (port_module, node.name)
+        if isinstance(node, ast.FunctionDef):
+            want = [a.arg for a in node.args.args]
+            got = list(inspect.signature(getattr(port, node.name)).parameters)
+            assert got[:len(want)] == want, (node.name, got, want)
+        if isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name) and t.id.isupper() and t.id[0] != "_":
+                    assert hasattr(port, t.id), (port_module, t.id)
 
 
 def test_state_trees_equal_the_jax_trees_field_by_field():
