@@ -6,14 +6,15 @@
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds the CUDA kernels from quadruped_ctrl_tpu_torch/csrc (one nvcc per
    source, in parallel) and checks with cuobjdump that the factorization
-   kernels of both tiles (K3's masked instances, K7's cold branch, among
-   them), the fused solve K5 and both instances of the formation K1 hold
-   tensor-core code (HMMA in their SASS), and the three instances of the
-   plain NS (csrc/ns_plain.cu: K8 at both tiles, K9 at 256) and the five of
-   csrc/ns_refine.cu (K6 and K7's guard and warm branch at both tiles, K9 at
-   128) wgmma (HGMMA), each with its registers and spill stores; prints each
-   cluster kernel's cluster size and how many of its clusters the card holds
-   at once;
+   kernels of the 128 tile (K3's masked instance, K7/128's cold branch,
+   among them), the fused solve K5 and both instances of the formation K1
+   hold tensor-core code (HMMA in their SASS), and the three instances of
+   the plain NS (csrc/ns_plain.cu: K8 at both tiles, K9 at 256) and the
+   seven of csrc/ns_refine.cu (K6 and K7's guard and warm branch at both
+   tiles, K9 at 128, K3 at 256, also K7/256's cold branch, and K2 at 256)
+   wgmma (HGMMA), each with its registers and spill stores; prints each
+   cluster kernel's cluster size and how many of its clusters (ns_refine.cu:
+   CTAs or clusters) the card holds at once;
 2b. calls every kernel wrapper (K1-K3, K5-K9, both tiles) on inputs that
    start 4 bytes past a 16-byte boundary and holds the result to the
    aligned call's, bit for bit;
@@ -24,8 +25,9 @@
    runs; K2 and K3 with their share of the bound and their bf16x3 rate);
 3b. the same at the h=16 shapes: K1 at each h=16 lane's shape (and, untimed,
    at h=36 and h=25, the largest shapes it takes), K2 and K3 at the 256
-   tile (one 4-CTA cluster per system; the NS products on the tensor cores
-   at both tiles), and the Schur split
+   tile (a 4-CTA cluster a system, persistent, wgmma), each timed at both
+   schedules on a real h16_full solve's calls by CUDA events beside
+   torch.linalg.inv_ex with its share of the bound, and the Schur split
    K4 (K3 at the 128 tile inside) against its plain version;
 3c. the single-launch solve K5 (fused_admm_solve) at batch 2048, h=10, on the
    operands the fused path builds, with its time split by phase (the build,
@@ -174,13 +176,13 @@ KERNEL_INFO = {
                    source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:615"),
     "K2/256": dict(name="ns_inverse_scaled_build (256 tile)",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:615"),
     "K3/128": dict(name="ns_inverse_scaled",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:259"),
     "K3/256": dict(name="ns_inverse_scaled (256 tile)",
-                   source="quadruped_ctrl_tpu_torch/csrc/ns_cluster.cu",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:259"),
     "K5/128": dict(name="fused_admm_solve",
                    source="quadruped_ctrl_tpu_torch/csrc/fused_admm.cu",
@@ -216,23 +218,28 @@ PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 
 
 # The kernels whose products must run on the tensor cores: the
-# factorizations at the 128 tile (ns_inverse.cu) and at the 256 tile
-# (ns_cluster.cu; K3's <true> instances are K7's cold branch), the fused
-# solve (fused_admm.cu), and both instances of the formation's Gram
-# (formation_pack.cu), as mma.sync (HMMA in the SASS); the plain NS
-# (ns_plain.cu: K8/128, K8/256, K9/256) and the NS steps of ns_refine.cu
-# (modes 0 RF_REFINE, 1 RF_WARM, 2 RF_PLAIN: K6 and K7's guard and warm
-# branch at both tiles, K9/128) as wgmma (HGMMA).
+# factorizations at the 128 tile (ns_inverse.cu; K3's <true> instance is
+# K7/128's cold branch), the fused solve (fused_admm.cu), and both instances
+# of the formation's Gram (formation_pack.cu), as mma.sync (HMMA in the
+# SASS); the plain NS (ns_plain.cu: K8/128, K8/256, K9/256) and the NS steps
+# of ns_refine.cu (modes 0 RF_REFINE, 1 RF_WARM, 2 RF_PLAIN, 3 RF_SCALED, 4
+# RF_BUILD: K6 and K7's guard and warm branch at both tiles, K9/128, K3/256,
+# whose instance masked is K7/256's cold branch, and K2/256) as wgmma
+# (HGMMA).
 TC_KERNELS = ("ns_inverse_scaled_kernel<false>", "ns_inverse_scaled_kernel<true>",
-              "ns_inverse_scaled_build_kernel", "ns_inverse_scaled_256_kernel<false>",
-              "ns_inverse_scaled_256_kernel<true>", "ns_inverse_scaled_build_256_kernel",
-              "fused_admm_kernel", "form_packed_kernel<false>", "form_packed_kernel<true>")
+              "ns_inverse_scaled_build_kernel", "fused_admm_kernel", "form_packed_kernel<false>",
+              "form_packed_kernel<true>")
 GMMA_KERNELS = {"K8/128": "ns_plain_kernel<128, 2, 4>", "K8/256": "ns_plain_kernel<256, 4, 4>",
                 "K9/256": "ns_plain_kernel<256, 4, 1>", "K6/128": "ns_refine_kernel<128, 0>",
                 "K6/256": "ns_refine_kernel<256, 0>", "K7/128": "ns_refine_kernel<128, 1>",
-                "K7/256": "ns_refine_kernel<256, 1>", "K9/128": "ns_refine_kernel<128, 2>"}
+                "K7/256": "ns_refine_kernel<256, 1>", "K9/128": "ns_refine_kernel<128, 2>",
+                "K3/256": "ns_refine_kernel<256, 3>", "K2/256": "ns_refine_kernel<256, 4>"}
 # their instance numbers in ns_plain.cu's qct_ns_plain_clusters
 PLAIN_INSTANCES = {"K8/128": 0, "K8/256": 1, "K9/256": 2}
+# ns_refine.cu's instances (npad, mode) for qct_ns_refine_units
+REFINE_INSTANCES = {"K6/128": (128, 0), "K7/128": (128, 1), "K9/128": (128, 2),
+                    "K6/256": (256, 0), "K7/256": (256, 1), "K3/256": (256, 3),
+                    "K2/256": (256, 4)}
 
 
 def check(ok: bool, what: str):
@@ -425,14 +432,40 @@ def ns_times(hp, g9, ks, sched) -> list[float]:
             median_ms(lambda: torch.linalg.inv(ks))]
 
 
-def ns_results(results, npad, hp, g9, sched, times, err2, err3):
-    """Fill the K2 and K3 entries of one tile from ns_times() on (hp, g9)."""
+def ns_device_times(hp, g9, ks, sched) -> list[float]:
+    """Device ms (CUDA events over 5 chained calls) of K2, K3 and
+    torch.linalg.inv_ex (the yardstick) on one batch."""
+    return [event_ms(lambda: NI.ns_inverse_scaled_build(hp, g9, *sched), 5),
+            event_ms(lambda: NI.ns_inverse_scaled(ks, *sched), 5),
+            event_ms(lambda: torch.linalg.inv_ex(ks), 5)]
+
+
+def ns_bounds(npad, hp, g9, sched):
+    """(K2's, K3's) bound on (hp, g9) at one schedule: (ms, what bounds it)."""
     b, nblk = hp.shape[0], g9.shape[-1]
     mat = b * npad * npad * 4.0
     small = 4.0 * b * (9 * nblk + npad)              # g9 in, d_row out
     outs_k2 = 2 if npad == NI.N else 1               # inv (and ks at 128) out
-    k2 = ns_bound(b, npad, sched, mat * (1 + outs_k2) + small)
-    k3 = ns_bound(b, npad, sched, 2 * mat)
+    return ns_bound(b, npad, sched, mat * (1 + outs_k2) + small), ns_bound(b, npad, sched, 2 * mat)
+
+
+def ns_device_results(results, npad, hp, g9, sched, dev, prefix):
+    """K2's and K3's device ms of one schedule (ns_device_times), their share
+    of the bound and inv_ex's, printed and kept in the tile's entries under
+    `prefix` ("" for the ADMM schedule of solve call 0, "polish_" for solve
+    call 2)."""
+    bounds = ns_bounds(npad, hp, g9, sched)
+    for key, ms, bd in ((f"K2/{npad}", dev[0], bounds[0]), (f"K3/{npad}", dev[1], bounds[1])):
+        results[key].update({f"{prefix}device_ms": ms, f"{prefix}library_device_ms": dev[2],
+                             f"{prefix}bound_ms": bd[0]})
+        print(f"  {key} {prefix or 'admm_'}schedule by events: {ms:.4f} ms, bound {bd[0]:.4f} "
+              f"ms ({bd[1]}), share {bd[0] / ms:.4f}; torch.linalg.inv_ex {dev[2]:.4f} ms")
+
+
+def ns_results(results, npad, hp, g9, sched, times, err2, err3):
+    """Fill the K2 and K3 entries of one tile from ns_times() on (hp, g9)."""
+    k2, k3 = ns_bounds(npad, hp, g9, sched)
+    b = hp.shape[0]
     results[f"K2/{npad}"].update(max_abs_err=err2, ms=times[0], plain_ms=times[1],
                                  library_ms=times[4], bound_ms=k2[0], bound_by=k2[1])
     results[f"K3/{npad}"].update(max_abs_err=err3, ms=times[2], plain_ms=times[3],
@@ -554,6 +587,9 @@ def check_ns(cases, results, npad, n_sys):
             print(f"  %s at {n_sys} systems: K2 kernel %.3f ms reference %.3f ms; K3 kernel "
                   "%.3f ms reference %.3f ms; torch.linalg.inv %.3f ms (median of 10)"
                   % (label, *times))
+            ns_device_results(results, npad, hp_c, g9_c, sched,
+                              ns_device_times(hp_c, g9_c, ks_r, sched),
+                              "" if label.startswith("solve call 0") else "polish_")
         if label.startswith("solve call 0"):
             # the kernels' line reports the solve's first factorization;
             # polish-schedule inverses differ from the reference by more in
@@ -2347,15 +2383,17 @@ def main() -> int:
             print("  ptxas:", line.strip())
     check_tensor_core_sass(lib_path)
 
-    clusters = ctypes.c_int(-1)
-    rc = _build.load().qct_ns_cluster_max_active(ctypes.byref(clusters))
-    check(rc == 0 and clusters.value > 0,
-          f"the 256-tile kernels' 4-CTA clusters fit: {clusters.value} active at once")
-
     cfg = default_config()
     results = {k: dict(KERNEL_INFO[k], route="cuda", tile=int(k.split("/")[1]))
                for k in KERNEL_INFO}
-    results["K9/128"].update(cluster=None, clusters_active=None)  # one block a system
+    for key, (npad, mode) in REFINE_INSTANCES.items():
+        units = ctypes.c_int(-1)
+        rc = _build.load().qct_ns_refine_units(npad, mode, ctypes.byref(units))
+        what = "CTAs" if npad == NI.N else "4-CTA clusters"
+        check(rc == 0 and units.value > 0,
+              f"{key} ({GMMA_KERNELS[key]}): {units.value} {what} active at once, each "
+              "walking systems in turn")
+        results[key].update(cluster=1 if npad == NI.N else 4, clusters_active=units.value)
     for key, inst in PLAIN_INSTANCES.items():
         size, active = ctypes.c_int(-1), ctypes.c_int(-1)
         rc = _build.load().qct_ns_plain_clusters(inst, ctypes.byref(size), ctypes.byref(active))
@@ -2427,6 +2465,11 @@ def main() -> int:
         + (("device_ms", "library_device_ms", "cluster", "clusters_active")
            if k.startswith(("K8", "K9")) else ())
         + (("device_ms", "library_device_ms") if k.startswith("K6") else ())
+        + (("device_ms", "library_device_ms", "polish_device_ms", "polish_library_device_ms",
+            "polish_bound_ms")
+           if k.startswith(("K2", "K3")) else ())
+        + (("cluster", "clusters_active") if k in ("K6/256", "K7/256", "K2/256", "K3/256")
+           else ())
         + (("phases_ms",) if k.startswith("K5") else ())
         + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
            else ())

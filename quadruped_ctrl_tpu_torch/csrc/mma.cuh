@@ -1,6 +1,7 @@
-// The Newton-Schulz product on the tensor cores, the parts both tiles share
-// (ns_core.cuh at 128, one block a system; ns_cluster.cu at 256, a 4-CTA
-// cluster a system; ns_plain.cu, the plain fp32 NS on clusters): the bf16
+// The Newton-Schulz product on the tensor cores, the parts the kernels share
+// (ns_core.cuh at 128, one block a system; ns_refine.cu at both tiles, a
+// 4-CTA cluster a system at 256; ns_plain.cu, the plain fp32 NS on
+// clusters): the bf16
 // and tf32 hi/lo splits, mma.sync m16n8k16 bf16 and m16n8k8 tf32,
 // ldmatrix.trans, the distributed shared memory loads, the swizzled fp32
 // tiles and bf16 staging planes, wgmma (tf32 for the plain NS, tf32 and bf16
@@ -368,10 +369,9 @@ __device__ __forceinline__ void mma_chunk_tf32(const float* __restrict__ A, cons
   }
 }
 
-// T = 2I - mu acc on the tile's rows (global row row0 on), the first half of
-// an NS step.
+// T = 2I - mu acc, the first half of an NS step.
 template <int kN>
-__device__ __forceinline__ void store_t(float* T, const Acc& acc, float mu, int row0) {
+__device__ __forceinline__ void store_t(float* T, const Acc& acc, float mu) {
   const Lane<kN> ln;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -381,8 +381,8 @@ __device__ __forceinline__ void store_t(float* T, const Acc& acc, float mu, int 
       for (int h = 0; h < 2; ++h) {
         const int i = ln.row(mt, h), j = ln.col(nt);
         float2 v;
-        v.x = (row0 + i == j ? 2.f : 0.f) - mu * acc[mt][nt][2 * h];
-        v.y = (row0 + i == j + 1 ? 2.f : 0.f) - mu * acc[mt][nt][2 * h + 1];
+        v.x = (i == j ? 2.f : 0.f) - mu * acc[mt][nt][2 * h];
+        v.y = (i == j + 1 ? 2.f : 0.f) - mu * acc[mt][nt][2 * h + 1];
         *reinterpret_cast<float2*>(T + sw<kN>(i, j)) = v;
       }
 }

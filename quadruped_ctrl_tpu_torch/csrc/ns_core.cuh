@@ -22,7 +22,7 @@
 //
 // Residency. K, X and T stay fp32 (the tail needs all 24 bits; hi/lo planes
 // would take the same 4 bytes an element), unpadded, their columns
-// XOR-swizzled by 8 (row % 4) as ns_cluster.cu's slabs are, so the mma
+// XOR-swizzled by 8 (row % 4) (mma.cuh's sw), so the mma
 // fragment loads and the epilogue's float2 stores are free of bank
 // conflicts: 3 x 65,536 bytes. B of a bf16x3 product is split into bf16 hi
 // and lo planes once per product, in a double-buffered ring of two 16-row
@@ -160,7 +160,7 @@ template <bool kBf16x3>
 __device__ __forceinline__ void ns_step(const float* K, float* X, float* T, uint32_t* S, float mu) {
   Acc acc;
   mm_tile<kBf16x3>(K, X, S, acc);
-  store_t<NS_N>(T, acc, mu, 0);
+  store_t<NS_N>(T, acc, mu);
   __syncthreads();  // T complete; the product's reads of X and of the ring are done
   mm_tile<kBf16x3>(X, T, S, acc);
   __syncthreads();  // every read of X is done before it is overwritten

@@ -32,7 +32,7 @@
 //                            they are replaced
 //
 // With kC = 1 (K9) a block is a whole row slab, XR is X itself and nothing is
-// gathered, the design of ns_cluster.cu. The 2-D blocks are for one system
+// gathered, the design of the first 256-tile K3. The 2-D blocks are for one system
 // on a wide cluster, where distributed shared memory (DSMEM) bounds a step
 // (~30 GB/s per SM; probes/ns_plain_probe.cu, PERF.md section 6): at npad
 // 256 on 16 CTAs, row slabs of 16 would pull 15/16 of X and of T a step, 480

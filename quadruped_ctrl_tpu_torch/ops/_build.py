@@ -53,7 +53,7 @@ _SIGNATURES = {
     "qct_ns_inverse_scaled_masked_256": ((_P, _P, _P, _I, _P, _I, _I, _I, _P), _I),
     "qct_fused_admm_solve": (
         (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P), _I),
-    "qct_ns_cluster_max_active": ((_P,), _I),
+    "qct_ns_refine_units": ((_I, _I, _P), _I),
 }
 
 

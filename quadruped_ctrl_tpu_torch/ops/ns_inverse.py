@@ -22,14 +22,14 @@ The counterpart of `quadruped_ctrl_tpu/ops/ns_inverse.py`:
 The schedule: X0 = I / ||K||_inf, then `mu_schedule(a0, n_scaled)` scaled
 steps X <- mu X (2I - mu K X) and n_quad quadratic steps in bf16x3, then n_hi
 fp32 steps. On a CUDA tensor the wrappers launch the hand-written kernels:
-K2 and K3 run `csrc/ns_inverse.cu` at the 128 tile (one block per system)
-and `csrc/ns_cluster.cu` at the 256 tile (one cluster of 4 blocks per
-system); K6, K7's guard and warm branch, and K9 at the 128 tile run
-`csrc/ns_refine.cu` (its products as `wgmma`; as many blocks, or 4-block
-clusters at 256, as the card holds at once, each walking systems in turn),
-K7's cold branch K3's own kernel on the systems whose guard tripped; the
-plain NS K8 and K9 at 256 run `csrc/ns_plain.cu` (K8 on one cluster of 8
-blocks at 128 and of 16 at 256, K9 at 256 on a cluster of 4 a system).
+K2 and K3 run `csrc/ns_inverse.cu` at the 128 tile (one block per system,
+`mma.sync`); K2 and K3 at the 256 tile, K6, K7's guard and warm branch, and
+K9 at the 128 tile run `csrc/ns_refine.cu` (its products as `wgmma`; as
+many blocks, or 4-block clusters at 256, as the card holds at once, each
+walking systems in turn), K7's cold branch K3's own kernel on the systems
+whose guard tripped; the plain NS K8 and K9 at 256 run `csrc/ns_plain.cu`
+(K8 on one cluster of 8 blocks at 128 and of 16 at 256, K9 at 256 on a
+cluster of 4 a system).
 Every wrapper hands its kernel 16-byte aligned inputs (`_launch.aligned`).
 On a CPU tensor they run the `_reference` functions, the same arithmetic
 in plain PyTorch.

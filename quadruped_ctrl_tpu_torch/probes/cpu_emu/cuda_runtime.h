@@ -250,6 +250,16 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   return r;
 }
 
+inline int __shfl_up_sync(unsigned, int v, int delta) {
+  auto& w = emu::warp();
+  const int l = emu::lane();
+  w.u[l][7] = static_cast<uint32_t>(v);
+  w.bar.arrive_and_wait();
+  const int r = l >= delta ? static_cast<int>(w.u[l - delta][7]) : v;
+  w.bar.arrive_and_wait();
+  return r;
+}
+
 inline float __uint_as_float(uint32_t u) {
   float f;
   std::memcpy(&f, &u, 4);

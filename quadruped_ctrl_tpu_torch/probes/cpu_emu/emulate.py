@@ -1,14 +1,15 @@
 """Run the kernels of csrc/ on the CPU, clusters included.
 
-    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9 plain warm]
+    python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9 plain warm
+                                                                 k23_256]
 
 For a machine without nvcc: the CUDA sources are compiled by g++ (C++20)
 against the stand-in headers beside this file (cuda_runtime.h, cuda_bf16.h,
 emu_mma.h for the inline PTX of mma.cuh, cooperative_groups.h), each block
 running as one std::thread per CUDA thread. Every csrc/*.cu is first
-checked to compile that way; then ns_inverse.cu, ns_cluster.cu and
-ns_refine.cu are built into one shared library (compile_ns: K7's entry
-points launch K3's kernels of the other two) and the NS entry points run on
+checked to compile that way; then ns_inverse.cu and ns_refine.cu are
+built into one shared library (compile_ns: K7's entry point at 128 launches
+K3's kernel of ns_inverse.cu) and the NS entry points run on
 a few systems against the plain PyTorch references, printing residuals and
 how far apart the two are, and the shared-memory wavefronts per ldmatrix
 matrix (1.0 when free of bank conflicts). `k5` builds fused_admm.cu into a
@@ -29,10 +30,12 @@ ns_refine.cu on three systems at each tile (the emulated card holds two
 blocks at 128 and two 4-CTA clusters at 256, so one of them walks two
 systems) against ns_inverse_refine_reference; `warm` the guarded warm NS K7
 at each tile on a batch of a tripped, two warm and a NaN start (its cold
-branch K3's kernels of ns_inverse.cu and ns_cluster.cu), and K9 at the 128
-tile, against their references. It shows that the indexing, the layouts
-and the barriers are right; it says nothing of speed. A run takes a few
-minutes.
+branch K3's kernel of ns_inverse.cu at 128, ns_refine.cu's RF_SCALED at
+256), and K9 at the 128 tile, against their references; `k23_256` K2 and
+K3 at the 256 tile (ns_refine.cu's RF_BUILD and RF_SCALED) on two systems
+against their references, and K3's masked walk on 600 systems. It shows
+that the indexing, the layouts and the barriers are right; it says nothing
+of speed. A run takes a few minutes.
 """
 
 from __future__ import annotations
@@ -114,10 +117,10 @@ def compile_all(out: Path) -> ctypes.CDLL:
 
 
 def compile_ns(out: Path) -> ctypes.CDLL:
-    """One library of ns_inverse.cu, ns_cluster.cu and ns_refine.cu (K2, K3,
-    K6, K7, K9 at 128): K7's entry points launch K3's kernel of the other
-    two. Built once per out."""
-    return _library(out, "ns", ("ns_inverse", "ns_cluster", "ns_refine"))
+    """One library of ns_inverse.cu and ns_refine.cu (K2, K3, K6, K7, K9):
+    K7's entry point at 128 launches K3's kernel of ns_inverse.cu. Built
+    once per out."""
+    return _library(out, "ns", ("ns_inverse", "ns_refine"))
 
 
 def compile_fused(out: Path) -> ctypes.CDLL:
@@ -331,6 +334,70 @@ def run_warm(lib: ctypes.CDLL, tiles=(NI.N, NI.N_BIG), sched=None) -> dict:
     return out
 
 
+def run_k23_256(lib: ctypes.CDLL, b: int = 2) -> dict:
+    """K2 and K3 at the 256 tile (qct_ns_inverse_scaled_build_256 and
+    qct_ns_inverse_scaled_256: ns_refine.cu's RF_BUILD and RF_SCALED) on the
+    ADMM schedule against their references, b systems each (the emulated
+    card's two clusters take one each): K3 on SPD n = 192 at cond 2.1e3,
+    K2 on hp = 3 x SPD n = 192 at cond 50 with random g9 blocks (64 of
+    them, which cross the CTAs' rows at 64 and 128). Max |I - ks X| of the kernel and of
+    the reference (K2's against the reference's ks), the largest difference
+    relative to max |reference|, K2's d_row against the reference's (relative)
+    and whether all is finite; prints them."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    s = default_config().solver
+    admm = (s.ns_admm_a0, s.ns_admm_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
+    mus = NI._mus_arg(*admm[:2])
+    out = {}
+    ks = spd(3, b, 192, 2.1e3, NI.N_BIG)
+    inv = torch.full_like(ks, float("nan"))
+    rc = lib.qct_ns_inverse_scaled_256(ptr(ks), ptr(inv), b, mus, *admm[1:], None)
+    ref = NI.ns_inverse_scaled_reference(ks, *admm)
+    out["k3_256"] = dict(rc=rc, residual=resid(ks, inv)[0], reference=resid(ks, ref)[0],
+                         rel=rel(inv, ref), finite=bool(inv.isfinite().all()))
+    hp = spd(4, b, 192, 50.0, NI.N_BIG) * 3.0
+    g9 = torch.from_numpy(np.random.default_rng(5).uniform(0, 0.5, (b, 9, 64))
+                          .astype(np.float32))
+    g9[:, [0, 4, 8]] += 1.0
+    inv, d = torch.full_like(hp, float("nan")), torch.full((b, 1, NI.N_BIG), float("nan"))
+    rc = lib.qct_ns_inverse_scaled_build_256(ptr(hp), ptr(g9), 64, ptr(inv), ptr(d), b, mus,
+                                             *admm[1:], None)
+    inv_r, _, d_r = NI.ns_inverse_scaled_build_reference(hp, g9, *admm)
+    ks_r = NI._build_k(hp, g9) * d_r[:, 0, :, None] * d_r
+    out["k2_256"] = dict(rc=rc, residual=resid(ks_r, inv)[0], reference=resid(ks_r, inv_r)[0],
+                         rel=rel(inv, inv_r), rel_d=rel(d, d_r),
+                         finite=bool(inv.isfinite().all() and d.isfinite().all()))
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
+def run_masked_walk(lib: ctypes.CDLL, b: int = 600) -> dict:
+    """The masked K3 at 256 (qct_ns_inverse_scaled_masked_256) with an empty
+    schedule, so that each flagged system's result is its start alpha I:
+    on b random nonnegative systems with every third flag set at random and
+    a run of 300 unflagged ones, so that the walk's block-wide scans cross
+    256-flag chunks. Whether exactly the flagged systems were stored, and
+    the largest difference of theirs from ns_inverse_scaled_reference's
+    start, relative; prints them."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    rng = np.random.default_rng(11)
+    ks = torch.from_numpy(rng.uniform(0, 1, (b, NI.N_BIG, NI.N_BIG)).astype(np.float32))
+    flags = torch.from_numpy((rng.uniform(size=b) < 1 / 3).astype(np.int32))
+    flags[100:400] = 0
+    inv = torch.full_like(ks, float("nan"))
+    rc = lib.qct_ns_inverse_scaled_masked_256(ptr(ks), ptr(inv), ptr(flags), b,
+                                              NI._mus_arg(0.0, 0), 0, 0, 0, None)
+    on = flags.bool()
+    ref = NI.ns_inverse_scaled_reference(ks[on], 0.0, 0, 0, 0)
+    stored = inv.isfinite().all(-1).all(-1)
+    out = {"masked_walk": dict(rc=rc, flagged=int(on.sum()), stored_is_flagged=bool(
+        torch.equal(stored, on)), rel=rel(inv[on], ref))}
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
 def run_plain128(lib: ctypes.CDLL, b: int = 3, iters: int = 25) -> dict:
     """K9 at the 128 tile (ns_refine.cu's fp32 steps from I / ||K||_inf,
     qct_ns_inverse_plain) on b SPD systems of cond 1e3, n = 120, against
@@ -499,10 +566,11 @@ def run_k1(lib: ctypes.CDLL, cases=K1_CASES) -> dict:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "plain", "warm")
+    which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "plain", "warm",
+                             "k23_256")
     # the checks apart from run()'s (warm: K7 at both tiles and K9/128 on
     # their own batches)
-    own = {"k1", "k5", "k6", "plain", "k8_256", "warm"}
+    own = {"k1", "k5", "k6", "plain", "k8_256", "warm", "k23_256"}
     prepare(PKG / "csrc", OUT)
     lib = compile_all(OUT)
     if set(which) - own:
@@ -515,6 +583,9 @@ if __name__ == "__main__":
     if "warm" in which:
         run_warm(compile_ns(OUT))
         run_plain128(compile_ns(OUT))
+    if "k23_256" in which:
+        run_k23_256(compile_ns(OUT))
+        run_masked_walk(compile_ns(OUT))
     if "k5" in which:
         run_k5(compile_fused(OUT))
     if "k1" in which:

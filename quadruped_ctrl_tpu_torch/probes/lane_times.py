@@ -6,8 +6,9 @@
 `chip_smoke.py` helpers are imported (default: this one); run it on two
 checkouts in one call, in turns (A, B, B, A), to compare them on one card.
 For h16_full, h16_trot and h16_midband (chip_smoke.LANES16, batch 2048,
-random_inputs(seed=1)) it prints `solve_packed_batch`'s ms per call (host
-clock, median of 5 synchronized calls after a warm-up) and, from
+random_inputs(seed=1)) and h16_woodbury (h16_full's inputs under
+chip_smoke.woodbury_config) it prints `solve_packed_batch`'s ms per call
+(host clock, median of 5 synchronized calls after a warm-up) and, from
 chip_smoke.phase_profile, the device busy time and idle share of one solve
 and its largest device items. The last line is one JSON object.
 """
@@ -44,11 +45,13 @@ def main() -> int:
     print(f"{args.label}: {cs.__file__}; {card}")
     cfg = default_config()
     out = {"label": args.label, "card": card}
-    for lane, (ms, pack, kind) in cs.LANES16.items():
+    lanes = {**{lane: (cfg, *v) for lane, v in cs.LANES16.items()},
+             "h16_woodbury": (cs.woodbury_config(cfg), *cs.LANES16["h16_full"])}
+    for lane, (lane_cfg, ms, pack, kind) in lanes.items():
         inputs = cs.lane_inputs(1, cs.B16, cs.H16, kind, dev)
         call_ms = cs.median_ms(lambda: pipeline.solve_packed_batch(
-            cfg, inputs, max_stance=ms, pack=pack), reps=5)
-        prof = cs.phase_profile(cfg, lane, inputs, max_stance=ms, pack=pack)
+            lane_cfg, inputs, max_stance=ms, pack=pack), reps=5)
+        prof = cs.phase_profile(lane_cfg, lane, inputs, max_stance=ms, pack=pack)
         out[lane] = dict(ms_per_call=call_ms, **prof)
         print(f"  {lane}: {call_ms:.2f} ms per call (median of 5)")
     print(json.dumps(out))

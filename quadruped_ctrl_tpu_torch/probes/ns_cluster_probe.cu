@@ -1,4 +1,6 @@
-// Probe of what bounds the 256-tile NS product (csrc/ns_cluster.cu) on one card.
+// Probe of what bounded the 256-tile NS product of the former csrc/ns_cluster.cu
+// (mma.sync, a cluster a system; K2/K3 at 256 now run on ns_refine.cu's wgmma
+// step, and the file is gone) on one card. Stands alone.
 //
 //   mkdir -p quadruped_ctrl_tpu_torch/_build
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \

@@ -1,13 +1,15 @@
-"""Where the warm refinement K6 (csrc/ns_refine.cu) spends its time, on the
-card.
+"""Where the NS step of csrc/ns_refine.cu spends its time, on the card: the
+warm refinement K6, or the scaled NS K3 at the 256 tile.
 
-    python3 quadruped_ctrl_tpu_torch/probes/refine_phases.py [--systems B]
+    python3 quadruped_ctrl_tpu_torch/probes/refine_phases.py [--systems B] [--kernel k6|k3]
 
 Copies csrc/ns_refine.cu into quadruped_ctrl_tpu_torch/_build/refine_phases/
 in several variants (by text substitution: the library's source is not
 changed), builds each with nvcc into a library of its own, all at once, and
 runs K6 (one bf16x3 and one fp32 step) at both tiles on B SPD warm starts
-(n = 120 and 192, cond 1e4; default 2048):
+(n = 120 and 192, cond 1e4; default 2048), or K3 at 256 (`--kernel k3`:
+the ADMM schedule, 8 bf16x3 and one fp32 step, on B SPD n = 192 at cond
+2.1e3):
 
 * `clocks`: clock64() stamps, read for thread 0 of CTA 0: the mean clocks a
   stage of each product type spends in its barrier, the B loads issued, the
@@ -15,14 +17,17 @@ runs K6 (one bf16x3 and one fp32 step) at both tiles on B SPD warm starts
   staging, the wait, and the adds; a step's two products, its T epilogue and
   barrier, its last epilogue (X, or the result's store) and barrier; and a
   system's tail (at 256 the barrier that frees T, the next init's copy into
-  it, its transpose into X, the barrier). The stamps perturb
-  what they time: compare phases, not totals.
+  it, its transpose into X, the barrier; K3: the cold start, its barriers).
+  The stamps perturb what they time: compare phases, not totals.
 * device ms by CUDA events over 20 chained launches of the unchanged kernel
   (`full`) and of copies with one piece cut, each result wrong:
   `no_copies` (no cp.async of ks and init, no store of the result; the
   transpose of init stays),
   `no_b_loads` (B's loads replaced by zeros: no DSMEM at 256),
-  `no_staging` (B's loads waited for, but not split or stored); and one
+  `no_staging` (B's loads waited for, but not split or stored),
+  `two_peers` (at 256 the rows of one of the three peers not loaded: the
+  remote bytes of a product 128 KB in place of 192 KB, as a 2 x 2 quadrant
+  split of K, X and T would move for B and A together); and one
   alternative that is right: `own_local` (at 256 the CTA's own rows of B
   read from its own shared memory, not over DSMEM).
 """
@@ -41,7 +46,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as CS  # noqa: E402
+from quadruped_ctrl_tpu_torch import default_config  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import _build  # noqa: E402
+from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI  # noqa: E402
 
 STAGE_PHASES = ("barrier", "B loads", "wgmma issue", "copies, next A and B staged", "wait",
                 "adds")
@@ -87,7 +94,8 @@ CUTS = {
     "no_copies": (("  cp_async16(tile + (kKsw ? ksw<kN>(r, c) : r * kN + c), src + r * kN + c);",
                    "  (void)src; (void)r; (void)c;"),
                   ("      *reinterpret_cast<float2*>(out + (S::kRows * q + r) * kN + c) =\n"
-                   "          make_float2(acc[i], acc[i + 1]);", "      (void)r; (void)c;")),
+                   "          make_float2(mu * acc[i], mu * acc[i + 1]);",
+                   "      (void)r; (void)c;")),
     "no_b_loads": (("        v[l] = *reinterpret_cast<const float4*>(b_tile + src(s, l));",
                     "        v[l] = make_float4(0.f, 0.f, 0.f, 0.f);"),
                    ("        v[l] = ld_cluster(map_rank(b_own, owner) + 4 * src(s, l));",
@@ -96,6 +104,10 @@ CUTS = {
                     "      char* plane",
                     "    if (v[0].x != 12345.f) return;\n    float* slot = ring + (s & 1) * "
                     "RF_SLOT;\n    if constexpr (kBf16) {\n      char* plane"),),
+    "two_peers": (("        v[l] = ld_cluster(map_rank(b_own, owner) + 4 * src(s, l));",
+                   "        v[l] = owner == ((q + 2) & 3) ? make_float4(0.f, 0.f, 0.f, 0.f)\n"
+                   "                                      : ld_cluster(map_rank(b_own, owner) + "
+                   "4 * src(s, l));"),),
     "own_local": (("#pragma unroll\n    for (int l = 0; l < P::kLoads; ++l) {\n"
                    "      if constexpr (S::kCtas == 1) {",
                    "#pragma unroll\n    for (int l = 0; l < P::kLoads; ++l) {\n"
@@ -127,7 +139,7 @@ def clocked_source(src: str) -> str:
     src = replace_once(src, "  rf_sync<kN>();  // X complete in every CTA; every read of T done\n",
                        "  rf_sync<kN>();  // X complete in every CTA; every read of T done\n"
                        + record)
-    tail0 = "    if (next < b) {\n      if constexpr (kMode == RF_PLAIN) {"
+    tail0 = "    if (next < b) {\n      if constexpr (kCold) {"
     src = replace_once(src, tail0, "    long long v0 = clock64();\n" + tail0)
     tail1 = "    rf_sync<kN>();  // the next K and X complete in every CTA\n"
     src = replace_once(src, tail1, tail1 + "    if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
@@ -158,12 +170,12 @@ def build() -> dict:
         out = root / name
         out.mkdir(parents=True, exist_ok=True)
         (out / "ns_refine.cu").write_text(src)
-        for other in ("mma.cuh", "ns_core.cuh", "ns_inverse.cu", "ns_cluster.cu"):
+        for other in ("mma.cuh", "ns_core.cuh", "ns_inverse.cu"):
             (out / other).write_text((_build.CSRC / other).read_text())
-        # ns_refine.cu's K7 entry points call the masked K3 of the other two
+        # ns_refine.cu's K7/128 entry point calls ns_inverse.cu's masked K3
         procs[name] = (out / "lib.so", subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out / "lib.so"),
-             *(str(out / f) for f in ("ns_refine.cu", "ns_inverse.cu", "ns_cluster.cu"))],
+             *(str(out / f) for f in ("ns_refine.cu", "ns_inverse.cu"))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (path, proc) in procs.items():
@@ -171,9 +183,10 @@ def build() -> dict:
         if proc.returncode:
             raise SystemExit(f"refine_phases: nvcc failed for {name}:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(path))
-        for entry in ("qct_ns_inverse_refine", "qct_ns_inverse_refine_256"):
-            getattr(lib, entry).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
+        for entry, (argtypes, restype) in _build._SIGNATURES.items():
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = list(argtypes)
+                getattr(lib, entry).restype = restype
         libs[name] = lib
     return libs
 
@@ -181,6 +194,7 @@ def build() -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--systems", type=int, default=2048)
+    parser.add_argument("--kernel", choices=("k6", "k3"), default="k6")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("refine_phases: needs a CUDA card")
@@ -193,20 +207,30 @@ def main() -> int:
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     b = args.systems
-    for npad, n in ((128, 120), (256, 192)):
-        ks, init, _ = CS.spd_warm(gen, b, n, npad, dev)
+    admm = CS.schedules(default_config())[0]
+    for npad, n in ((128, 120), (256, 192)) if args.kernel == "k6" else ((256, 192),):
+        if args.kernel == "k6":
+            ks, init, _ = CS.spd_warm(gen, b, n, npad, dev)
+        else:
+            ks = CS.spd_batch(gen, b, n, npad, 2.1e3, dev)
         inv = torch.empty_like(ks)
 
         def run(lib):
-            entry = lib.qct_ns_inverse_refine if npad == 128 else lib.qct_ns_inverse_refine_256
-            rc = entry(ptr(ks), ptr(init), ptr(inv), b, 1, 1, stream)
+            if args.kernel == "k3":
+                rc = lib.qct_ns_inverse_scaled_256(ptr(ks), ptr(inv), b,
+                                                   NI._mus_arg(*admm[:2]), *admm[1:], stream)
+            else:
+                entry = (lib.qct_ns_inverse_refine if npad == 128
+                         else lib.qct_ns_inverse_refine_256)
+                rc = entry(ptr(ks), ptr(init), ptr(inv), b, 1, 1, stream)
             if rc:
-                raise SystemExit(f"refine_phases: K6/{npad} launch failed with cudaError {rc}")
+                raise SystemExit(f"refine_phases: {args.kernel}/{npad} launch failed with "
+                                 f"cudaError {rc}")
 
         times = {name: CS.event_ms(lambda: run(lib)) for name, lib in libs.items()
                  if name != "clocks"}
-        print(f"K6/{npad} at {b} systems, device ms (events, 20 launches): " + ", ".join(
-            f"{name} {ms:.4f}" for name, ms in times.items()))
+        print(f"{args.kernel.upper()}/{npad} at {b} systems, device ms (events, 20 launches): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in times.items()))
         lib = libs["clocks"]
         lib.qct_clocks_reset()
         run(lib)
@@ -223,8 +247,8 @@ def main() -> int:
                 f" a step ({steps}): " + ", ".join(f"{p} {m:.0f}" for p, m in
                                                       zip(STEP_PHASES, smean)))
         tails = max(clocks[33], 1)
-        print(f"  a system's tail (next init copied, barrier): {clocks[32] / tails:.0f} clocks "
-              f"({tails} systems on CTA 0)")
+        print(f"  a system's tail (the next system's start: init copied and transposed, or the "
+              f"cold start; barriers): {clocks[32] / tails:.0f} clocks ({tails} systems on CTA 0)")
     return 0
 
 

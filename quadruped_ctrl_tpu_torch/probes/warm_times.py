@@ -1,6 +1,6 @@
-"""Time the guarded warm NS K7 at both tiles and the plain NS K9 at the 128
-tile of one checkout on the card, beside torch.linalg.inv_ex, and check them
-against their references.
+"""Time the guarded warm NS K7 at both tiles, the plain NS K9 at the 128
+tile and the scaled NS K2 and K3 at the 256 tile of one checkout on the
+card, beside torch.linalg.inv_ex, and check them against their references.
 
     python3 quadruped_ctrl_tpu_torch/probes/warm_times.py [--root DIR] [--label NAME]
 
@@ -20,7 +20,15 @@ their count (chip_smoke.event_ms). Cases, each at 2048 systems:
   `qct_ns_inverse_scaled_masked[_256]`), the time of each of K7's two
   launches;
 - K7 on `spd_warm` starts (cond 1e4, n = 120 / 192; every system warm): the
-  largest row sum of |I - K X| against the reference's.
+  largest row sum of |I - K X| against the reference's; K6
+  (`ns_inverse_refine`, one bf16x3 and one fp32 step) on the same starts;
+- K2 (`ns_inverse_scaled_build`) and K3 (`ns_inverse_scaled`) at the 256
+  tile at both schedules: on SPD n = 192 (cond 2.1e3 on the ADMM schedule,
+  1e4 on the polish one; g9 zero, so K2 builds K3's ks) and on a real
+  h16_full solve's K2 calls 0 (ADMM) and 2 (polish; chip_smoke
+  .solve_operands), K3 on the ks K2 builds: residual (max |I - ks X| on the
+  ADMM schedule, the largest row sum on the polish one) against the
+  reference's.
 
 The last line is one JSON object.
 """
@@ -123,10 +131,35 @@ def main() -> int:
         warm = dict(r0=r0w, guard_share=float((cs.guard_r0(ks, init) < skw["guard"]).float().mean()),
                     residual=cs.residuals(ks, got)[1], reference=cs.residuals(ks, ref)[1],
                     device_ms=cs.event_ms(lambda: NI.ns_inverse_warm(ks, init, **skw), 5),
-                    inv_ex_ms=cs.event_ms(lambda: torch.linalg.inv_ex(ks), 5))
+                    inv_ex_ms=cs.event_ms(lambda: torch.linalg.inv_ex(ks), 5),
+                    k6_residual=cs.residuals(ks, NI.ns_inverse_refine(ks, init, 1, 1))[1],
+                    k6_ms=cs.event_ms(lambda: NI.ns_inverse_refine(ks, init, 1, 1), 5))
         out[f"K7/{npad} all warm"] = warm
         print(f"  K7/{npad} all warm: {warm}")
         del ks, init, got, ref
+
+    admm_s, polish_s = cs.schedules(cfg)
+    gen.manual_seed(16)
+    calls = cs.solve_operands(cfg, cs.lane_inputs(2, cs.B16, cs.H16, kind16, dev),
+                              max_stance=ms16, pack=pack16)
+    for label, sched, cond, call in (("ADMM", admm_s, 2.1e3, 0), ("polish", polish_s, 1e4, 2)):
+        metric = 0 if sched == admm_s else 1
+        spd = cs.spd_batch(gen, cs.B16, 192, NI.N_BIG, cond, dev)
+        for case, (hp, g9) in ((f"SPD n=192 cond {cond:g}", (spd, torch.zeros(
+                (cs.B16, 9, 64), device=dev))), (f"h16_full call {call}", calls[call][:2])):
+            inv, _, d = NI.ns_inverse_scaled_build(hp, g9, *sched)
+            ks = NI._build_k(hp, g9) * d[:, 0, :, None] * d
+            inv_r = NI.ns_inverse_scaled_build_reference(hp, g9, *sched)[0]
+            k3 = NI.ns_inverse_scaled(ks, *sched)
+            r = dict(k2_residual=cs.residuals(ks, inv)[metric],
+                     k3_residual=cs.residuals(ks, k3)[metric],
+                     reference=cs.residuals(ks, inv_r)[metric],
+                     k2_ms=cs.event_ms(lambda: NI.ns_inverse_scaled_build(hp, g9, *sched), 5),
+                     k3_ms=cs.event_ms(lambda: NI.ns_inverse_scaled(ks, *sched), 5),
+                     inv_ex_ms=cs.event_ms(lambda: torch.linalg.inv_ex(ks), 5))
+            out[f"K2/K3 256 {label}, {case}"] = r
+            print(f"  K2/K3 256 {label}, {case}: {r}")
+            del inv, ks, inv_r, k3
     print(json.dumps(out))
     return 0
 

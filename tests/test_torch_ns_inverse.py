@@ -88,9 +88,10 @@ def _tc_mm(a: torch.Tensor, b: torch.Tensor, bf16x3: bool, slab: int | None = No
     """a @ b (B, npad, npad) summed as the kernels sum it. The rows fall in
     slabs of `slab` rows, and each slab takes k in runs of `run`, starting at
     its own rows of k and walking the others in turn. By default the K3
-    kernels' order: at the 256 tile csrc/ns_cluster.cu's mm_slab (slabs of
-    64, runs of 16), at the 128 tile csrc/ns_core.cuh's mm_tile (one slab of
-    128). The plain NS of csrc/ns_plain.cu (K8, K9/256) sums its blocks' rows
+    kernels' order: at the 256 tile csrc/ns_refine.cu's rf_product (slabs of
+    64, one a CTA, runs of 16: a bf16x3 stage, two 3xTF32 stages of 8), at
+    the 128 tile csrc/ns_core.cuh's mm_tile (one slab of 128). The plain NS
+    of csrc/ns_plain.cu (K8, K9/256) sums its blocks' rows
     in slabs of 64 at both tiles (a cluster row of CTAs shares its rows'
     order), runs of 16. bf16x3: per 16 k the three bf16 passes hi*hi, hi*lo,
     lo*hi, each a 16-term sum added in turn to one fp32 accumulator (an
@@ -173,7 +174,7 @@ def test_tensor_core_plain_schedule_holds_the_gate(order, n):
 def test_kernel_sources_run_in_cpu_emulation(tmp_path):
     """The 128-tile kernels' CUDA source (csrc/ns_inverse.cu on ns_core.cuh
     and mma.cuh; K6, K7's guard and warm branch and K9 in csrc/ns_refine.cu,
-    built into one library with them and csrc/ns_cluster.cu) compiled by g++
+    built into one library with them) compiled by g++
     against the emulation headers of quadruped_ctrl_tpu_torch/probes/cpu_emu
     (one thread per CUDA thread; mma.sync, ldmatrix and wgmma on their PTX
     fragment layouts) and run on b = 2 systems against the references: every

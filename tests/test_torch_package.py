@@ -259,7 +259,7 @@ def test_build_module_without_nvcc(monkeypatch, tmp_path):
     from quadruped_ctrl_tpu_torch.ops import _build
 
     names = [p.name for p in _build.source_files()]
-    assert {"ns_core.cuh", "ns_inverse.cu", "ns_cluster.cu", "formation_pack.cu",
+    assert {"ns_core.cuh", "ns_inverse.cu", "ns_refine.cu", "formation_pack.cu",
             "fused_admm.cu"} <= set(names)
     assert len(_build.source_hash()) == 16
     assert _build.library_path().parent == _build.BUILD_DIR

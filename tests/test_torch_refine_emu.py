@@ -33,7 +33,7 @@ from tests.test_torch_package import _one_thread  # noqa: F401 (autouse)
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
     """The emulate module and the NS kernels' emulated library (ns_refine.cu
-    with ns_inverse.cu and ns_cluster.cu)."""
+    with ns_inverse.cu)."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the CPU emulation of the kernels")
     path = Path(NI.__file__).parents[1] / "probes" / "cpu_emu" / "emulate.py"
