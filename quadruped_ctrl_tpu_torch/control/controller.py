@@ -59,6 +59,7 @@ from quadruped_ctrl_tpu_torch.gait import gait as gait_mod
 from quadruped_ctrl_tpu_torch.mpc import formation
 from quadruped_ctrl_tpu_torch.mpc.reference import build_reference
 from quadruped_ctrl_tpu_torch.solver import admm
+from quadruped_ctrl_tpu_torch.utils.timer import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -710,11 +711,17 @@ def controller_step(cfg: FrameworkConfig, state: FullControllerState,
                     mpc_iterations: int | None = None):
     """Single-robot full tick with the MPC every iterations_between_mpc ticks
     (a Python branch on ctx['mpc_due'], holding the last solution
-    otherwise)."""
-    state, ctx = control_tick(cfg, state, sensors, cmd)
-    if bool(ctx["mpc_due"]):
-        state = mpc_update(cfg, state, ctx, iterations=mpc_iterations)
-    return leg_commands(cfg, state, ctx)
+    otherwise). A `qct.controller_step` span holds the tick, with its stages
+    `qct.control_tick`, `qct.mpc_update` (only when the MPC fires) and
+    `qct.leg_commands` inside."""
+    with span("qct.controller_step"):
+        with span("qct.control_tick"):
+            state, ctx = control_tick(cfg, state, sensors, cmd)
+        if bool(ctx["mpc_due"]):
+            with span("qct.mpc_update"):
+                state = mpc_update(cfg, state, ctx, iterations=mpc_iterations)
+        with span("qct.leg_commands"):
+            return leg_commands(cfg, state, ctx)
 
 
 @exact_matmuls

@@ -4,7 +4,8 @@ The counterpart of `quadruped_ctrl_tpu/mpc/pipeline.py`: the per-scenario
 solves `solve` and `solve_compressed` with their `torch.func.vmap` batches
 `solve_batch` and `solve_compressed_batch`, the batched packed solve
 `solve_packed_batch`, the inputs and the random scenario generator. The
-work runs where the inputs lie.
+work runs where the inputs lie. Each solve is a `qct.solve` span, its
+formation a `qct.formation` span inside it (`utils/timer.span`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from quadruped_ctrl_tpu_torch.config import FrameworkConfig
 from quadruped_ctrl_tpu_torch.core.types import Tree, vmap
 from quadruped_ctrl_tpu_torch.mpc import formation
 from quadruped_ctrl_tpu_torch.solver import admm
+from quadruped_ctrl_tpu_torch.utils.timer import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,12 +99,14 @@ def solve(cfg: FrameworkConfig, inp: MPCInputs, h: int | None = None,
     axis): SRB dynamics, discretization, condensed QP, `admm.admm_mpc`.
     Returns forces (h, 4, 3), world frame."""
     h = inp.gait_table.shape[0] if h is None else h
-    adt, bdt, x0 = _dynamics(cfg, inp)
-    step_mask = torch.ones((h,), dtype=torch.float32, device=adt.device)
-    hess, grad = formation.qp_cost_nil(cfg.mpc, adt, bdt, x0, inp.traj, step_mask)
-    forces = admm.admm_mpc(cfg.solver, cfg.mpc, hess, grad, inp.gait_table,
-                           iterations=iterations, polish_rounds=polish_rounds)
-    return forces.reshape(h, 4, 3)
+    with span("qct.solve"):
+        with span("qct.formation"):
+            adt, bdt, x0 = _dynamics(cfg, inp)
+            step_mask = torch.ones((h,), dtype=torch.float32, device=adt.device)
+            hess, grad = formation.qp_cost_nil(cfg.mpc, adt, bdt, x0, inp.traj, step_mask)
+        forces = admm.admm_mpc(cfg.solver, cfg.mpc, hess, grad, inp.gait_table,
+                               iterations=iterations, polish_rounds=polish_rounds)
+        return forces.reshape(h, 4, 3)
 
 
 def solve_batch(cfg: FrameworkConfig, inputs: MPCInputs, **kw):
@@ -118,14 +122,16 @@ def solve_compressed(cfg: FrameworkConfig, inp: MPCInputs, max_stance: int,
     static-shape gather of `max_stance` slots per step). Returns forces
     (h, 4, 3) with zeros on the dropped swing feet."""
     h = inp.gait_table.shape[0] if h is None else h
-    adt, bdt, x0 = _dynamics(cfg, inp)
-    foot_idx, gait_red = formation.compress_stance(inp.gait_table, max_stance)
-    step_mask = torch.ones((h,), dtype=torch.float32, device=adt.device)
-    hess, grad = formation.qp_cost_compressed_nil(cfg.mpc, adt, bdt, x0, inp.traj,
-                                                  step_mask, foot_idx)
-    x_red = admm.admm_mpc(cfg.solver, cfg.mpc, hess, grad, gait_red,
-                          iterations=iterations, polish_rounds=polish_rounds)
-    return formation.scatter_forces(x_red, foot_idx, h)
+    with span("qct.solve"):
+        with span("qct.formation"):
+            adt, bdt, x0 = _dynamics(cfg, inp)
+            foot_idx, gait_red = formation.compress_stance(inp.gait_table, max_stance)
+            step_mask = torch.ones((h,), dtype=torch.float32, device=adt.device)
+            hess, grad = formation.qp_cost_compressed_nil(cfg.mpc, adt, bdt, x0, inp.traj,
+                                                          step_mask, foot_idx)
+        x_red = admm.admm_mpc(cfg.solver, cfg.mpc, hess, grad, gait_red,
+                              iterations=iterations, polish_rounds=polish_rounds)
+        return formation.scatter_forces(x_red, foot_idx, h)
 
 
 def solve_compressed_batch(cfg: FrameworkConfig, inputs: MPCInputs, max_stance: int, **kw):
@@ -154,40 +160,42 @@ def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,
     if b % pack:
         raise ValueError(f"batch {b} is not a multiple of pack={pack}")
     h = inputs.gait_table.shape[1] if h is None else h
-
-    adt, bdt = formation.srb_discrete(
-        cfg.mpc, inputs.r_feet, inputs.rpy[:, 2], inputs.x_drag, cfg.dt_mpc)
-    x0 = formation.build_x0(inputs.rpy, inputs.position, inputs.omega_world,
-                            inputs.v_world, cfg.mpc.gravity)
-    foot_idx, gait_red, sel = formation.stance_selectors(inputs.gait_table,
-                                                         max_stance)
-    step_mask = torch.ones((b, h), dtype=torch.float32, device=adt.device)
     n_c = 3 * max_stance * h
 
-    if use_fused:
-        # the single-launch polish takes its best-iterate and violation
-        # reductions over the whole system, so each scenario gets its own
-        # (padded) tile instead of a packed one
-        hess, grad = formation.qp_cost_compressed_nil_sel(
-            cfg.mpc, adt, bdt, x0, inputs.traj, step_mask, sel)
-        xp = admm.admm_mpc_fused(cfg.solver, cfg.mpc, hess, grad, gait_red,
-                                 iterations=iterations,
-                                 polish_rounds=polish_rounds,
-                                 use_kernels=use_kernels)
+    with span("qct.solve"):
+        with span("qct.formation"):
+            adt, bdt = formation.srb_discrete(
+                cfg.mpc, inputs.r_feet, inputs.rpy[:, 2], inputs.x_drag, cfg.dt_mpc)
+            x0 = formation.build_x0(inputs.rpy, inputs.position, inputs.omega_world,
+                                    inputs.v_world, cfg.mpc.gravity)
+            foot_idx, gait_red, sel = formation.stance_selectors(inputs.gait_table,
+                                                                 max_stance)
+            step_mask = torch.ones((b, h), dtype=torch.float32, device=adt.device)
+            if use_fused:
+                # the single-launch polish takes its best-iterate and
+                # violation reductions over the whole system, so each
+                # scenario gets its own (padded) tile instead of a packed one
+                hess, grad = formation.qp_cost_compressed_nil_sel(
+                    cfg.mpc, adt, bdt, x0, inputs.traj, step_mask, sel)
+            else:
+                kp, gp = formation.qp_cost_packed(cfg.mpc, adt, bdt, x0, inputs.traj,
+                                                  step_mask, sel, pack,
+                                                  use_kernels=use_kernels)
+        if use_fused:
+            xp = admm.admm_mpc_fused(cfg.solver, cfg.mpc, hess, grad, gait_red,
+                                     iterations=iterations,
+                                     polish_rounds=polish_rounds,
+                                     use_kernels=use_kernels)
+            return formation.scatter_forces(xp.reshape(b, n_c), foot_idx, h)
+        if form_only:
+            # formation-phase timing without the solve: the returned "forces"
+            # depend on every formed quantity, but nothing is factorized
+            probe = (kp.sum(dim=(1, 2)) + gp.sum(dim=1)) * 1e-12
+            probe = probe[:, None].expand(b // pack, pack)
+            return probe.reshape(b, 1, 1, 1).expand(b, h, 4, 3)
+        gaitp = gait_red.reshape(b // pack, pack * h, max_stance)
+        xp = admm.admm_mpc_batched(cfg.solver, cfg.mpc, kp, gp, gaitp,
+                                   iterations=iterations,
+                                   polish_rounds=polish_rounds,
+                                   use_kernels=use_kernels, pack=pack)
         return formation.scatter_forces(xp.reshape(b, n_c), foot_idx, h)
-
-    kp, gp = formation.qp_cost_packed(cfg.mpc, adt, bdt, x0, inputs.traj,
-                                      step_mask, sel, pack,
-                                      use_kernels=use_kernels)
-    if form_only:
-        # formation-phase timing without the solve: the returned "forces"
-        # depend on every formed quantity, but nothing is factorized
-        probe = (kp.sum(dim=(1, 2)) + gp.sum(dim=1)) * 1e-12
-        probe = probe[:, None].expand(b // pack, pack)
-        return probe.reshape(b, 1, 1, 1).expand(b, h, 4, 3)
-    gaitp = gait_red.reshape(b // pack, pack * h, max_stance)
-    xp = admm.admm_mpc_batched(cfg.solver, cfg.mpc, kp, gp, gaitp,
-                               iterations=iterations,
-                               polish_rounds=polish_rounds,
-                               use_kernels=use_kernels, pack=pack)
-    return formation.scatter_forces(xp.reshape(b, n_c), foot_idx, h)

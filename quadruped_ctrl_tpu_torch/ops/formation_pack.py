@@ -32,6 +32,7 @@ import torch
 
 from quadruped_ctrl_tpu_torch.ops import _build, _launch
 from quadruped_ctrl_tpu_torch.ops.ns_inverse import _split
+from quadruped_ctrl_tpu_torch.utils.timer import span
 
 _SMEM_LIMIT = 227 * 1024     # shared memory one H100 block may use
 
@@ -97,30 +98,31 @@ def form_packed(bfam_s, smat, r, smask, h: int, ms: int, pack: int, alpha: float
 
     A CPU tensor runs the reference; a CUDA tensor launches the kernel, at
     either tile (n_pair <= 128 or 128 < n_pair <= 256)."""
-    _check(bfam_s, smat, r, smask, h, ms, pack)
-    if not bfam_s.is_cuda:
-        return form_packed_reference(bfam_s, smat, r, smask, h, ms, pack, alpha)
-    n_pair = pack * 3 * ms * h
-    bfam_s, smat, r, smask = map(_launch.aligned, (bfam_s, smat, r, smask))
-    lib = _build.load()
-    smem = lib.qct_form_packed_smem_bytes(h, ms)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"form_packed on CUDA at h={h}, ms={ms}: one scenario needs {smem} bytes of "
-            f"shared memory, over the {_SMEM_LIMIT} one block may use")
-    b = bfam_s.shape[0]
-    hess = torch.empty((b // pack, n_pair, n_pair), dtype=torch.float32,
-                       device=bfam_s.device)
-    grad = torch.empty((b // pack, n_pair), dtype=torch.float32,
-                       device=bfam_s.device)
-    P = _launch.ptr
-    with torch.cuda.device(bfam_s.device):
-        rc = lib.qct_form_packed(P(bfam_s), P(smat), P(r), P(smask), P(hess),
-                                 P(grad), b, h, ms, pack, float(alpha),
-                                 _launch.stream(bfam_s))
-    _launch.raise_on_error(rc, "form_packed")
-    _launch.count(_K1, pair_tile(n_pair))
-    return hess, grad
+    with span("qct.ops.form_packed"):
+        _check(bfam_s, smat, r, smask, h, ms, pack)
+        if not bfam_s.is_cuda:
+            return form_packed_reference(bfam_s, smat, r, smask, h, ms, pack, alpha)
+        n_pair = pack * 3 * ms * h
+        bfam_s, smat, r, smask = map(_launch.aligned, (bfam_s, smat, r, smask))
+        lib = _build.load()
+        smem = lib.qct_form_packed_smem_bytes(h, ms)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(
+                f"form_packed on CUDA at h={h}, ms={ms}: one scenario needs {smem} bytes of "
+                f"shared memory, over the {_SMEM_LIMIT} one block may use")
+        b = bfam_s.shape[0]
+        hess = torch.empty((b // pack, n_pair, n_pair), dtype=torch.float32,
+                           device=bfam_s.device)
+        grad = torch.empty((b // pack, n_pair), dtype=torch.float32,
+                           device=bfam_s.device)
+        P = _launch.ptr
+        with torch.cuda.device(bfam_s.device):
+            rc = lib.qct_form_packed(P(bfam_s), P(smat), P(r), P(smask), P(hess),
+                                     P(grad), b, h, ms, pack, float(alpha),
+                                     _launch.stream(bfam_s))
+        _launch.raise_on_error(rc, "form_packed")
+        _launch.count(_K1, pair_tile(n_pair))
+        return hess, grad
 
 
 # The launch counts live on the function object; the private alias keeps them

@@ -30,6 +30,7 @@ import torch
 
 from quadruped_ctrl_tpu_torch.ops import _build, _launch
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
+from quadruped_ctrl_tpu_torch.utils.timer import span
 
 N = 128   # padded variable count
 M = 256   # padded constraint-row count
@@ -134,31 +135,32 @@ def fused_admm_solve(a_dense, hess, grad, l, u, rho, *,
     as padding; hess (B, N, N) with identity on padded variables; grad
     (B, N); l, u, rho (B, M) with padded rows l = u = 0, rho = 1. Returns x
     (B, N). Any B."""
-    b = hess.shape[0] if hess.dim() == 3 else None
-    _launch.check(a_dense, "a_dense", (M, N))
-    _launch.check(hess, "hess", (b, N, N), a_dense.device)
-    _launch.check(grad, "grad", (b, N), a_dense.device)
-    for name, t in (("l", l), ("u", u), ("rho", rho)):
-        _launch.check(t, name, (b, M), a_dense.device)
-    NI._check_schedule(n_scaled)
-    kw = dict(mus_a0=mus_a0, n_scaled=n_scaled, n_quad=n_quad, n_hi=n_hi,
-              n_iter=n_iter, polish_rounds=polish_rounds, sigma=sigma,
-              alpha_rx=alpha_rx, w_act=w_act, act_tol=act_tol, infty=infty)
-    if not hess.is_cuda:
-        return fused_admm_solve_reference(a_dense, hess, grad, l, u, rho, **kw)
-    a_dense, hess, grad, l, u, rho = map(_launch.aligned, (a_dense, hess, grad, l, u, rho))
-    lib = _build.load()
-    x = torch.empty_like(grad)
-    P = _launch.ptr
-    with torch.cuda.device(hess.device):
-        rc = lib.qct_fused_admm_solve(
-            P(a_dense), P(hess), P(grad), P(l), P(u), P(rho), P(x), b,
-            NI._mus_arg(mus_a0, n_scaled), n_scaled, n_quad, n_hi, n_iter,
-            polish_rounds, sigma, alpha_rx, w_act, act_tol, infty,
-            _launch.stream(hess))
-    _launch.raise_on_error(rc, "fused_admm_solve")
-    _launch.count(_K5, N)
-    return x
+    with span("qct.ops.fused_admm_solve"):
+        b = hess.shape[0] if hess.dim() == 3 else None
+        _launch.check(a_dense, "a_dense", (M, N))
+        _launch.check(hess, "hess", (b, N, N), a_dense.device)
+        _launch.check(grad, "grad", (b, N), a_dense.device)
+        for name, t in (("l", l), ("u", u), ("rho", rho)):
+            _launch.check(t, name, (b, M), a_dense.device)
+        NI._check_schedule(n_scaled)
+        kw = dict(mus_a0=mus_a0, n_scaled=n_scaled, n_quad=n_quad, n_hi=n_hi,
+                  n_iter=n_iter, polish_rounds=polish_rounds, sigma=sigma,
+                  alpha_rx=alpha_rx, w_act=w_act, act_tol=act_tol, infty=infty)
+        if not hess.is_cuda:
+            return fused_admm_solve_reference(a_dense, hess, grad, l, u, rho, **kw)
+        a_dense, hess, grad, l, u, rho = map(_launch.aligned, (a_dense, hess, grad, l, u, rho))
+        lib = _build.load()
+        x = torch.empty_like(grad)
+        P = _launch.ptr
+        with torch.cuda.device(hess.device):
+            rc = lib.qct_fused_admm_solve(
+                P(a_dense), P(hess), P(grad), P(l), P(u), P(rho), P(x), b,
+                NI._mus_arg(mus_a0, n_scaled), n_scaled, n_quad, n_hi, n_iter,
+                polish_rounds, sigma, alpha_rx, w_act, act_tol, infty,
+                _launch.stream(hess))
+        _launch.raise_on_error(rc, "fused_admm_solve")
+        _launch.count(_K5, N)
+        return x
 
 
 _K5 = _launch.new_count(fused_admm_solve)

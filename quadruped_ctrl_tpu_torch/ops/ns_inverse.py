@@ -30,7 +30,8 @@ walking systems in turn), K7's cold branch K3's own kernel on the systems
 whose guard tripped; the plain NS K8 and K9 at 256 run `csrc/ns_plain.cu`
 (K8 on one cluster of 8 blocks at 128 and of 16 at 256, K9 at 256 on a
 cluster of 4 a system).
-Every wrapper hands its kernel 16-byte aligned inputs (`_launch.aligned`).
+Every wrapper hands its kernel 16-byte aligned inputs (`_launch.aligned`)
+and runs in a `qct.ops.<wrapper>` span (`utils/timer.span`).
 On a CPU tensor they run the `_reference` functions, the same arithmetic
 in plain PyTorch.
 
@@ -47,6 +48,7 @@ import ctypes
 import torch
 
 from quadruped_ctrl_tpu_torch.ops import _build, _launch
+from quadruped_ctrl_tpu_torch.utils.timer import span
 
 N = 128           # default padded system size (n <= 128, e.g. packed h=10)
 N_BIG = 256       # large tile (128 < n <= 256, e.g. the full h=16 problem)
@@ -155,22 +157,23 @@ def ns_inverse_scaled(ks, a0: float = 1e-5, n_scaled: int = 9, n_quad: int = 2,
     """Scaled mixed-precision NS inverse of ks (B, npad, npad), Jacobi-scaled
     SPD with identity on the pad, npad in {128, 256}, any B. The defaults are
     the polish-grade schedule (SolverConfig.ns_a0 / ns_*_iters)."""
-    npad = ks.shape[-1] if ks.dim() == 3 else None
-    _launch.check(ks, "ks", (None, npad, npad))
-    _check_tile(npad)
-    _check_schedule(n_scaled)
-    if not ks.is_cuda:
-        return ns_inverse_scaled_reference(ks, a0, n_scaled, n_quad, n_hi)
-    ks = _launch.aligned(ks)
-    lib = _build.load()
-    entry = lib.qct_ns_inverse_scaled if npad == N else lib.qct_ns_inverse_scaled_256
-    inv = torch.empty_like(ks)
-    with torch.cuda.device(ks.device):
-        rc = entry(_launch.ptr(ks), _launch.ptr(inv), ks.shape[0],
-                   _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(ks))
-    _launch.raise_on_error(rc, f"ns_inverse_scaled at the {npad} tile")
-    _launch.count(_K3, npad)
-    return inv
+    with span("qct.ops.ns_inverse_scaled"):
+        npad = ks.shape[-1] if ks.dim() == 3 else None
+        _launch.check(ks, "ks", (None, npad, npad))
+        _check_tile(npad)
+        _check_schedule(n_scaled)
+        if not ks.is_cuda:
+            return ns_inverse_scaled_reference(ks, a0, n_scaled, n_quad, n_hi)
+        ks = _launch.aligned(ks)
+        lib = _build.load()
+        entry = lib.qct_ns_inverse_scaled if npad == N else lib.qct_ns_inverse_scaled_256
+        inv = torch.empty_like(ks)
+        with torch.cuda.device(ks.device):
+            rc = entry(_launch.ptr(ks), _launch.ptr(inv), ks.shape[0],
+                       _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(ks))
+        _launch.raise_on_error(rc, f"ns_inverse_scaled at the {npad} tile")
+        _launch.count(_K3, npad)
+        return inv
 
 
 # The launch counts live on the function object; the private alias keeps them
@@ -213,34 +216,35 @@ def ns_inverse_scaled_build(hp, g9, a0: float = 1e-5, n_scaled: int = 9,
     (inv, ks, d_row) with d_row (B, 1, npad) the Jacobi scale; inv and ks are
     in the scaled space (K^-1 = d inv d). At the 256 tile ks comes back as
     None, as the JAX kernel's default (`emit_ks`) has it."""
-    b = hp.shape[0] if hp.dim() == 3 else None
-    npad = hp.shape[-1] if hp.dim() == 3 else None
-    _launch.check(hp, "hp", (b, npad, npad))
-    _launch.check(g9, "g9", (b, 9, None), hp.device)
-    _check_tile(npad)
-    if 3 * g9.shape[-1] > npad:
-        raise ValueError(f"g9 has {g9.shape[-1]} blocks, more than a {npad} tile holds")
-    _check_schedule(n_scaled)
-    if not hp.is_cuda:
-        return ns_inverse_scaled_build_reference(hp, g9, a0, n_scaled, n_quad, n_hi)
-    hp, g9 = _launch.aligned(hp), _launch.aligned(g9)
-    lib = _build.load()
-    inv = torch.empty_like(hp)
-    d_row = torch.empty((b, 1, npad), dtype=torch.float32, device=hp.device)
-    sched = (_mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(hp))
-    P = _launch.ptr
-    with torch.cuda.device(hp.device):
-        if npad == N:
-            ks = torch.empty_like(hp)
-            rc = lib.qct_ns_inverse_scaled_build(P(hp), P(g9), g9.shape[-1], P(inv),
-                                                 P(ks), P(d_row), b, *sched)
-        else:
-            ks = None
-            rc = lib.qct_ns_inverse_scaled_build_256(P(hp), P(g9), g9.shape[-1], P(inv),
-                                                     P(d_row), b, *sched)
-    _launch.raise_on_error(rc, f"ns_inverse_scaled_build at the {npad} tile")
-    _launch.count(_K2, npad)
-    return inv, ks, d_row
+    with span("qct.ops.ns_inverse_scaled_build"):
+        b = hp.shape[0] if hp.dim() == 3 else None
+        npad = hp.shape[-1] if hp.dim() == 3 else None
+        _launch.check(hp, "hp", (b, npad, npad))
+        _launch.check(g9, "g9", (b, 9, None), hp.device)
+        _check_tile(npad)
+        if 3 * g9.shape[-1] > npad:
+            raise ValueError(f"g9 has {g9.shape[-1]} blocks, more than a {npad} tile holds")
+        _check_schedule(n_scaled)
+        if not hp.is_cuda:
+            return ns_inverse_scaled_build_reference(hp, g9, a0, n_scaled, n_quad, n_hi)
+        hp, g9 = _launch.aligned(hp), _launch.aligned(g9)
+        lib = _build.load()
+        inv = torch.empty_like(hp)
+        d_row = torch.empty((b, 1, npad), dtype=torch.float32, device=hp.device)
+        sched = (_mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, _launch.stream(hp))
+        P = _launch.ptr
+        with torch.cuda.device(hp.device):
+            if npad == N:
+                ks = torch.empty_like(hp)
+                rc = lib.qct_ns_inverse_scaled_build(P(hp), P(g9), g9.shape[-1], P(inv),
+                                                     P(ks), P(d_row), b, *sched)
+            else:
+                ks = None
+                rc = lib.qct_ns_inverse_scaled_build_256(P(hp), P(g9), g9.shape[-1], P(inv),
+                                                         P(d_row), b, *sched)
+        _launch.raise_on_error(rc, f"ns_inverse_scaled_build at the {npad} tile")
+        _launch.count(_K2, npad)
+        return inv, ks, d_row
 
 
 _K2 = _launch.new_count(ns_inverse_scaled_build)
@@ -258,23 +262,24 @@ def ns_inverse_refine(ks, init, n_quad: int = 1, n_hi: int = 1):
     quadratic steps, each squaring the residual. There is no guard: the
     caller guarantees the residual bound (the Woodbury correction does, up
     to its fp32 floor)."""
-    b = ks.shape[0] if ks.dim() == 3 else None
-    npad = ks.shape[-1] if ks.dim() == 3 else None
-    _launch.check(ks, "ks", (b, npad, npad))
-    _launch.check(init, "init", (b, npad, npad), ks.device)
-    _check_tile(npad)
-    if not ks.is_cuda:
-        return ns_inverse_refine_reference(ks, init, n_quad, n_hi)
-    ks, init = _launch.aligned(ks), _launch.aligned(init)
-    lib = _build.load()
-    entry = lib.qct_ns_inverse_refine if npad == N else lib.qct_ns_inverse_refine_256
-    inv = torch.empty_like(ks)
-    with torch.cuda.device(ks.device):
-        rc = entry(_launch.ptr(ks), _launch.ptr(init), _launch.ptr(inv), b, n_quad, n_hi,
-                   _launch.stream(ks))
-    _launch.raise_on_error(rc, f"ns_inverse_refine at the {npad} tile")
-    _launch.count(_K6, npad)
-    return inv
+    with span("qct.ops.ns_inverse_refine"):
+        b = ks.shape[0] if ks.dim() == 3 else None
+        npad = ks.shape[-1] if ks.dim() == 3 else None
+        _launch.check(ks, "ks", (b, npad, npad))
+        _launch.check(init, "init", (b, npad, npad), ks.device)
+        _check_tile(npad)
+        if not ks.is_cuda:
+            return ns_inverse_refine_reference(ks, init, n_quad, n_hi)
+        ks, init = _launch.aligned(ks), _launch.aligned(init)
+        lib = _build.load()
+        entry = lib.qct_ns_inverse_refine if npad == N else lib.qct_ns_inverse_refine_256
+        inv = torch.empty_like(ks)
+        with torch.cuda.device(ks.device):
+            rc = entry(_launch.ptr(ks), _launch.ptr(init), _launch.ptr(inv), b, n_quad, n_hi,
+                       _launch.stream(ks))
+        _launch.raise_on_error(rc, f"ns_inverse_refine at the {npad} tile")
+        _launch.count(_K6, npad)
+        return inv
 
 
 _K6 = _launch.new_count(ns_inverse_refine)
@@ -312,27 +317,28 @@ def ns_inverse_warm(ks, init, a0: float = 1e-5, n_scaled: int = 9, n_quad: int =
     guard trips and stores nothing for it, then K3's own kernel on the
     flagged systems alone (a masked instance), so a tripped system's result
     is K3's bit for bit."""
-    b = ks.shape[0] if ks.dim() == 3 else None
-    npad = ks.shape[-1] if ks.dim() == 3 else None
-    _launch.check(ks, "ks", (b, npad, npad))
-    _launch.check(init, "init", (b, npad, npad), ks.device)
-    _check_tile(npad)
-    _check_schedule(n_scaled)
-    if not ks.is_cuda:
-        return ns_inverse_warm_reference(ks, init, a0, n_scaled, n_quad, n_hi, n_wquad, n_whi,
-                                         guard)
-    ks, init = _launch.aligned(ks), _launch.aligned(init)
-    lib = _build.load()
-    entry = lib.qct_ns_inverse_warm if npad == N else lib.qct_ns_inverse_warm_256
-    inv = torch.empty_like(ks)
-    tripped = torch.empty(b, dtype=torch.int32, device=ks.device)   # the guard's flags
-    with torch.cuda.device(ks.device):
-        rc = entry(_launch.ptr(ks), _launch.ptr(init), _launch.ptr(inv), _launch.ptr(tripped),
-                   b, _mus_arg(a0, n_scaled), n_scaled, n_quad, n_hi, n_wquad, n_whi, guard,
-                   _launch.stream(ks))
-    _launch.raise_on_error(rc, f"ns_inverse_warm at the {npad} tile")
-    _launch.count(_K7, npad)
-    return inv
+    with span("qct.ops.ns_inverse_warm"):
+        b = ks.shape[0] if ks.dim() == 3 else None
+        npad = ks.shape[-1] if ks.dim() == 3 else None
+        _launch.check(ks, "ks", (b, npad, npad))
+        _launch.check(init, "init", (b, npad, npad), ks.device)
+        _check_tile(npad)
+        _check_schedule(n_scaled)
+        if not ks.is_cuda:
+            return ns_inverse_warm_reference(ks, init, a0, n_scaled, n_quad, n_hi, n_wquad,
+                                             n_whi, guard)
+        ks, init = _launch.aligned(ks), _launch.aligned(init)
+        lib = _build.load()
+        entry = lib.qct_ns_inverse_warm if npad == N else lib.qct_ns_inverse_warm_256
+        inv = torch.empty_like(ks)
+        tripped = torch.empty(b, dtype=torch.int32, device=ks.device)   # the guard's flags
+        with torch.cuda.device(ks.device):
+            rc = entry(_launch.ptr(ks), _launch.ptr(init), _launch.ptr(inv),
+                       _launch.ptr(tripped), b, _mus_arg(a0, n_scaled), n_scaled, n_quad,
+                       n_hi, n_wquad, n_whi, guard, _launch.stream(ks))
+        _launch.raise_on_error(rc, f"ns_inverse_warm at the {npad} tile")
+        _launch.count(_K7, npad)
+        return inv
 
 
 _K7 = _launch.new_count(ns_inverse_warm)
@@ -353,20 +359,21 @@ def ns_inverse(ks, iters: int = 25):
     (128, 128) or (256, 256) with identity on the pad: X0 = I / ||K||_inf,
     then `iters` steps X <- X (2I - K X). On the card one cluster runs it:
     2 x 4 blocks of 64 x 32 at 128, 4 x 4 blocks of 64 x 64 at 256."""
-    npad = ks.shape[-1] if ks.dim() == 2 else None
-    _launch.check(ks, "ks", (npad, npad))
-    _check_tile(npad)
-    if not ks.is_cuda:
-        return ns_inverse_reference(ks, iters)
-    ks = _launch.aligned(ks)
-    lib = _build.load()
-    inv = torch.empty_like(ks)
-    with torch.cuda.device(ks.device):
-        rc = lib.qct_ns_inverse_plain_one(_launch.ptr(ks), _launch.ptr(inv), npad, iters,
-                                          _launch.stream(ks))
-    _launch.raise_on_error(rc, f"ns_inverse at the {npad} tile")
-    _launch.count(_K8, npad)
-    return inv
+    with span("qct.ops.ns_inverse"):
+        npad = ks.shape[-1] if ks.dim() == 2 else None
+        _launch.check(ks, "ks", (npad, npad))
+        _check_tile(npad)
+        if not ks.is_cuda:
+            return ns_inverse_reference(ks, iters)
+        ks = _launch.aligned(ks)
+        lib = _build.load()
+        inv = torch.empty_like(ks)
+        with torch.cuda.device(ks.device):
+            rc = lib.qct_ns_inverse_plain_one(_launch.ptr(ks), _launch.ptr(inv), npad, iters,
+                                              _launch.stream(ks))
+        _launch.raise_on_error(rc, f"ns_inverse at the {npad} tile")
+        _launch.count(_K8, npad)
+        return inv
 
 
 _K8 = _launch.new_count(ns_inverse)
@@ -377,21 +384,22 @@ def ns_inverse_blocked(ks, iters: int = 25):
     (the JAX kernel's multiple of G is the caller's padding contract). On the
     card: a 4-CTA cluster a system at 256; at 128 `csrc/ns_refine.cu`'s
     persistent grid, its fp32 step as `wgmma`."""
-    b = ks.shape[0] if ks.dim() == 3 else None
-    npad = ks.shape[-1] if ks.dim() == 3 else None
-    _launch.check(ks, "ks", (b, npad, npad))
-    _check_tile(npad)
-    if not ks.is_cuda:
-        return ns_inverse_blocked_reference(ks, iters)
-    ks = _launch.aligned(ks)
-    lib = _build.load()
-    entry = lib.qct_ns_inverse_plain if npad == N else lib.qct_ns_inverse_plain_256
-    inv = torch.empty_like(ks)
-    with torch.cuda.device(ks.device):
-        rc = entry(_launch.ptr(ks), _launch.ptr(inv), b, iters, _launch.stream(ks))
-    _launch.raise_on_error(rc, f"ns_inverse_blocked at the {npad} tile")
-    _launch.count(_K9, npad)
-    return inv
+    with span("qct.ops.ns_inverse_blocked"):
+        b = ks.shape[0] if ks.dim() == 3 else None
+        npad = ks.shape[-1] if ks.dim() == 3 else None
+        _launch.check(ks, "ks", (b, npad, npad))
+        _check_tile(npad)
+        if not ks.is_cuda:
+            return ns_inverse_blocked_reference(ks, iters)
+        ks = _launch.aligned(ks)
+        lib = _build.load()
+        entry = lib.qct_ns_inverse_plain if npad == N else lib.qct_ns_inverse_plain_256
+        inv = torch.empty_like(ks)
+        with torch.cuda.device(ks.device):
+            rc = entry(_launch.ptr(ks), _launch.ptr(inv), b, iters, _launch.stream(ks))
+        _launch.raise_on_error(rc, f"ns_inverse_blocked at the {npad} tile")
+        _launch.count(_K9, npad)
+        return inv
 
 
 _K9 = _launch.new_count(ns_inverse_blocked)
@@ -486,26 +494,27 @@ def ns_inverse_schur_scaled(ks, a0: float = 5e-4, n_scaled: int = 6,
     n. Returns the (B, n, n) inverse at the logical size. The products
     around K3 are fp32 `torch.matmul`s, as the JAX function's are
     `Precision.HIGHEST` XLA products."""
-    b, n = ks.shape[0], ks.shape[-1]
-    if not 128 < n <= 192:
-        raise ValueError(f"the Schur split takes 128 < n <= 192, got n={n}")
-    a = ks[:, :N, :N]
-    bb = ks[:, :N, N:]
-    dd = ks[:, N:, N:]
-    pad_b = (-b) % G
-    if pad_b:
-        a = torch.cat([a, torch.eye(N, dtype=ks.dtype, device=ks.device).expand(
-            pad_b, N, N)], dim=0)
-    ainv = ns_inverse_scaled(a.contiguous(), a0, n_scaled, n_quad, n_hi)[:b]
-    aib = ainv @ bb
-    s = dd - bb.transpose(1, 2) @ aib
-    sinv = _ns_small(s, n_small)
-    aib_sinv = aib @ sinv
-    tl = ainv + aib_sinv @ aib.transpose(1, 2)
-    x = torch.cat([torch.cat([tl, -aib_sinv], dim=2),
-                   torch.cat([-aib_sinv.transpose(1, 2), sinv], dim=2)], dim=1)
-    eye = torch.eye(n, dtype=ks.dtype, device=ks.device)
-    for _ in range(n_scrub):
-        kx = ks @ x
-        x = x @ (2.0 * eye - kx)
-    return x
+    with span("qct.ops.ns_inverse_schur_scaled"):
+        b, n = ks.shape[0], ks.shape[-1]
+        if not 128 < n <= 192:
+            raise ValueError(f"the Schur split takes 128 < n <= 192, got n={n}")
+        a = ks[:, :N, :N]
+        bb = ks[:, :N, N:]
+        dd = ks[:, N:, N:]
+        pad_b = (-b) % G
+        if pad_b:
+            a = torch.cat([a, torch.eye(N, dtype=ks.dtype, device=ks.device).expand(
+                pad_b, N, N)], dim=0)
+        ainv = ns_inverse_scaled(a.contiguous(), a0, n_scaled, n_quad, n_hi)[:b]
+        aib = ainv @ bb
+        s = dd - bb.transpose(1, 2) @ aib
+        sinv = _ns_small(s, n_small)
+        aib_sinv = aib @ sinv
+        tl = ainv + aib_sinv @ aib.transpose(1, 2)
+        x = torch.cat([torch.cat([tl, -aib_sinv], dim=2),
+                       torch.cat([-aib_sinv.transpose(1, 2), sinv], dim=2)], dim=1)
+        eye = torch.eye(n, dtype=ks.dtype, device=ks.device)
+        for _ in range(n_scrub):
+            kx = ks @ x
+            x = x @ (2.0 * eye - kx)
+        return x

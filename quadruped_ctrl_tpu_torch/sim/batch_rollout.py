@@ -27,6 +27,7 @@ from quadruped_ctrl_tpu_torch.control import controller as ctrl
 from quadruped_ctrl_tpu_torch.core.types import Command, tree_map, vmap
 from quadruped_ctrl_tpu_torch.sim import engine
 from quadruped_ctrl_tpu_torch.sim.terrain import Terrain
+from quadruped_ctrl_tpu_torch.utils.timer import span
 
 WARMUP_TICKS = 10
 
@@ -49,17 +50,21 @@ def _mpc_tick_batched(cfg, states, sims, cmds, terrains, h_sol,
     `controller.mpc_update_batched`. With `max_stance` (a valid bound for
     every scenario's gait) the solves run stance-compressed + pair-packed.
     Closed-loop solves are temporally warm-started, so the reduced
-    `warm_iterations` budget applies unless the caller overrides it."""
-    states, ctx = ctrl.control_tick_batched(cfg, states, _sensors(cfg, sims), cmds)
-    iters = cfg.solver.warm_iterations if mpc_iterations is None else mpc_iterations
-    states = ctrl.mpc_update_batched(cfg, states, ctx, h_sol=h_sol, iterations=iters,
-                                     max_stance=max_stance, use_kernels=use_kernels)
-    return _act(cfg, states, sims, ctx, terrains)
+    `warm_iterations` budget applies unless the caller overrides it. One
+    `qct.mpc_tick` span."""
+    with span("qct.mpc_tick"):
+        states, ctx = ctrl.control_tick_batched(cfg, states, _sensors(cfg, sims), cmds)
+        iters = cfg.solver.warm_iterations if mpc_iterations is None else mpc_iterations
+        states = ctrl.mpc_update_batched(cfg, states, ctx, h_sol=h_sol, iterations=iters,
+                                         max_stance=max_stance, use_kernels=use_kernels)
+        return _act(cfg, states, sims, ctx, terrains)
 
 
 def _plain_tick(cfg, states, sims, cmds, terrains):
-    states, ctx = ctrl.control_tick_batched(cfg, states, _sensors(cfg, sims), cmds)
-    return _act(cfg, states, sims, ctx, terrains)
+    """A tick without the MPC solve: one `qct.plain_tick` span."""
+    with span("qct.plain_tick"):
+        states, ctx = ctrl.control_tick_batched(cfg, states, _sensors(cfg, sims), cmds)
+        return _act(cfg, states, sims, ctx, terrains)
 
 
 def batch_init(cfg: FrameworkConfig, terrains: Terrain, batch: int, device=None):

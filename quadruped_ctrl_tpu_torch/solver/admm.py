@@ -43,6 +43,11 @@ cold schedule; as in JAX, `admm_mpc_batched` never passes `prev_inv`.
 Where the batched JAX code updates an array with `.at[].set`, the port builds
 a fresh tensor (zeros or ones) and writes into it; no caller's tensor is
 modified. The `lax.scan` loops are Python loops.
+
+Phases are `utils/timer.span`s: `qct.factorize` (one K build and inverse),
+`qct.admm.iterate` (one ADMM segment), `qct.admm.rho_adapt` and
+`qct.admm.polish` (one round), the last two with their refactorization
+nested.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from quadruped_ctrl_tpu_torch import device
 from quadruped_ctrl_tpu_torch.mpc import formation
 from quadruped_ctrl_tpu_torch.ops import fused_admm as FA
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
+from quadruped_ctrl_tpu_torch.utils.timer import span
 
 
 def _bmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -143,15 +149,16 @@ def _iterate(cfg: SolverConfig, solve, apply_a, apply_at, g, l, u, rho, n_iter: 
         z0 = torch.zeros_like(rho).to(g.dtype)
         init = (torch.zeros_like(g), z0, z0)
     x, z, y = init
-    for _ in range(n_iter):
-        rhs = sigma * x - g + apply_at(rho * z - y)
-        x_t = solve(rhs)
-        z_t = apply_a(x_t)
-        z_relax = alpha * z_t + (1.0 - alpha) * z
-        x = alpha * x_t + (1.0 - alpha) * x
-        z_new = torch.minimum(torch.maximum(z_relax + inv_rho * y, l), u)
-        y = y + rho * (z_relax - z_new)
-        z = z_new
+    with span("qct.admm.iterate"):
+        for _ in range(n_iter):
+            rhs = sigma * x - g + apply_at(rho * z - y)
+            x_t = solve(rhs)
+            z_t = apply_a(x_t)
+            z_relax = alpha * z_t + (1.0 - alpha) * z
+            x = alpha * x_t + (1.0 - alpha) * x
+            z_new = torch.minimum(torch.maximum(z_relax + inv_rho * y, l), u)
+            y = y + rho * (z_relax - z_new)
+            z = z_new
     return x, z, y
 
 
@@ -232,22 +239,23 @@ def _polish(cfg: SolverConfig, build_solver, apply_a, apply_at, grad, l, u, fini
         return torch.maximum(l - av, torch.where(finite_u, av - u, -1.0)).amax()
 
     def one_round(best_x, best_v, lo, hi, y_al, prev_inv, prev_scale):
-        act = lo | hi
-        bound = torch.where(lo, l, torch.where(hi & finite_u, u, 0.0))
-        w = torch.where(act, w_act, 0.0).to(dtype)
-        solve = build_solver(w, prev_inv=prev_inv, prev_scale=prev_scale)
-        y_act = torch.where(act, y_al, 0.0)
-        x_p = solve(-grad + apply_at(w * bound - y_act))
-        ax = apply_a(x_p)
-        y_new = y_act + w * (ax - bound)
-        v_p = torch.where(torch.isfinite(x_p).all(), viol(x_p), torch.inf)
-        take = v_p < best_v
-        best_x = torch.where(take, x_p, best_x)
-        best_v = torch.where(take, v_p, best_v)
-        lo = (lo & (y_new <= 1e-9)) | (ax < l - 1e-6)
-        hi = (hi & (y_new >= -1e-9)) | (finite_u & (ax > u + 1e-6))
-        y_al = torch.where(lo | hi, y_new, 0.0)
-        return best_x, best_v, lo, hi, y_al, solve.scaled_inv, solve.scale
+        with span("qct.admm.polish"):
+            act = lo | hi
+            bound = torch.where(lo, l, torch.where(hi & finite_u, u, 0.0))
+            w = torch.where(act, w_act, 0.0).to(dtype)
+            solve = build_solver(w, prev_inv=prev_inv, prev_scale=prev_scale)
+            y_act = torch.where(act, y_al, 0.0)
+            x_p = solve(-grad + apply_at(w * bound - y_act))
+            ax = apply_a(x_p)
+            y_new = y_act + w * (ax - bound)
+            v_p = torch.where(torch.isfinite(x_p).all(), viol(x_p), torch.inf)
+            take = v_p < best_v
+            best_x = torch.where(take, x_p, best_x)
+            best_v = torch.where(take, v_p, best_v)
+            lo = (lo & (y_new <= 1e-9)) | (ax < l - 1e-6)
+            hi = (hi & (y_new >= -1e-9)) | (finite_u & (ax > u + 1e-6))
+            y_al = torch.where(lo | hi, y_new, 0.0)
+            return best_x, best_v, lo, hi, y_al, solve.scaled_inv, solve.scale
 
     y_seed = torch.where(lo_act | hi_act, y, 0.0)
     carry = one_round(x, torch.clamp(viol(x), min=0.0), lo_act, hi_act, y_seed, None, None)
@@ -323,11 +331,12 @@ def admm_mpc(cfg: SolverConfig, cfg_mpc: MPCConfig, hess, grad, gait_table,
     sel = torch.eye(h * nf, dtype=dtype, device=dev)
 
     def build_solver(w, prev_inv=None, prev_scale=None):
-        # the 3 x 3 gram blocks added on K's block diagonal
-        gram = formation.pyramid_gram(cfg_mpc, w.reshape(h, nf, 5)).reshape(h * nf, 3, 3)
-        k = k0 + (gram[:, :, None, :] * sel[:, None, :, None]).reshape(n, n)
-        ns = cfg.ns_iters if prev_inv is None else cfg.ns_warm_iters
-        return _make_solver(k, ns, prev_inv, prev_scale)
+        with span("qct.factorize"):
+            # the 3 x 3 gram blocks added on K's block diagonal
+            gram = formation.pyramid_gram(cfg_mpc, w.reshape(h, nf, 5)).reshape(h * nf, 3, 3)
+            k = k0 + (gram[:, :, None, :] * sel[:, None, :, None]).reshape(n, n)
+            ns = cfg.ns_iters if prev_inv is None else cfg.ns_warm_iters
+            return _make_solver(k, ns, prev_inv, prev_scale)
 
     def apply_a(v):
         return formation.pyramid_apply(cfg_mpc, v.reshape(h, nf, 3)).reshape(-1)
@@ -347,10 +356,11 @@ def admm_mpc(cfg: SolverConfig, cfg_mpc: MPCConfig, hess, grad, gait_table,
                            init=carry)
         carry = (x, z, y)
         if not last:
-            fac = _adapt_rho_factor(cfg, apply_a(x), z, hess_n @ x, grad_n, apply_at(y))
-            rho_c = rho * fac
-            solver_c = build_solver(rho_c, prev_inv=solver_c.scaled_inv,
-                                    prev_scale=solver_c.scale)
+            with span("qct.admm.rho_adapt"):
+                fac = _adapt_rho_factor(cfg, apply_a(x), z, hess_n @ x, grad_n, apply_at(y))
+                rho_c = rho * fac
+                solver_c = build_solver(rho_c, prev_inv=solver_c.scaled_inv,
+                                        prev_scale=solver_c.scale)
     if polish_rounds > 0:
         x = _polish(cfg, build_solver, apply_a, apply_at, grad_n, l, u, u < cfg.infty,
                     x, z, y, polish_rounds)
@@ -582,14 +592,13 @@ def admm_mpc_batched(
     adapt = max(int(cfg.rho_adapt), 0)
     segs = adapt + 1
     seg = n_iter // segs
-    solve0 = build_solver(rho, schedule=admm_schedule)
 
     if use_kernels:
         # Tile-padded iterate: one dense shared-A product per apply and the
         # Jacobi scale folded into the inverse. Padding is inert: zero A
         # rows/cols with l=u=0, rho=1 pin the padded z/y/x entries to ~0.
         m = 5 * nf * h
-        np_ = solve0.inv_padded.shape[-1]
+        np_ = NI.pad_sizes(n)          # every kernel-branch inverse's tile
         mp_ = -(-m // 128) * 128
 
         def padded_inverse(solver):
@@ -603,7 +612,8 @@ def admm_mpc_batched(
             out[:, :v.shape[-1]] = v
             return out
 
-        inv_fullp, inv16p = padded_inverse(solve0)
+        with span("qct.factorize"):
+            inv_fullp, inv16p = padded_inverse(build_solver(rho, schedule=admm_schedule))
         gradp = pad_rows(grad_n, np_)
         lP = pad_rows(l, mp_)
         uP = pad_rows(u, mp_)
@@ -616,18 +626,19 @@ def admm_mpc_batched(
         def run(carry, inv_fullp, inv16p, rhoP, n_lo, n_hi):
             inv_rhoP = 1.0 / rhoP
             x, z, y = carry                          # (B,128), (B,256) x2
-            for i in range(n_lo + n_hi):
-                rhs = sigma * x - gradp + (rhoP * z - y) @ a_pad
-                if i < n_lo:
-                    x_t = _bmv(inv16p, _bf16_round(rhs))
-                else:
-                    x_t = _bmv(inv_fullp, rhs)
-                z_t = x_t @ at_pad
-                x = alpha * x_t + (1.0 - alpha) * x
-                z_relax = alpha * z_t + (1.0 - alpha) * z
-                z_new = torch.clamp(z_relax + inv_rhoP * y, min=lP, max=uP)
-                y = y + rhoP * (z_relax - z_new)
-                z = z_new
+            with span("qct.admm.iterate"):
+                for i in range(n_lo + n_hi):
+                    rhs = sigma * x - gradp + (rhoP * z - y) @ a_pad
+                    if i < n_lo:
+                        x_t = _bmv(inv16p, _bf16_round(rhs))
+                    else:
+                        x_t = _bmv(inv_fullp, rhs)
+                    z_t = x_t @ at_pad
+                    x = alpha * x_t + (1.0 - alpha) * x
+                    z_relax = alpha * z_t + (1.0 - alpha) * z
+                    z_new = torch.clamp(z_relax + inv_rhoP * y, min=lP, max=uP)
+                    y = y + rhoP * (z_relax - z_new)
+                    z = z_new
             return x, z, y
 
         if warm is None:
@@ -645,16 +656,18 @@ def admm_mpc_batched(
             if not last:
                 # per-scenario OSQP adaptive rho + one cold ADMM-grade
                 # refactorization
-                xs, zs, ys = carry
-                ax = (xs @ at_pad)[:, :m]
-                hx = _bmv(hess_n, xs[:, :n].contiguous())
-                aty = (ys @ a_pad)[:, :n]
-                fac = _adapt_rho_factor(
-                    cfg, per_scn(ax), per_scn(zs[:, :m]), per_scn(hx),
-                    per_scn(grad_n), per_scn(aty))
-                rhoP = pad_rows(rho * scn_fac_rows(fac, m // pack), mp_, 1.0)
-                solve_s = build_solver(rhoP[:, :m], schedule=admm_schedule)
-                inv_fullp, inv16p = padded_inverse(solve_s)
+                with span("qct.admm.rho_adapt"):
+                    xs, zs, ys = carry
+                    ax = (xs @ at_pad)[:, :m]
+                    hx = _bmv(hess_n, xs[:, :n].contiguous())
+                    aty = (ys @ a_pad)[:, :n]
+                    fac = _adapt_rho_factor(
+                        cfg, per_scn(ax), per_scn(zs[:, :m]), per_scn(hx),
+                        per_scn(grad_n), per_scn(aty))
+                    rhoP = pad_rows(rho * scn_fac_rows(fac, m // pack), mp_, 1.0)
+                    with span("qct.factorize"):
+                        inv_fullp, inv16p = padded_inverse(
+                            build_solver(rhoP[:, :m], schedule=admm_schedule))
         xp, zp, yp = carry
         x = xp[:, :n]
         z = zp[:, :m]
@@ -665,15 +678,16 @@ def admm_mpc_batched(
             # no refinement; the bulk uses the bf16 inverse
             inv_rho_c = 1.0 / rho_c
             x, z, y = carry
-            for i in range(n_lo + n_hi):
-                rhs = sigma * x - grad_n + apply_at(rho_c * z - y)
-                x_t = solve_c(rhs, refine=0, lowp=i < n_lo)
-                z_t = apply_a(x_t)
-                x = alpha * x_t + (1.0 - alpha) * x
-                z_relax = alpha * z_t + (1.0 - alpha) * z
-                z_new = torch.clamp(z_relax + inv_rho_c * y, min=l, max=u)
-                y = y + rho_c * (z_relax - z_new)
-                z = z_new
+            with span("qct.admm.iterate"):
+                for i in range(n_lo + n_hi):
+                    rhs = sigma * x - grad_n + apply_at(rho_c * z - y)
+                    x_t = solve_c(rhs, refine=0, lowp=i < n_lo)
+                    z_t = apply_a(x_t)
+                    x = alpha * x_t + (1.0 - alpha) * x
+                    z_relax = alpha * z_t + (1.0 - alpha) * z
+                    z_new = torch.clamp(z_relax + inv_rho_c * y, min=l, max=u)
+                    y = y + rho_c * (z_relax - z_new)
+                    z = z_new
             return x, z, y
 
         if warm is None:
@@ -682,7 +696,8 @@ def admm_mpc_batched(
         else:
             carry = tuple(w.to(dtype) for w in warm)
         rho_c = rho
-        solve_c = solve0
+        with span("qct.factorize"):
+            solve_c = build_solver(rho, schedule=admm_schedule)
         for s_i in range(segs):
             last = s_i == segs - 1
             n_seg = n_iter - seg * (segs - 1) if last else seg
@@ -690,13 +705,15 @@ def admm_mpc_batched(
             tail = n_seg if last else 0
             carry = run(carry, solve_c, rho_c, n_seg - tail, tail)
             if not last:
-                xs, zs, ys = carry
-                hx = _bmv(hess_n, xs)
-                fac = _adapt_rho_factor(
-                    cfg, per_scn(apply_a(xs)), per_scn(zs), per_scn(hx),
-                    per_scn(grad_n), per_scn(apply_at(ys)))
-                rho_c = rho * scn_fac_rows(fac, m_full // pack)
-                solve_c = build_solver(rho_c, schedule=admm_schedule)
+                with span("qct.admm.rho_adapt"):
+                    xs, zs, ys = carry
+                    hx = _bmv(hess_n, xs)
+                    fac = _adapt_rho_factor(
+                        cfg, per_scn(apply_a(xs)), per_scn(zs), per_scn(hx),
+                        per_scn(grad_n), per_scn(apply_at(ys)))
+                    rho_c = rho * scn_fac_rows(fac, m_full // pack)
+                    with span("qct.factorize"):
+                        solve_c = build_solver(rho_c, schedule=admm_schedule)
         x, z, y = carry
 
     warm_out = (x, z, y)          # pre-polish fixed-point iterate, normalized
@@ -748,11 +765,13 @@ def admm_mpc_batched(
     if polish_rounds > 0:
         # round 0: one cold polish-grade factorization at the ADMM-identified
         # active set, duals seeded from the ADMM iterate
-        y_seed = torch.where(lo_act | hi_act, y, 0.0)
-        w0p, bound0, y_act0 = rhs_parts(lo_act, hi_act, y_seed)
-        solve_p0 = build_solver(w0p)
-        carry = apply_round(solve_p0, w0p, bound0, y_act0,
-                            x, torch.clamp(viol(x), min=0.0), lo_act, hi_act)
+        with span("qct.admm.polish"):
+            y_seed = torch.where(lo_act | hi_act, y, 0.0)
+            w0p, bound0, y_act0 = rhs_parts(lo_act, hi_act, y_seed)
+            with span("qct.factorize"):
+                solve_p0 = build_solver(w0p)
+            carry = apply_round(solve_p0, w0p, bound0, y_act0,
+                                x, torch.clamp(viol(x), min=0.0), lo_act, hi_act)
         if polish_rounds > 1 and cfg.polish_woodbury:
             state = (lo_act, hi_act, solve_p0.inv, solve_p0.ks, solve_p0.scale)
             a_dense = torch.as_tensor(_pyramid_dense(cfg_mpc.mu, h, nf), dtype=dtype,
@@ -764,10 +783,12 @@ def admm_mpc_batched(
                     rhs_parts, apply_round)
         else:
             for _ in range(polish_rounds - 1):
-                best_x, best_v, lo, hi, y_al = carry
-                w, bound, y_act = rhs_parts(lo, hi, y_al)
-                carry = apply_round(build_solver(w), w, bound, y_act,
-                                    best_x, best_v, lo, hi)
+                with span("qct.admm.polish"):
+                    best_x, best_v, lo, hi, y_al = carry
+                    w, bound, y_act = rhs_parts(lo, hi, y_al)
+                    with span("qct.factorize"):
+                        solve_r = build_solver(w)
+                    carry = apply_round(solve_r, w, bound, y_act, best_x, best_v, lo, hi)
         x = carry[0]
     if return_warm:
         return x * f_scale, warm_out
@@ -784,45 +805,47 @@ def _woodbury_round(cfg: SolverConfig, carry, state, a_dense, rank: int,
     fp32 steps on the plain branch. Returns (carry, state) for the next
     round; carry is apply_round's, state (lo, hi, inv, ks, scale) the
     applied working set and its Jacobi-scaled factorization."""
-    best_x, best_v, lo_d, hi_d, y_al = carry
-    lo_p, hi_p, inv_p, ks_p, dd_p = state
-    n = dd_p.shape[1]
-    dtype = inv_p.dtype
-    act_d = lo_d | hi_d
-    act_p = lo_p | hi_p
-    flip_w = act_d != act_p
-    add_w = (act_d & ~act_p).to(dtype)
-    idx = _top_k_indices(add_w, rank)                        # (B, rank)
-    msel = torch.gather(add_w, 1, idx)                       # 1: an addition
-    applied = torch.zeros_like(add_w).scatter(1, idx, msel) > 0.5
-    keep = flip_w & ~applied
-    lo_n = torch.where(keep, lo_p, lo_d)
-    hi_n = torch.where(keep, hi_p, hi_d)
-    s_sel = torch.where(torch.gather(lo_n | hi_n, 1, idx), 1.0, -1.0).to(dtype)
-    sqrt_w = float(np.sqrt(np.float32(w_act)))
-    u_rows = (sqrt_w * msel)[:, :, None] * a_dense[idx] * dd_p[:, None, :]
-    v_rows = u_rows @ inv_p                                  # (B, rank, n)
-    cs = v_rows @ u_rows.transpose(1, 2) + s_sel[:, :, None] * torch.eye(
-        rank, dtype=dtype, device=dd_p.device)
-    cv_rows = _gj_inverse(cs) @ v_rows
-    m_wb = inv_p - v_rows.transpose(1, 2) @ cv_rows
-    ks1 = ks_p + (u_rows * s_sel[:, :, None]).transpose(1, 2) @ u_rows
-    # re-equilibrate by the new Jacobi scale: the update moves the changed
-    # rows' diagonals far from the previous unit diagonal
-    d1 = torch.rsqrt(torch.clamp(torch.diagonal(ks1, dim1=-2, dim2=-1), min=1e-30))
-    ks1s = ks1 * d1[:, :, None] * d1[:, None, :]
-    init = m_wb / (d1[:, :, None] * d1[:, None, :])
-    if use_kernels:
-        npad = NI.pad_sizes(n)
-        inv1 = NI.ns_inverse_refine(NI.pad_to(ks1s, n, npad), NI.pad_to(init, n, npad),
-                                    cfg.ns_wb_quad, cfg.ns_wb_hi)[:, :n, :n]
-    else:
-        inv1 = NI._ns_steps(ks1s, init, [], 0, cfg.ns_wb_quad + cfg.ns_wb_hi)
-    dd_n = dd_p * d1
-    wsolve = _Solver(inv=inv1, scale=dd_n, ks=ks1s, inv_padded=None)
-    w_n, bound_n, y_act_n = rhs_parts(lo_n, hi_n, y_al)
-    carry = apply_round(wsolve, w_n, bound_n, y_act_n, best_x, best_v, lo_n, hi_n)
-    return carry, (lo_n, hi_n, inv1, ks1s, dd_n)
+    with span("qct.admm.polish"):
+        best_x, best_v, lo_d, hi_d, y_al = carry
+        lo_p, hi_p, inv_p, ks_p, dd_p = state
+        n = dd_p.shape[1]
+        dtype = inv_p.dtype
+        act_d = lo_d | hi_d
+        act_p = lo_p | hi_p
+        flip_w = act_d != act_p
+        add_w = (act_d & ~act_p).to(dtype)
+        idx = _top_k_indices(add_w, rank)                        # (B, rank)
+        msel = torch.gather(add_w, 1, idx)                       # 1: an addition
+        applied = torch.zeros_like(add_w).scatter(1, idx, msel) > 0.5
+        keep = flip_w & ~applied
+        lo_n = torch.where(keep, lo_p, lo_d)
+        hi_n = torch.where(keep, hi_p, hi_d)
+        s_sel = torch.where(torch.gather(lo_n | hi_n, 1, idx), 1.0, -1.0).to(dtype)
+        with span("qct.factorize"):
+            sqrt_w = float(np.sqrt(np.float32(w_act)))
+            u_rows = (sqrt_w * msel)[:, :, None] * a_dense[idx] * dd_p[:, None, :]
+            v_rows = u_rows @ inv_p                                  # (B, rank, n)
+            cs = v_rows @ u_rows.transpose(1, 2) + s_sel[:, :, None] * torch.eye(
+                rank, dtype=dtype, device=dd_p.device)
+            cv_rows = _gj_inverse(cs) @ v_rows
+            m_wb = inv_p - v_rows.transpose(1, 2) @ cv_rows
+            ks1 = ks_p + (u_rows * s_sel[:, :, None]).transpose(1, 2) @ u_rows
+            # re-equilibrate by the new Jacobi scale: the update moves the changed
+            # rows' diagonals far from the previous unit diagonal
+            d1 = torch.rsqrt(torch.clamp(torch.diagonal(ks1, dim1=-2, dim2=-1), min=1e-30))
+            ks1s = ks1 * d1[:, :, None] * d1[:, None, :]
+            init = m_wb / (d1[:, :, None] * d1[:, None, :])
+            if use_kernels:
+                npad = NI.pad_sizes(n)
+                inv1 = NI.ns_inverse_refine(NI.pad_to(ks1s, n, npad), NI.pad_to(init, n, npad),
+                                            cfg.ns_wb_quad, cfg.ns_wb_hi)[:, :n, :n]
+            else:
+                inv1 = NI._ns_steps(ks1s, init, [], 0, cfg.ns_wb_quad + cfg.ns_wb_hi)
+            dd_n = dd_p * d1
+            wsolve = _Solver(inv=inv1, scale=dd_n, ks=ks1s, inv_padded=None)
+        w_n, bound_n, y_act_n = rhs_parts(lo_n, hi_n, y_al)
+        carry = apply_round(wsolve, w_n, bound_n, y_act_n, best_x, best_v, lo_n, hi_n)
+        return carry, (lo_n, hi_n, inv1, ks1s, dd_n)
 
 
 def admm_mpc_fused(

@@ -2,15 +2,50 @@
 
 The counterpart of `quadruped_ctrl_tpu/utils/timer.py`, after the
 reference's nanosecond Timer (src/Utilities/Timer.h:9-51): a monotonic
-scoped timer for the host control loop, plus latency-percentile accounting
+stopwatch for the host control loop, plus latency-percentile accounting
 for real-time-budget reporting (p50/p99 against the ~30 ms MPC / 2 ms tick
 budget). The host clock alone: a caller timing work on the card
-synchronizes first."""
+synchronizes first.
+
+`span(name)` marks a phase of the port on torch.profiler's clock, the one
+its device activities are on, whenever a profiler records (the benchmark's
+traced stretch, `cli ... --profile DIR`, an operator's own profile); with
+none it does nothing. The port's spans, all under the prefix `qct.`:
+
+* `qct.solve`, around `mpc/pipeline.solve`, `solve_compressed` and
+  `solve_packed_batch`, and inside it `qct.formation` (dynamics,
+  discretization, stance selection, the QP up to its Hessian and gradient);
+* in `solver/admm.py`: `qct.factorize` (one K build and NS inverse),
+  `qct.admm.iterate` (one ADMM segment), `qct.admm.rho_adapt` (the
+  adaptive-rho step, its refactorization nested) and `qct.admm.polish` (one
+  polish round, its factorization nested);
+* `qct.ops.<wrapper>`, around each kernel wrapper of `ops/`: its checks,
+  alignment copies and launch;
+* `qct.controller_step` with `qct.control_tick`, `qct.mpc_update` and
+  `qct.leg_commands` (`control/controller.controller_step`), and
+  `qct.mpc_tick`, `qct.plain_tick` (`sim/batch_rollout`).
+
+No span opens inside a per-iteration loop."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
+
+import torch
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span("qct.<phase>"):` a `record_function` range while a
+    torch.profiler records, else one shared no-op context (an unguarded
+    range costs the host its construction even with no profiler on)."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
 
 
 class Timer:
@@ -59,17 +94,3 @@ class LatencyRecorder:
             "max_ms": max(xs) if xs else 0.0,
         }
 
-
-class ScopedTimer:
-    """`with ScopedTimer(recorder):` records the block's wall time."""
-
-    def __init__(self, recorder: LatencyRecorder):
-        self.recorder = recorder
-
-    def __enter__(self):
-        self._timer = Timer()
-        return self
-
-    def __exit__(self, *exc):
-        self.recorder.record(self._timer.get_ms())
-        return False
