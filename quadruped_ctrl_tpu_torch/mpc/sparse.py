@@ -16,6 +16,9 @@ by `solver/admm.admm_dense` in plain PyTorch where the inputs lie (no
 kernel, as the JAX package runs no Pallas kernel here). The per-step
 (A, B, affine) come from the SAME exact nilpotent discretization as the dense
 path, with the gravity column folded into the affine term.
+`solve_sparse_batch` is `solve_sparse` under `torch.func.vmap`, as
+`pipeline.solve_batch` is `solve`. Each solve is a `qct.solve` span, the QP
+build a `qct.formation` span inside it (`utils/timer.span`).
 
 Default weights/friction follow the reference's initSparseMPC
 (ConvexMPCLocomotion.cpp:732-753): weights [0.25,0.25,10, 2,2,20, 0,0,0.3,
@@ -28,8 +31,10 @@ import torch
 
 from quadruped_ctrl_tpu_torch import device as _device
 from quadruped_ctrl_tpu_torch.config import FrameworkConfig
+from quadruped_ctrl_tpu_torch.core.types import vmap
 from quadruped_ctrl_tpu_torch.mpc import formation
 from quadruped_ctrl_tpu_torch.solver import admm
+from quadruped_ctrl_tpu_torch.utils.timer import span
 
 SPARSE_WEIGHTS = (0.25, 0.25, 10.0, 2.0, 2.0, 20.0, 0.0, 0.0, 0.3, 0.2, 0.2, 0.2)
 SPARSE_MU = 1.0
@@ -68,25 +73,25 @@ def build_sparse_qp(cfg: FrameworkConfig, inp, h: int,
     x_ref = inp.traj[:h, 0:12].reshape(-1)
     grad = torch.cat([-2.0 * w_rep * x_ref, w_rep.new_zeros(nx)])
 
-    # dynamics equalities: x_{k+1} - A x_k - B u_k = g  (x_0 given)
+    # dynamics equalities: x_{k+1} - A x_k - B u_k = g  (x_0 given), built
+    # out of place as (h, 12, h, 12) block tensors (the identity on the
+    # block diagonal, -A below it; -B on the forces' diagonal) so that
+    # `torch.func.vmap` batches the build (`solve_sparse_batch`)
     m_eq = 12 * h
-    a_mat = torch.zeros((m_eq + 20 * h, n), dtype=torch.float32, device=dev)
+    eye_h = torch.eye(h, dtype=torch.float32, device=dev)
+    below = torch.diag(eye_h.new_ones(h - 1), -1)
     eye12 = torch.eye(12, dtype=torch.float32, device=dev)
-    for k in range(h):
-        r0 = 12 * k
-        a_mat[r0:r0 + 12, 12 * k:12 * k + 12] = eye12
-        if k > 0:
-            a_mat[r0:r0 + 12, 12 * (k - 1):12 * k] = -a12
-        a_mat[r0:r0 + 12, nx + 12 * k:nx + 12 * (k + 1)] = -b12
+    a_x = (eye_h[:, None, :, None] * eye12[None, :, None, :]
+           - below[:, None, :, None] * a12[None, :, None, :]).reshape(m_eq, nx)
+    a_u = -(eye_h[:, None, :, None] * b12[None, :, None, :]).reshape(m_eq, n - nx)
     d = g12.repeat(h)
     d = torch.cat([d[0:12] + a12 @ x0, d[12:]])
 
     # row-equilibrate the dynamics equalities: the omega rows of B*f_max have
     # entries ~12, which multiplied by the equality rho (1e3) would push the
     # ADMM KKT conditioning past the f32 Newton-Schulz budget
-    eq_rows = a_mat[0:m_eq, :]
+    eq_rows = torch.cat([a_x, a_u], dim=1)
     row_scale = 1.0 / torch.clamp(eq_rows.abs().amax(dim=1), min=1.0)
-    a_mat[0:m_eq, :] = eq_rows * row_scale[:, None]
     d = d * row_scale
 
     # friction pyramid rows on the normalized forces: one (5,3) block per
@@ -94,10 +99,13 @@ def build_sparse_qp(cfg: FrameworkConfig, inp, h: int,
     mu_inv = 1.0 / mu
     f_block = _device.constant(
         [[mu_inv, 0, 1], [-mu_inv, 0, 1], [0, mu_inv, 1], [0, -mu_inv, 1], [0, 0, 1]], dev)
-    a_mat[m_eq:, nx:] = torch.block_diag(*([f_block] * (h * 4)))
+    pyr = torch.cat([torch.zeros((20 * h, nx), dtype=torch.float32, device=dev),
+                     torch.block_diag(*([f_block] * (h * 4)))], dim=1)
+    a_mat = torch.cat([eq_rows * row_scale[:, None], pyr], dim=0)
 
-    u_pyr = torch.full((h, 4, 5), mpc.big_number, dtype=torch.float32, device=dev)
-    u_pyr[:, :, 4] = inp.gait_table[:h]      # u_hat in [0, gait]
+    # u_hat in [0, gait] on the fz row, the other four rows unbounded above
+    u_pyr = torch.cat([torch.full((h, 4, 4), mpc.big_number, dtype=torch.float32, device=dev),
+                       inp.gait_table[:h, :, None]], dim=-1)
     l = torch.cat([d, torch.zeros(20 * h, dtype=torch.float32, device=dev)])
     u = torch.cat([d, u_pyr.reshape(-1)])
     return hess, grad, a_mat, l, u
@@ -108,9 +116,17 @@ def solve_sparse(cfg: FrameworkConfig, inp, h: int | None = None,
                  iterations: int = 150, polish_rounds: int = 6):
     """Solve the stage-wise MPC; returns forces (h,4,3), world frame."""
     h = inp.gait_table.shape[0] if h is None else h
-    hess, grad, a_mat, l, u = build_sparse_qp(cfg, inp, h, weights, mu)
-    x, _, _ = admm.admm_dense(cfg.solver, hess, grad, a_mat, l, u,
-                              iterations=iterations,
-                              polish_rounds=polish_rounds)
-    u_hat = x[12 * h:]
-    return (u_hat * cfg.mpc.f_max).reshape(h, 4, 3)
+    with span("qct.solve"):
+        with span("qct.formation"):
+            hess, grad, a_mat, l, u = build_sparse_qp(cfg, inp, h, weights, mu)
+        x, _, _ = admm.admm_dense(cfg.solver, hess, grad, a_mat, l, u,
+                                  iterations=iterations,
+                                  polish_rounds=polish_rounds)
+        u_hat = x[12 * h:]
+        return (u_hat * cfg.mpc.f_max).reshape(h, 4, 3)
+
+
+def solve_sparse_batch(cfg: FrameworkConfig, inputs, **kw):
+    """`solve_sparse` vmapped over the leading batch axis of `inputs` (a
+    pipeline.MPCInputs): forces (B, h, 4, 3)."""
+    return vmap(lambda i: solve_sparse(cfg, i, **kw))(inputs)

@@ -287,9 +287,10 @@ def admm_dense(cfg: SolverConfig, hess, grad, a_mat, l, u, iterations: int | Non
     eye = torch.eye(hess.shape[-1], dtype=hess.dtype, device=hess.device)
 
     def build_solver(w, prev_inv=None, prev_scale=None):
-        k = hess + cfg.sigma * eye
-        k = k + (a_mat.T * w[None, :]) @ a_mat
-        return _make_solver(k, cfg.ns_iters, prev_inv, prev_scale)
+        with span("qct.factorize"):
+            k = hess + cfg.sigma * eye
+            k = k + (a_mat.T * w[None, :]) @ a_mat
+            return _make_solver(k, cfg.ns_iters, prev_inv, prev_scale)
 
     def apply_a(v):
         return a_mat @ v

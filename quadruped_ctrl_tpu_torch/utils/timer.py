@@ -12,9 +12,10 @@ its device activities are on, whenever a profiler records (the benchmark's
 traced stretch, `cli ... --profile DIR`, an operator's own profile); with
 none it does nothing. The port's spans, all under the prefix `qct.`:
 
-* `qct.solve`, around `mpc/pipeline.solve`, `solve_compressed` and
-  `solve_packed_batch`, and inside it `qct.formation` (dynamics,
-  discretization, stance selection, the QP up to its Hessian and gradient);
+* `qct.solve`, around `mpc/pipeline.solve`, `solve_compressed`,
+  `solve_packed_batch` and `mpc/sparse.solve_sparse`, and inside it
+  `qct.formation` (dynamics, discretization, stance selection, the QP up to
+  its Hessian and gradient; the stage-wise QP's constraints too);
 * in `solver/admm.py`: `qct.factorize` (one K build and NS inverse),
   `qct.admm.iterate` (one ADMM segment), `qct.admm.rho_adapt` (the
   adaptive-rho step, its refactorization nested) and `qct.admm.polish` (one
