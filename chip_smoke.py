@@ -25,10 +25,13 @@
    runs; K2 and K3 with their share of the bound and their bf16x3 rate);
 3b. the same at the h=16 shapes: K1 at each h=16 lane's shape (and, untimed,
    at h=36 and h=25, the largest shapes it takes), K2 and K3 at the 256
-   tile (a 4-CTA cluster a system, persistent, wgmma), each timed at both
-   schedules on a real h16_full solve's calls by CUDA events beside
-   torch.linalg.inv_ex with its share of the bound, and the Schur split
-   K4 (K3 at the 128 tile inside) against its plain version;
+   tile (a 4-CTA cluster a system, persistent, wgmma; K2 on systems of at
+   most 192 variables on 3-CTA clusters over the tile's leading 192, K2/192),
+   each timed at both schedules on a real h16_full solve's calls by CUDA
+   events beside torch.linalg.inv_ex with its share of the bound (K2/256 and
+   K3 on those calls' K taken as 240 variables, g9 zero-extended; K2/192's
+   bound counted at 192), K2/256 also on SPD systems of 240 variables, and
+   the Schur split K4 (K3 at the 128 tile inside) against its plain version;
 3c. the single-launch solve K5 (fused_admm_solve) at batch 2048, h=10, on the
    operands the fused path builds, with its time split by phase (the build,
    the ADMM iterate, the polish; the Grams timed with an empty NS schedule),
@@ -178,6 +181,9 @@ KERNEL_INFO = {
     "K2/256": dict(name="ns_inverse_scaled_build (256 tile)",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:615"),
+    "K2/192": dict(name="ns_inverse_scaled_build (256 tile, at most 192 variables)",
+                   source="quadruped_ctrl_tpu_torch/csrc/ns_refine.cu",
+                   replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:615", tile=256),
     "K3/128": dict(name="ns_inverse_scaled",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_inverse.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:259"),
@@ -224,7 +230,8 @@ PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 # SASS); the plain NS (ns_plain.cu: K8/128, K8/256, K9/256) and the NS steps
 # of ns_refine.cu (modes 0 RF_REFINE, 1 RF_WARM, 2 RF_PLAIN, 3 RF_SCALED, 4
 # RF_BUILD: K6 and K7's guard and warm branch at both tiles, K9/128, K3/256,
-# whose instance masked is K7/256's cold branch, and K2/256) as wgmma
+# whose instance masked is K7/256's cold branch, and K2/256 at both widths:
+# 4-CTA clusters over the tile, 3-CTA ones over its leading 192) as wgmma
 # (HGMMA).
 TC_KERNELS = ("ns_inverse_scaled_kernel<false>", "ns_inverse_scaled_kernel<true>",
               "ns_inverse_scaled_build_kernel", "fused_admm_kernel", "form_packed_kernel<false>",
@@ -233,13 +240,14 @@ GMMA_KERNELS = {"K8/128": "ns_plain_kernel<128, 2, 4>", "K8/256": "ns_plain_kern
                 "K9/256": "ns_plain_kernel<256, 4, 1>", "K6/128": "ns_refine_kernel<128, 0>",
                 "K6/256": "ns_refine_kernel<256, 0>", "K7/128": "ns_refine_kernel<128, 1>",
                 "K7/256": "ns_refine_kernel<256, 1>", "K9/128": "ns_refine_kernel<128, 2>",
-                "K3/256": "ns_refine_kernel<256, 3>", "K2/256": "ns_refine_kernel<256, 4>"}
+                "K3/256": "ns_refine_kernel<256, 3>", "K2/256": "ns_refine_kernel<256, 4>",
+                "K2/192": "ns_refine_kernel<192, 4>"}
 # their instance numbers in ns_plain.cu's qct_ns_plain_clusters
 PLAIN_INSTANCES = {"K8/128": 0, "K8/256": 1, "K9/256": 2}
 # ns_refine.cu's instances (npad, mode) for qct_ns_refine_units
 REFINE_INSTANCES = {"K6/128": (128, 0), "K7/128": (128, 1), "K9/128": (128, 2),
                     "K6/256": (256, 0), "K7/256": (256, 1), "K3/256": (256, 3),
-                    "K2/256": (256, 4)}
+                    "K2/256": (256, 4), "K2/192": (192, 4)}
 
 
 def check(ok: bool, what: str):
@@ -440,22 +448,37 @@ def ns_device_times(hp, g9, ks, sched) -> list[float]:
             event_ms(lambda: torch.linalg.inv_ex(ks), 5)]
 
 
+def k2_key(npad: int, nblk: int) -> str:
+    """The kernels line's entry of a K2 call on nblk blocks: at the 256 tile
+    a system of at most 192 variables runs on the 3-CTA instance (K2/192)."""
+    return "K2/192" if npad == NI.N_BIG and 3 * nblk <= 192 else f"K2/{npad}"
+
+
 def ns_bounds(npad, hp, g9, sched):
-    """(K2's, K3's) bound on (hp, g9) at one schedule: (ms, what bounds it)."""
+    """(K2's, K3's) bound on (hp, g9) at one schedule: (ms, what bounds it).
+    K2/192 is counted at the width it multiplies, 192: hp's leading 192 rows
+    and columns in, the whole tile's inv out."""
     b, nblk = hp.shape[0], g9.shape[-1]
+    width = 192 if k2_key(npad, nblk) == "K2/192" else npad
     mat = b * npad * npad * 4.0
     small = 4.0 * b * (9 * nblk + npad)              # g9 in, d_row out
     outs_k2 = 2 if npad == NI.N else 1               # inv (and ks at 128) out
-    return ns_bound(b, npad, sched, mat * (1 + outs_k2) + small), ns_bound(b, npad, sched, 2 * mat)
+    k2_in = b * width * width * 4.0
+    return (ns_bound(b, width, sched, k2_in + mat * outs_k2 + small),
+            ns_bound(b, npad, sched, 2 * mat))
 
 
 def ns_device_results(results, npad, hp, g9, sched, dev, prefix):
     """K2's and K3's device ms of one schedule (ns_device_times), their share
     of the bound and inv_ex's, printed and kept in the tile's entries under
     `prefix` ("" for the ADMM schedule of solve call 0, "polish_" for solve
-    call 2)."""
+    call 2). K3's entry is filled only from a K2 call over the whole tile."""
     bounds = ns_bounds(npad, hp, g9, sched)
-    for key, ms, bd in ((f"K2/{npad}", dev[0], bounds[0]), (f"K3/{npad}", dev[1], bounds[1])):
+    key2 = k2_key(npad, g9.shape[-1])
+    entries = [(key2, dev[0], bounds[0])]
+    if key2 == f"K2/{npad}":
+        entries.append((f"K3/{npad}", dev[1], bounds[1]))
+    for key, ms, bd in entries:
         results[key].update({f"{prefix}device_ms": ms, f"{prefix}library_device_ms": dev[2],
                              f"{prefix}bound_ms": bd[0]})
         print(f"  {key} {prefix or 'admm_'}schedule by events: {ms:.4f} ms, bound {bd[0]:.4f} "
@@ -463,17 +486,23 @@ def ns_device_results(results, npad, hp, g9, sched, dev, prefix):
 
 
 def ns_results(results, npad, hp, g9, sched, times, err2, err3):
-    """Fill the K2 and K3 entries of one tile from ns_times() on (hp, g9)."""
+    """Fill the K2 entry of the instance that ran (hp, g9) from ns_times(),
+    and the tile's K3 entry with it where K2 ran over the whole tile."""
     k2, k3 = ns_bounds(npad, hp, g9, sched)
     b = hp.shape[0]
-    results[f"K2/{npad}"].update(max_abs_err=err2, ms=times[0], plain_ms=times[1],
-                                 library_ms=times[4], bound_ms=k2[0], bound_by=k2[1])
-    results[f"K3/{npad}"].update(max_abs_err=err3, ms=times[2], plain_ms=times[3],
-                                 library_ms=times[4], bound_ms=k3[0], bound_by=k3[1])
-    print(f"  bounds at the {npad} tile: K2 %.3f ms (%s), K3 %.3f ms (%s)" % (*k2, *k3))
+    key2 = k2_key(npad, g9.shape[-1])
+    width = 192 if key2 == "K2/192" else npad
+    results[key2].update(max_abs_err=err2, ms=times[0], plain_ms=times[1],
+                         library_ms=times[4], bound_ms=k2[0], bound_by=k2[1])
+    entries = [(key2, times[0], k2[0], width)]
+    if key2 == f"K2/{npad}":
+        results[f"K3/{npad}"].update(max_abs_err=err3, ms=times[2], plain_ms=times[3],
+                                     library_ms=times[4], bound_ms=k3[0], bound_by=k3[1])
+        entries.append((f"K3/{npad}", times[2], k3[0], npad))
+    print(f"  bounds at the {npad} tile: {key2} %.3f ms (%s), K3 %.3f ms (%s)" % (*k2, *k3))
     _, n_scaled, n_quad, _ = sched
-    passes = 3 * 2 * 2.0 * npad ** 3 * b * (n_scaled + n_quad)     # the bf16x3 steps' passes
-    for key, ms, bound_ms in ((f"K2/{npad}", times[0], k2[0]), (f"K3/{npad}", times[2], k3[0])):
+    for key, ms, bound_ms, w in entries:
+        passes = 3 * 2 * 2.0 * w ** 3 * b * (n_scaled + n_quad)    # the bf16x3 steps' passes
         print(f"  {key}: share of the bound {bound_ms / ms:.4f}; the bf16x3 products at "
               f"{passes / (ms * 1e-3) / 1e12:.1f} bf16-pass TFLOP/s over the whole call "
               "(fp32 tail not counted)")
@@ -556,8 +585,10 @@ def check_ns(cases, results, npad, n_sys):
     """K2 and K3 against their references on (label, hp, g9, schedule,
     residual metric (0 elementwise, 1 row sum), gate) cases. The kernel's
     residual must pass the gate and stay within 2x of the reference's. Times
-    solve calls 0 and 2 and fills the tile's entries from call 0."""
+    solve calls 0 and 2 and fills the tile's entries from call 0 (K2's of the
+    instance that ran, k2_key)."""
     for label, hp_c, g9_c, sched, metric, gate in cases:
+        key2 = k2_key(npad, g9_c.shape[-1])
         inv_k, ks_k, d_k = NI.ns_inverse_scaled_build(hp_c, g9_c, *sched)
         inv_r, ks_r, d_r = NI.ns_inverse_scaled_build_reference(hp_c, g9_c, *sched)
         if ks_r is None:          # the 256 tile returns no ks: scale K as K2 does
@@ -566,14 +597,14 @@ def check_ns(cases, results, npad, n_sys):
         res_k, res_r = residuals(ks_r, inv_k)[metric], residuals(ks_r, inv_r)[metric]
         err2 = float((inv_k - inv_r).abs().max())
         ks_note = ("ks None" if ks_k is None else f"rel ks {rel(ks_k, ks_r):.3e}")
-        print(f"  K2/{npad} {label}: residual kernel {res_k:.3e} reference {res_r:.3e} "
+        print(f"  {key2} {label}: residual kernel {res_k:.3e} reference {res_r:.3e} "
               f"(gate {gate}); {ks_note} rel d {rel(d_k, d_r):.3e}; "
               f"max |inv_k - inv_r| {err2:.3e}")
         check(res_k < gate and res_r < gate and res_k <= 2 * res_r + 1e-5,
-              f"K2/{npad} {label}: residuals")
-        check((ks_k is None) == (npad > NI.N), f"K2/{npad} {label}: ks only at the 128 tile")
+              f"{key2} {label}: residuals")
+        check((ks_k is None) == (npad > NI.N), f"{key2} {label}: ks only at the 128 tile")
         check((ks_k is None or rel(ks_k, ks_r) <= 1e-6) and rel(d_k, d_r) <= 1e-6,
-              f"K2/{npad} {label}: ks, d_row")
+              f"{key2} {label}: ks, d_row")
         inv3_k = NI.ns_inverse_scaled(ks_r, *sched)
         inv3_r = NI.ns_inverse_scaled_reference(ks_r, *sched)
         res3_k, res3_r = residuals(ks_r, inv3_k)[metric], residuals(ks_r, inv3_r)[metric]
@@ -654,13 +685,17 @@ def phase_alignment(cfg, dev):
         ks = spd_batch(gen, b, n, npad, 1e3, dev)
         ks_w, init, _ = spd_warm(gen, b, n, npad, dev)
         init[::3] = 17.0                      # a third of the systems trip K7's guard
-        cases += [(f"K2/{npad}", NI.ns_inverse_scaled_build,
+        cases += [(k2_key(npad, n // 3), NI.ns_inverse_scaled_build,
                    (ks * 2.0, torch.zeros((b, 9, n // 3), device=dev)), admm_sched, {}),
                   (f"K3/{npad}", NI.ns_inverse_scaled, (ks,), admm_sched, {}),
                   (f"K6/{npad}", NI.ns_inverse_refine, (ks_w, init), (1, 1), {}),
                   (f"K7/{npad}", NI.ns_inverse_warm, (ks_w, init), admm_sched, warm_kw),
                   (f"K8/{npad}", NI.ns_inverse, (ks[0].contiguous(),), (s.ns_iters,), {}),
                   (f"K9/{npad}", NI.ns_inverse_blocked, (ks,), (s.ns_iters,), {})]
+    b = B_ALIGN // 4                           # K2/256 itself: 240 variables (nblk 80)
+    cases.append(("K2/256", NI.ns_inverse_scaled_build,
+                  (spd_batch(gen, b, 240, NI.N_BIG, 1e3, dev) * 2.0,
+                   torch.zeros((b, 9, 80), device=dev)), admm_sched, {}))
     for key, fn, ops, args, kw in cases:
         want = fn(*ops, *args, **kw)
         got = fn(*map(offset_view, ops), *args, **kw)
@@ -743,7 +778,8 @@ def phase_kernels16(cfg, dev, results):
     admm_sched, polish_sched = schedules(cfg)
     n_spd = N_SPD
     cases = []
-    for n in (192, 144):
+    # 192 and 144 variables run K2/192, 240 (nblk 80) K2/256 over the whole tile
+    for n in (192, 144, 240):
         g9_zero = torch.zeros((n_spd, 9, n // 3), device=dev)
         cases += [(f"SPD n={n} cond 2.1e3, ADMM schedule",
                    spd_batch(gen, n_spd, n, NI.N_BIG, 2.1e3, dev), g9_zero, admm_sched, 0, 1e-2),
@@ -751,10 +787,17 @@ def phase_kernels16(cfg, dev, results):
                    spd_batch(gen, n_spd, n, NI.N_BIG, 1e4, dev), g9_zero, polish_sched, 1, 5e-3)]
     ms, pack, kind = LANES16["h16_full"]
     calls = solve_operands(cfg, lane_inputs(2, B16, H16, kind, dev), max_stance=ms, pack=pack)
-    check(len(calls) == 5 and all(c[0].shape[-1] == NI.N_BIG for c in calls),
-          "a real h16_full solve makes 5 K2 calls at the 256 tile")
-    check_ns(cases + solve_cases(calls, polish_sched, polish_gate=1.0), results, NI.N_BIG, B16)
-    del calls, cases
+    check(len(calls) == 5 and all(c[0].shape[-1] == NI.N_BIG and c[1].shape[-1] == 64
+                                  for c in calls),
+          "a real h16_full solve makes 5 K2 calls at the 256 tile, on 192 variables (K2/192)")
+    # calls 0 and 2 again on K2/256: the same K taken as 240 variables (g9
+    # zero-extended to 80 blocks adds zero blocks to hp's identity pad)
+    solve = solve_cases(calls, polish_sched, polish_gate=1.0)
+    wide = [(label + ", g9 zero-extended to 80 blocks", hp,
+             torch.cat([g9, g9.new_zeros(g9.shape[:-1] + (16,))], -1), *rest)
+            for label, hp, g9, *rest in (solve[0], solve[2])]
+    check_ns(cases + solve + wide, results, NI.N_BIG, B16)
+    del calls, cases, solve, wide
 
     # K4 on ADMM-grade SPD systems and on a real midband solve's two ADMM
     # operands (n = 144), gate 5e-3: the JAX package's Schur-split test and
@@ -1441,8 +1484,12 @@ def phase_lanes16(cfg, dev, name_power, results):
         print(f"  launches in one solve: {c}")
         check(c == expect[lane], f"{lane}: launches as routed")
         if lane == "h16_full":
-            for k in ("K1/256", "K2/256"):
-                results[k].update(launches=c[k], counted_in="h16_full")
+            # its systems have 192 variables: every K2 launch, which the
+            # wrapper counts at the 256 tile, runs the 3-CTA instance
+            results["K1/256"].update(launches=c["K1/256"], counted_in="h16_full")
+            results["K2/192"].update(launches=c["K2/256"],
+                                     counted_in="h16_full (counted at the 256 tile)")
+            results["K2/256"].update(launches=0, counted_in="h16_full (192 variables: K2/192)")
         if lane == "h16_midband":
             results["K3/128"].update(launches=c["K3/128"], counted_in="h16_midband (in K4)")
         # At h=16 the reference itself leaves 2-3% of scenarios more than
@@ -2384,16 +2431,20 @@ def main() -> int:
     check_tensor_core_sass(lib_path)
 
     cfg = default_config()
-    results = {k: dict(KERNEL_INFO[k], route="cuda", tile=int(k.split("/")[1]))
+    results = {k: {"route": "cuda", "tile": int(k.split("/")[1]), **KERNEL_INFO[k]}
                for k in KERNEL_INFO}
+    # the wrapper counts K2's launches by tile: K2/192's phase-5 launches are
+    # among K2/256's
+    results["K2/192"]["launches_phase5"] = "counted as K2/256"
     for key, (npad, mode) in REFINE_INSTANCES.items():
         units = ctypes.c_int(-1)
         rc = _build.load().qct_ns_refine_units(npad, mode, ctypes.byref(units))
-        what = "CTAs" if npad == NI.N else "4-CTA clusters"
+        size = 1 if npad == NI.N else npad // 64
+        what = "CTAs" if npad == NI.N else f"{size}-CTA clusters"
         check(rc == 0 and units.value > 0,
               f"{key} ({GMMA_KERNELS[key]}): {units.value} {what} active at once, each "
               "walking systems in turn")
-        results[key].update(cluster=1 if npad == NI.N else 4, clusters_active=units.value)
+        results[key].update(cluster=size, clusters_active=units.value)
     for key, inst in PLAIN_INSTANCES.items():
         size, active = ctypes.c_int(-1), ctypes.c_int(-1)
         rc = _build.load().qct_ns_plain_clusters(inst, ctypes.byref(size), ctypes.byref(active))
@@ -2468,8 +2519,8 @@ def main() -> int:
         + (("device_ms", "library_device_ms", "polish_device_ms", "polish_library_device_ms",
             "polish_bound_ms")
            if k.startswith(("K2", "K3")) else ())
-        + (("cluster", "clusters_active") if k in ("K6/256", "K7/256", "K2/256", "K3/256")
-           else ())
+        + (("cluster", "clusters_active")
+           if k in ("K6/256", "K7/256", "K2/256", "K2/192", "K3/256") else ())
         + (("phases_ms",) if k.startswith("K5") else ())
         + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
            else ())

@@ -18,7 +18,8 @@
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled (_kernel_scaled_il),
 //   npad 256 (ns_inverse.cu has it at 128); masked to the systems whose flag
 //   in `tripped` is set, it is K7/256's cold branch
-// ns_refine_kernel<256, RF_BUILD> replaces
+// ns_refine_kernel<256, RF_BUILD>, and on systems of at most 192 variables
+// ns_refine_kernel<192, RF_BUILD>, replace
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_scaled_build
 //   (_kernel_scaled_build_il, npad 256, emit_ks False)
 //
@@ -58,7 +59,20 @@
 // rows is one contiguous run that is split as it is read: as tf32 into the
 // same layout, or as bf16 by pairs of float4 (8 k of one column) into
 // bf16's K-major layout (mma.cuh, wgmma_bf16_n128). K, an A operand only,
-// is stored row-major (ksw), so that it arrives by 16-byte copies. One step:
+// is stored row-major (ksw), so that it arrives by 16-byte copies.
+//
+// K2 on a system of at most 192 variables (3 nblk; hp is diagonal beyond,
+// the identity as the callers pad) runs on ns_refine_kernel<192, RF_BUILD>: a cluster of 3 CTAs over
+// the 256 tile's leading 192 rows and columns, whose pad the 4-CTA
+// instance only multiplies by zeros (its CTA 3 holds nothing else). Each
+// warpgroup computes 64 x 96 with wgmma m64n96; device memory keeps the 256
+// tile's strides (kLd). Every nonzero term is summed in the 4-CTA
+// instance's order (zeros added to a sum leave it as it is), and the pad
+// (rf_pad) gets what the 4-CTA instance's steps leave there: zeros off its
+// diagonal, and each diagonal entry's own NS steps, replayed through the
+// same passes on the tensor cores (rf_pad_diag); alpha takes the pad's rows
+// into its maximum. So inv and d_row are the 4-CTA instance's bit for bit,
+// over the whole tile. One step:
 //
 //   T = 2I - mu K X   A = K (own rows), B = X: at 256 3/4 of it from the
 //                     peers' slabs (ld.shared::cluster), then a cluster barrier
@@ -79,7 +93,9 @@
 // stage's A fragments read from the own fp32 tile and split per warp, and
 // its B split into the other slot; the wait; the adds. A's fragments and
 // the accumulators of an issued wgmma stay put until the wait (wg_hold).
-// Each element of B is split once per CTA.
+// Each element of B is split once per CTA. At 192 a stage is 16 rows of
+// both kinds (two 24 KB slots), 3 float4 of B a thread, each split alone
+// (96 columns a warpgroup hold no whole pairs of them a thread).
 //
 // K7's guard. Its product is the first bf16x3 step's K X0, so the guard is
 // that step with a check between its two products: each thread sums |I -
@@ -115,7 +131,8 @@
 // transposed into X's blk layout in shared memory. Shared memory:
 // 3 x 65,536 (K, X, T) + 2 x 16,384 (the ring) = 229,376 bytes a CTA, with
 // the scratch 230,400 and K2's d 231,424 (the card allows 232,448), one CTA
-// an SM; no static shared memory.
+// an SM; no static shared memory. At 192: 3 x 49,152 + 2 x 24,576 = 196,608,
+// with the scratch, d and the pad's diagonals 199,168.
 //
 // What bounds it, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6,
 // has the measured times; probes/refine_phases.py splits them): the bound is
@@ -151,7 +168,6 @@ namespace cg = cooperative_groups;
 namespace qct {
 
 constexpr int RF_THREADS = 256;  // two warpgroups
-constexpr int RF_SLOT = 4096;    // floats of a ring slot (its hi and lo planes)
 // floats of the scratch beyond K6's layout (K7, K9, K3, K2): [0, 128) the
 // guard's row sums, [128, 136) warps' maxima, 136 the CTA's maximum (read by
 // the peers), [144, 153) the masked walk's counts, [160, 176) the mu table
@@ -178,29 +194,36 @@ struct RfArgs {
   float mu[NS_MAX_MUS];
 };
 
-// One instance: npad kN.
+// One instance: npad kN. kN 192 is K2 on the leading 192 rows and columns
+// of the 256 tile (systems of at most 192 variables): the 256 tile's strides
+// in device memory (kLd), its pad written apart (kPad, rf_pad).
 template <int kN>
 struct RefineShape {
-  static constexpr int kCtas = kN == 128 ? 1 : 4;                  // CTAs a system
+  static constexpr int kCtas = kN == 128 ? 1 : kN / 64;            // CTAs a system
   static constexpr int kRows = kN / kCtas;                         // rows a CTA owns
+  static constexpr int kLd = kN == 128 ? 128 : 256;                // floats a row in device memory
+  static constexpr bool kPad = kLd != kN;
   static constexpr int kTile = kRows * kN;                         // floats of K, X, T
+  static constexpr int kCols = kCtas == 1 ? kN : kN / 2;           // a warpgroup's output columns
+  static constexpr int kAcc = kCols / 2;                           // its accumulators a thread
   static constexpr int kGroup = kCtas == 1 ? RF_THREADS : 128;     // threads sharing a stage
   static constexpr int kCopies = kTile / 4 / RF_THREADS;           // 16-byte copies a tile a thread
-  static constexpr size_t kSmemBytes = (3 * kTile + 2 * RF_SLOT) * sizeof(float);
-  static_assert(kSmemBytes == 229376, "three 64 KB tiles and two 16 KB slots");
+  static constexpr int kSlot = kPad ? 6144 : 4096;                 // floats of a ring slot (hi, lo)
+  static constexpr size_t kSmemBytes = (3 * kTile + 2 * kSlot) * sizeof(float);
+  static_assert(kPad || kSmemBytes == 229376, "three 64 KB tiles and two 16 KB slots");
 };
 
 // A product's stages: bf16x3 or 3xTF32 at npad kN.
 template <int kN, bool kBf16>
 struct RefineStage {
   using S = RefineShape<kN>;
-  static constexpr int kKB = kBf16 || kN == 128 ? 16 : 8;  // rows of k a stage
+  static constexpr int kKB = kBf16 || kN != 256 ? 16 : 8;  // rows of k a stage
   static constexpr int kKG = kBf16 ? 1 : kKB / 8;          // wgmma k-groups a stage
   static constexpr int kStages = kN / kKB;
-  static constexpr int kLoads = kKB * 32 / S::kGroup;      // float4 of B a thread a stage
+  static constexpr int kLoads = kKB * S::kCols / 4 / S::kGroup;  // float4 of B a thread a stage
   static constexpr int kDepth = kN == 256 ? 4 : 2;  // stages of B loads in flight
   static constexpr int kPlane = kKB * kN * (kBf16 ? 2 : 4);   // bytes of a hi (lo) plane
-  static_assert(2 * kPlane == RF_SLOT * 4 || (kBf16 && kN == 128), "a stage fills its slot");
+  static_assert(2 * kPlane == S::kSlot * 4 || (kBf16 && kN != 256), "a stage fills its slot");
   static_assert(kStages % kDepth == 0, "whole stages");
 };
 
@@ -219,7 +242,7 @@ template <int kN>
 __device__ __forceinline__ void rf_place(int i, int& r, int& c) {
   const int tid = threadIdx.x, wg = tid >> 7;
   r = (kN == 128 ? 64 * wg : 0) + 16 * ((tid >> 5) & 3) + ((tid & 31) >> 2) + 8 * ((i >> 1) & 1);
-  c = (kN == 128 ? 0 : 128 * wg) + 8 * (i >> 2) + 2 * (tid & 3) + (i & 1);
+  c = (kN == 128 ? 0 : RefineShape<kN>::kCols * wg) + 8 * (i >> 2) + 2 * (tid & 3) + (i & 1);
 }
 
 // Element (r, c) of K's tile: row-major, each row's float4 groups permuted
@@ -237,7 +260,7 @@ __device__ __forceinline__ int ksw(int r, int c) {
 template <int kN, bool kKsw>
 __device__ __forceinline__ void rf_copy(float* tile, const float* __restrict__ src, int e) {
   const int r = e / (kN / 4), c = 4 * (e % (kN / 4));
-  cp_async16(tile + (kKsw ? ksw<kN>(r, c) : r * kN + c), src + r * kN + c);
+  cp_async16(tile + (kKsw ? ksw<kN>(r, c) : r * kN + c), src + r * RefineShape<kN>::kLd + c);
 }
 
 template <int kN, bool kKsw>
@@ -261,7 +284,18 @@ __device__ __forceinline__ void rf_transpose(const float* rows, float* X) {
   }
 }
 
-// acc = A @ B for the calling warpgroup's 64 x 128 tile. A is the CTA's own
+// wgmma at the warpgroup's width (kAcc accumulators a thread): m64n128, or
+// m64n96 in the 192 instance.
+template <bool kBf16, int kAcc>
+__device__ __forceinline__ void rf_wgmma(float (&d)[kAcc], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  if constexpr (kAcc == 64 && kBf16) wgmma_bf16_n128(d, a, desc, scale_d);
+  if constexpr (kAcc == 64 && !kBf16) wgmma_n128(d, a, desc, scale_d);
+  if constexpr (kAcc == 48 && kBf16) wgmma_bf16_n96(d, a, desc, scale_d);
+  if constexpr (kAcc == 48 && !kBf16) wgmma_n96(d, a, desc, scale_d);
+}
+
+// acc = A @ B for the calling warpgroup's 64 x kCols tile. A is the CTA's own
 // tile: K (kAK, in ksw's layout) or X; B (kN x kN) is distributed: its rows
 // [kRows p, kRows p + kRows) are the tile at `b_tile` in CTA p. The CTA
 // walks k from its own rows on, so each owner serves one peer at a time.
@@ -269,24 +303,40 @@ __device__ __forceinline__ void rf_transpose(const float* rows, float* X) {
 // few per stage.
 template <int kN, bool kBf16, bool kAK>
 __device__ __forceinline__ void rf_product(const float* __restrict__ A, const float* b_tile,
-                                           float* ring, float (&acc)[64], int q,
+                                           float* ring, float (&acc)[RefineShape<kN>::kAcc],
+                                           int q,
                                            const float* __restrict__ next_k, float* k_tile) {
   using S = RefineShape<kN>;
   using P = RefineStage<kN, kBf16>;
   const int tid = threadIdx.x, wg = tid >> 7, w4 = (tid >> 5) & 3;
   const int g = (tid & 31) >> 2, t = tid & 3;
-  const int col0 = kN == 128 ? 0 : 128 * wg;              // the warpgroup's first column
+  const int col0 = kN == 128 ? 0 : S::kCols * wg;         // the warpgroup's first column
   const int r0w = (kN == 128 ? 64 * wg : 0) + 16 * w4;    // its warp's first row
   const int gt = kN == 128 ? tid : (tid & 127);           // place among the stage's threads
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < S::kAcc; ++i) acc[i] = 0.f;
   auto row0 = [&](int s) { return (S::kRows * q + P::kKB * s) % kN; };
+  // At 192 (kPad) the float offset of this thread's float4 l from the
+  // stage's first row, in B's owner and, tf32, in the slot: f = gt + kGroup
+  // l; bf16, 4 k of one column, f = (chunk u / kCols, column u % kCols, half
+  // f % 2 of the chunk), u = f / 2; tf32, the group's run of each chunk
+  auto pad_off = [&](int l) {
+    const int f = gt + S::kGroup * l;
+    if constexpr (kBf16) {
+      const int u = f >> 1, n = col0 + u % S::kCols;
+      return u / S::kCols * 8 * kN + (n >> 3) * 64 + (n & 7) * 4 + 32 * (f & 1);
+    } else {
+      return f / (2 * S::kCols) * 8 * kN + col0 * 8 + 4 * (f % (2 * S::kCols));
+    }
+  };
   // Float offset in B's owner of this thread's float4 l of stage s: tf32, a
   // run of the stage's chunks at the group's columns; bf16, unit u = (column
   // n, chunk h) as two float4, 8 k of column n
   auto src = [&](int s, int l) {
     const int base = (row0(s) % S::kRows >> 3) * 8 * kN;
-    if constexpr (kBf16) {
+    if constexpr (S::kPad) {
+      return base + pad_off(l);
+    } else if constexpr (kBf16) {
       const int u = gt + S::kGroup * (l >> 1), n = col0 + (u & 127), h = u >> 7;
       return base + h * 8 * kN + (n >> 3) * 64 + (n & 7) * 4 + 32 * (l & 1);
     } else {
@@ -306,8 +356,20 @@ __device__ __forceinline__ void rf_product(const float* __restrict__ A, const fl
     }
   };
   auto stage = [&](int s, const float4 (&v)[P::kLoads]) {
-    float* slot = ring + (s & 1) * RF_SLOT;
-    if constexpr (kBf16) {
+    float* slot = ring + (s & 1) * S::kSlot;
+    if constexpr (kBf16 && S::kPad) {  // each float4 into 8 bytes of each plane
+      char* plane = reinterpret_cast<char*>(slot);
+#pragma unroll
+      for (int l = 0; l < P::kLoads; ++l) {
+        const int f = gt + S::kGroup * l, u = f >> 1, n = col0 + u % S::kCols;
+        uint2 hi, lo;
+        split_pair(v[l].x, v[l].y, hi.x, lo.x);
+        split_pair(v[l].z, v[l].w, hi.y, lo.y);
+        const int off = (n >> 3) * 256 + u / S::kCols * 128 + (n & 7) * 16 + 8 * (f & 1);
+        *reinterpret_cast<uint2*>(plane + off) = hi;
+        *reinterpret_cast<uint2*>(plane + P::kPlane + off) = lo;
+      }
+    } else if constexpr (kBf16) {
       char* plane = reinterpret_cast<char*>(slot);
 #pragma unroll
       for (int m = 0; m < P::kLoads / 2; ++m) {
@@ -330,7 +392,7 @@ __device__ __forceinline__ void rf_product(const float* __restrict__ A, const fl
         split_tf32(v[l].y, h.y, o.y);
         split_tf32(v[l].z, h.z, o.z);
         split_tf32(v[l].w, h.w, o.w);
-        const int f = col0 * 8 + 4 * (gt + S::kGroup * l);
+        const int f = S::kPad ? pad_off(l) : col0 * 8 + 4 * (gt + S::kGroup * l);
         *reinterpret_cast<uint4*>(slot + f) = h;
         *reinterpret_cast<uint4*>(slot + P::kPlane / 4 + f) = o;
       }
@@ -364,12 +426,12 @@ __device__ __forceinline__ void rf_product(const float* __restrict__ A, const fl
       }
   };
   uint32_t ah[P::kKG][4], al[P::kKG][4];
-  float p[kBf16 ? 1 : 64];
+  float p[kBf16 ? 1 : S::kAcc];
   // stage s's wgmmas: bf16x3 into acc; 3xTF32 into the fresh accumulator p,
   // which a run of 16 k starts (scale_d 0): every stage of 16 rows, every
   // even one of 8 (`even`: s is; kDepth is even, so the caller knows it)
   auto issue = [&](int s, bool even) {
-    const uint32_t slot = smem_addr(ring + (s & 1) * RF_SLOT);
+    const uint32_t slot = smem_addr(ring + (s & 1) * S::kSlot);
 #pragma unroll
     for (int kg = 0; kg < P::kKG; ++kg)
 #pragma unroll
@@ -383,17 +445,17 @@ __device__ __forceinline__ void rf_product(const float* __restrict__ A, const fl
     wg_fence();
     if constexpr (kBf16) {
       const uint32_t hi = slot + (col0 >> 3) * 256, lo = hi + P::kPlane;
-      wgmma_bf16_n128(acc, ah[0], wg_desc(hi), 1);
-      wgmma_bf16_n128(acc, ah[0], wg_desc(lo), 1);
-      wgmma_bf16_n128(acc, al[0], wg_desc(hi), 1);
+      rf_wgmma<true>(acc, ah[0], wg_desc(hi), 1);
+      rf_wgmma<true>(acc, ah[0], wg_desc(lo), 1);
+      rf_wgmma<true>(acc, al[0], wg_desc(hi), 1);
     } else {
 #pragma unroll
       for (int kg = 0; kg < P::kKG; ++kg) {
         const uint32_t hi = slot + 4 * (col0 * 8 + kg * 8 * kN), lo = hi + P::kPlane;
         const bool fresh = kg == 0 && (P::kKB == 16 || even);
-        wgmma_n128(p, ah[kg], wg_desc(hi), !fresh);
-        wgmma_n128(p, ah[kg], wg_desc(lo), 1);
-        wgmma_n128(p, al[kg], wg_desc(hi), 1);
+        rf_wgmma<false>(p, ah[kg], wg_desc(hi), !fresh);
+        rf_wgmma<false>(p, ah[kg], wg_desc(lo), 1);
+        rf_wgmma<false>(p, al[kg], wg_desc(hi), 1);
       }
     }
     wg_commit();
@@ -437,13 +499,13 @@ __device__ __forceinline__ void rf_product(const float* __restrict__ A, const fl
         }
       if constexpr (kBf16) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) wg_hold_f(acc[i]);
+        for (int i = 0; i < S::kAcc; ++i) wg_hold_f(acc[i]);
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) wg_hold_f(p[i]);
+        for (int i = 0; i < S::kAcc; ++i) wg_hold_f(p[i]);
         if (P::kKB == 16 || (d & 1) == 1) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) acc[i] += p[i];
+          for (int i = 0; i < S::kAcc; ++i) acc[i] += p[i];
         }
       }
     }
@@ -459,21 +521,21 @@ template <int kN, bool kBf16>
 __device__ __forceinline__ void rf_finish(float* K, float* X, const float* T, float* ring, int q,
                                           const float* next_k, float* out, float mu) {
   using S = RefineShape<kN>;
-  float acc[64];
+  float acc[S::kAcc];
   rf_product<kN, kBf16, false>(X, T, ring, acc, q, next_k, K);
   __syncthreads();  // this CTA's reads of X are done
   if (out != nullptr) {
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
+    for (int i = 0; i < S::kAcc; i += 2) {
       int r, c;
       rf_place<kN>(i, r, c);
-      *reinterpret_cast<float2*>(out + (S::kRows * q + r) * kN + c) =
+      *reinterpret_cast<float2*>(out + (S::kRows * q + r) * S::kLd + c) =
           make_float2(mu * acc[i], mu * acc[i + 1]);
     }
     return;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < S::kAcc; ++i) {
     int r, c;
     rf_place<kN>(i, r, c);
     X[blk<kN>(r, c)] = mu * acc[i];
@@ -524,6 +586,10 @@ __device__ __forceinline__ bool rf_guard(float (&part)[2], float* scr, float gua
   return r0 < guard;
 }
 
+// Entry (i, j) of T = 2I - mu K X from entry v of K X, two_i 2 on the
+// diagonal, else 0; rf_pad_diag rounds the pad's entry by it too.
+__device__ __forceinline__ float rf_t(float two_i, float mu, float v) { return two_i - mu * v; }
+
 // One step on the system: T = 2I - mu K X, then X = mu X T (rf_finish); mu
 // is 1 but in K3's scaled steps. kGuard and `check` (K7's first step):
 // between the two products, the guard on K X (rf_guard); a system that
@@ -534,14 +600,14 @@ __device__ __forceinline__ bool rf_step(float* K, float* X, float* T, float* rin
                                         bool check = false, float guard = 0.f,
                                         float* scr = nullptr) {
   using S = RefineShape<kN>;
-  float acc[64], part[2] = {0.f, 0.f};
+  float acc[S::kAcc], part[2] = {0.f, 0.f};
   rf_product<kN, kBf16, true>(K, X, ring, acc, q, nullptr, nullptr);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < S::kAcc; ++i) {
     int r, c;
     rf_place<kN>(i, r, c);
     const bool diag = S::kRows * q + r == c;
-    T[blk<kN>(r, c)] = (diag ? 2.f : 0.f) - mu * acc[i];
+    T[blk<kN>(r, c)] = rf_t(diag ? 2.f : 0.f, mu, acc[i]);
     if constexpr (kGuard) part[(i >> 1) & 1] += fabsf((diag ? 1.f : 0.f) - acc[i]);
   }
   if constexpr (kGuard) {
@@ -556,15 +622,30 @@ __device__ __forceinline__ bool rf_step(float* K, float* X, float* T, float* rin
 // max_i sum_j |K_ij|, from K's tile (complete in shared memory): the CTA's
 // row i on thread i, its columns from column i on; at 256 the largest row
 // sum over the cluster's four CTAs by DSMEM (every CTA of the system then
-// has the same alpha). Its cluster barrier also ends every peer's reads of
-// this CTA's T and X from the system before. scr: RF_SCRATCH floats.
+// has the same alpha), at 192 over its three and the pad's rows, whose sums
+// are their diagonal entries (pad: the pad's ks diagonal, kLd - kN floats,
+// folded in by every CTA). Its cluster barrier also ends every peer's reads
+// of this CTA's T and X from the system before. scr: RF_SCRATCH floats.
+// Returns alpha.
 template <int kN>
-__device__ __forceinline__ void rf_cold_start(const float* K, float* X, float* scr, int q) {
+__device__ __forceinline__ float rf_cold_start(const float* K, float* X, float* scr, int q,
+                                               const float* pad = nullptr) {
   using S = RefineShape<kN>;
   const int tid = threadIdx.x;
   float row = 0.f;
   if (tid < S::kRows) {
-    for (int j = 0; j < kN; ++j) row += fabsf(K[ksw<kN>(tid, (j + tid) & (kN - 1))]);
+    for (int j = 0; j < kN; ++j) {
+      if constexpr (S::kPad) {
+        const int c = j + tid;
+        row += fabsf(K[ksw<kN>(tid, c < kN ? c : c - kN)]);
+      } else {
+        row += fabsf(K[ksw<kN>(tid, (j + tid) & (kN - 1))]);
+      }
+    }
+    if constexpr (S::kPad) {
+      static_assert(S::kLd - kN == S::kRows, "a pad row a thread");
+      row = fmaxf(row, fabsf(pad[tid]));
+    }
   }
   float mx = cta_max(row, scr + 128);
   if constexpr (S::kCtas > 1) {
@@ -583,33 +664,124 @@ __device__ __forceinline__ void rf_cold_start(const float* K, float* X, float* s
         make_float4(d == 0 ? alpha : 0.f, d == 1 ? alpha : 0.f, d == 2 ? alpha : 0.f,
                     d == 3 ? alpha : 0.f);
   }
+  return alpha;
 }
 
 // K2's build in K's tile, which holds the CTA's rows of hp (row-major, ksw):
-// d = rsqrt(max(diag K, 1e-30)) of all kN rows into d (kN floats), from hp's
-// diagonal in device memory and g9's diagonal entries, then the tile
+// d = rsqrt(max(diag K, 1e-30)) of all kLd rows into d (kLd floats), from
+// hp's diagonal in device memory and g9's diagonal entries, then the tile
 // replaced by (hp + blockdiag3(g9)) d_r d_c, and the CTA's entries of d_row
-// stored. hp, g and d_row are the system's. The caller's barrier must come
-// before any other thread reads K.
+// stored. hp, g and d_row are the system's (rows kLd floats apart). At 192
+// (kPad) also the pad's ks diagonal into pad and, by the last CTA, its
+// d_row. The caller's barrier must come before any other thread reads K.
 template <int kN>
 __device__ __forceinline__ void rf_build(float* K, float* d, const float* __restrict__ hp,
                                          const float* __restrict__ g, int nblk,
-                                         float* __restrict__ d_row, int q) {
+                                         float* __restrict__ d_row, int q,
+                                         float* pad = nullptr) {
   using S = RefineShape<kN>;
   const int tid = threadIdx.x;
-  for (int i = tid; i < kN; i += RF_THREADS) {
-    float v = hp[static_cast<size_t>(i) * kN + i];
+  for (int i = tid; i < S::kLd; i += RF_THREADS) {
+    float v = hp[static_cast<size_t>(i) * S::kLd + i];
     const int blk = i / 3;
     if (blk < nblk) v += g[(3 * (i % 3) + i % 3) * nblk + blk];
     d[i] = 1.f / sqrtf(fmaxf(v, 1e-30f));
+    if constexpr (S::kPad) {
+      if (i >= kN) pad[i - kN] = v * d[i] * d[i];  // as the tile's entries below
+    }
   }
   __syncthreads();  // d complete
   if (tid < S::kRows) d_row[S::kRows * q + tid] = d[S::kRows * q + tid];
+  if constexpr (S::kPad) {
+    if (q == S::kCtas - 1 && tid < S::kLd - kN) d_row[kN + tid] = d[kN + tid];
+  }
   for (int f = tid; f < S::kTile; f += RF_THREADS) {  // column f % kN of row f / kN
     const int i = f / kN, c = f % kN, r = S::kRows * q + i, blk = c / 3;
     float v = K[ksw<kN>(i, c)];
     if (r / 3 == blk && blk < nblk) v += g[(3 * (r % 3) + c % 3) * nblk + blk];
     K[ksw<kN>(i, c)] = v * d[r] * d[c];
+  }
+}
+
+// The value the 4-CTA instance leaves on pad diagonal entry 8 w + g (w the
+// calling warp, g = lane / 4) after n_mu scaled (mus), nq - n_mu bf16x3 and
+// ns - nq fp32 steps from x = alpha, k that entry of ks: the steps on the 1
+// x 1 system k, as its products compute them. Each product of a pad entry
+// has one nonzero term; its three passes (hi hi, hi lo, lo hi) run on the
+// tensor cores here too, by mma.sync with entry g's operands in row g of A
+// and column g of B at k = 0, so its sum is D[g][g] (lane 4 g + g / 2, d[g %
+// 2]), which a shuffle hands to the four lanes of g.
+__device__ __forceinline__ float rf_pad_diag(float x, float k, const float* mus, int n_mu, int nq,
+                                             int ns) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const bool k0 = (lane & 3) == 0;  // the lanes holding k = 0 of row g of A, column g of B
+  auto diag = [&](const float (&d)[4]) {
+    return __shfl_sync(0xffffffffu, (g & 1) ? d[1] : d[0], 4 * g + g / 2);
+  };
+  for (int it = 0; it < ns; ++it) {
+    const float mu = it < n_mu ? mus[it] : 1.f;
+    float kx[4] = {0.f, 0.f, 0.f, 0.f}, xt[4] = {0.f, 0.f, 0.f, 0.f};
+    uint32_t kh, kl, xh, xl, th, tl;
+    if (it < nq) {  // bf16x3: T = 2 - mu K X, then X = mu X T
+      split_pair(k, 0.f, kh, kl);
+      split_pair(x, 0.f, xh, xl);
+      const uint32_t akh[4] = {k0 ? kh : 0u, 0u, 0u, 0u}, akl[4] = {k0 ? kl : 0u, 0u, 0u, 0u};
+      mma_bf16(kx, akh, k0 ? xh : 0u, 0u);
+      mma_bf16(kx, akh, k0 ? xl : 0u, 0u);
+      mma_bf16(kx, akl, k0 ? xh : 0u, 0u);
+      split_pair(rf_t(2.f, mu, diag(kx)), 0.f, th, tl);
+      const uint32_t axh[4] = {k0 ? xh : 0u, 0u, 0u, 0u}, axl[4] = {k0 ? xl : 0u, 0u, 0u, 0u};
+      mma_bf16(xt, axh, k0 ? th : 0u, 0u);
+      mma_bf16(xt, axh, k0 ? tl : 0u, 0u);
+      mma_bf16(xt, axl, k0 ? th : 0u, 0u);
+      x = mu * diag(xt);
+    } else {  // 3xTF32 into a fresh accumulator, which one add takes into the total
+      split_tf32(k, kh, kl);
+      split_tf32(x, xh, xl);
+      const uint32_t akh[4] = {k0 ? kh : 0u, 0u, 0u, 0u}, akl[4] = {k0 ? kl : 0u, 0u, 0u, 0u};
+      mma_tf32(kx, akh, k0 ? xh : 0u, 0u);
+      mma_tf32(kx, akh, k0 ? xl : 0u, 0u);
+      mma_tf32(kx, akl, k0 ? xh : 0u, 0u);
+      split_tf32(rf_t(2.f, mu, 0.f + diag(kx)), th, tl);
+      const uint32_t axh[4] = {k0 ? xh : 0u, 0u, 0u, 0u}, axl[4] = {k0 ? xl : 0u, 0u, 0u, 0u};
+      mma_tf32(xt, axh, k0 ? th : 0u, 0u);
+      mma_tf32(xt, axh, k0 ? tl : 0u, 0u);
+      mma_tf32(xt, axl, k0 ? th : 0u, 0u);
+      x = mu * (0.f + diag(xt));
+    }
+  }
+  return x;
+}
+
+// The 256 tile's pad of a system the 192 instance (kPad) solves: rows and
+// columns from 192 on, diagonal in hp (the identity, as the callers pad),
+// so the 4-CTA instance's steps keep zeros off its diagonal and take each
+// diagonal entry through the NS steps alone. Every warp of every CTA
+// follows eight of them (rf_pad_diag) from alpha and pad (the pad's ks
+// diagonal, rf_build) into xp (kLd - kN floats of shared memory); the CTA
+// stores into out (the system's inv) zeros in its rows' pad columns and its
+// share of the pad rows. a: the launch's schedule, mus its table in shared
+// memory.
+template <int kN>
+__device__ __forceinline__ void rf_pad(float alpha, const RfArgs& a, const float* mus,
+                                       const float* pad, float* xp, float* __restrict__ out,
+                                       int q) {
+  using S = RefineShape<kN>;
+  constexpr int kW = (S::kLd - kN) / 4;  // float4 of a row's pad columns
+  const int tid = threadIdx.x, i = 8 * (tid >> 5) + ((tid & 31) >> 2);
+  static_assert(8 * RF_THREADS / 32 == S::kLd - kN, "eight pad entries a warp");
+  const float x = rf_pad_diag(alpha, pad[i], mus, a.n_scaled, a.n_scaled + a.n_quad,
+                              a.n_scaled + a.n_quad + a.n_hi);
+  if ((tid & 3) == 0) xp[i] = x;
+  for (int e = tid; e < S::kRows * kW; e += RF_THREADS)
+    *reinterpret_cast<float4*>(out + (S::kRows * q + e / kW) * S::kLd + kN + 4 * (e % kW)) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // xp complete
+  for (int e = tid + RF_THREADS * q; e < (S::kLd - kN) * S::kLd / 4; e += RF_THREADS * S::kCtas) {
+    const int r = kN + e / (S::kLd / 4), c = 4 * (e % (S::kLd / 4)), dr = r - c;
+    const float v = xp[r - kN];
+    *reinterpret_cast<float4*>(out + r * S::kLd + c) = make_float4(
+        dr == 0 ? v : 0.f, dr == 1 ? v : 0.f, dr == 2 ? v : 0.f, dr == 3 ? v : 0.f);
   }
 }
 
@@ -655,11 +827,13 @@ __device__ __forceinline__ int rf_flagged(const int* __restrict__ tripped, int b
 }
 
 // Dynamic shared memory of instance (kN, kMode): K6's three tiles and ring,
-// for the other modes their scratch, for K2 its d.
+// for the other modes their scratch, for K2 its d (and at 192 the pad's ks
+// diagonal and its result).
 template <int kN, int kMode>
 constexpr size_t rf_smem_bytes() {
-  return RefineShape<kN>::kSmemBytes + (kMode == RF_REFINE ? 0 : RF_SCRATCH * sizeof(float)) +
-         (kMode == RF_BUILD ? kN * sizeof(float) : 0);
+  using S = RefineShape<kN>;
+  return S::kSmemBytes + (kMode == RF_REFINE ? 0 : RF_SCRATCH * sizeof(float)) +
+         (kMode == RF_BUILD ? (S::kPad ? 3 * S::kLd - 2 * kN : kN) * sizeof(float) : 0);
 }
 
 // a.ks, a.init (b, kN, kN) -> a.inv (b, kN, kN). RF_REFINE: n_quad bf16x3
@@ -677,17 +851,20 @@ template <int kN, int kMode>
 __global__ void __launch_bounds__(RF_THREADS, 1) ns_refine_kernel(const RfArgs a) {
   using S = RefineShape<kN>;
   constexpr bool kCold = kMode == RF_PLAIN || kMode == RF_SCALED || kMode == RF_BUILD;
+  static_assert(!S::kPad || kMode == RF_BUILD, "the 192 instance is K2's");
   extern __shared__ __align__(128) float smem[];
   float* K = smem;
   float* X = K + S::kTile;
   float* T = X + S::kTile;
   float* ring = T + S::kTile;
-  float* scr = ring + 2 * RF_SLOT;  // every mode but RF_REFINE
+  float* scr = ring + 2 * S::kSlot;  // every mode but RF_REFINE
   float* d = scr + RF_SCRATCH;      // RF_BUILD only
+  [[maybe_unused]] float* pad = d + S::kLd;  // kPad only: the pad's ks diagonal, then its inverse's
   int q = 0;
   if constexpr (S::kCtas > 1) q = static_cast<int>(cg::this_cluster().block_rank());
   const int unit = blockIdx.x / S::kCtas, units = gridDim.x / S::kCtas, b = a.b;
-  const size_t sys_floats = static_cast<size_t>(kN) * kN, rows = static_cast<size_t>(S::kTile) * q;
+  const size_t sys_floats = static_cast<size_t>(S::kLd) * S::kLd;
+  const size_t rows = static_cast<size_t>(S::kRows) * S::kLd * q;  // the CTA's first row
   const bool masked = kMode == RF_SCALED && a.tripped != nullptr;
   int* walk = reinterpret_cast<int*>(scr + RF_WALK);
   int pos = 0, rank = 0, target = unit;
@@ -701,11 +878,13 @@ __global__ void __launch_bounds__(RF_THREADS, 1) ns_refine_kernel(const RfArgs a
   auto begin = [&](int s) {
     if constexpr (kMode == RF_BUILD) {
       rf_build<kN>(K, d, a.ks + s * sys_floats, a.g9 + static_cast<size_t>(s) * 9 * a.nblk,
-                   a.nblk, a.d_row + static_cast<size_t>(s) * kN, q);
+                   a.nblk, a.d_row + static_cast<size_t>(s) * S::kLd, q, pad);
       __syncthreads();  // the CTA's rows of ks complete
     }
     if constexpr (kCold) {
-      rf_cold_start<kN>(K, X, scr, q);
+      [[maybe_unused]] const float alpha = rf_cold_start<kN>(K, X, scr, q, pad);
+      if constexpr (S::kPad)
+        rf_pad<kN>(alpha, a, scr + RF_MU, pad, pad + (S::kLd - kN), a.inv + s * sys_floats, q);
     } else {
       rf_transpose<kN>(T, X);
     }
@@ -749,7 +928,7 @@ __global__ void __launch_bounds__(RF_THREADS, 1) ns_refine_kernel(const RfArgs a
     }
     if (ns == 0) {  // no step: the result is the start itself
       for (int f = threadIdx.x; f < S::kTile; f += RF_THREADS)
-        out[rows + f] = X[blk<kN>(f / kN, f % kN)];
+        out[rows + (S::kPad ? f / kN * S::kLd + f % kN : f)] = X[blk<kN>(f / kN, f % kN)];
       __syncthreads();
       if (next_k != nullptr) rf_copy_tile<kN, true>(K, next_k);
     }
@@ -773,7 +952,8 @@ __global__ void __launch_bounds__(RF_THREADS, 1) ns_refine_kernel(const RfArgs a
 }
 
 // The launch configuration of instance (kN, kMode) for b systems: as many
-// CTAs (4-CTA clusters at 256) as the card holds at once, at most b of them.
+// CTAs (3- and 4-CTA clusters at 192 and 256) as the card holds at once, at
+// most b of them.
 template <int kN, int kMode>
 cudaError_t refine_config(int b, cudaStream_t stream, cudaLaunchConfig_t& cfg,
                           cudaLaunchAttribute& attr) {
@@ -891,7 +1071,11 @@ extern "C" int qct_ns_inverse_scaled_masked_256(const float* ks, float* inv, con
 }
 
 // K2 at the 256 tile: hp (b, 256, 256), g9 (b, 9, nblk) -> inv (b, 256,
-// 256), d_row (b, 256); no ks.
+// 256), d_row (b, 256); no ks. The caller must give an hp that is diagonal
+// from row and column 3 nblk on (the identity pad; nothing here checks it):
+// systems of at most 192 variables run on the 3-CTA instance over the
+// leading 192, which reads only that diagonal beyond them, the rest on
+// 4-CTA clusters over all 256.
 extern "C" int qct_ns_inverse_scaled_build_256(const float* hp, const float* g9, int nblk,
                                                float* inv, float* d_row, int b, const float* mus,
                                                int n_scaled, int n_quad, int n_hi,
@@ -901,12 +1085,13 @@ extern "C" int qct_ns_inverse_scaled_build_256(const float* hp, const float* g9,
   a.d_row = d_row;
   a.nblk = nblk;
   qct::rf_schedule(a, mus, n_scaled, n_quad, n_hi);
+  if (3 * nblk <= 192) return qct::launch_refine<192, qct::RF_BUILD>(a, stream);
   return qct::launch_refine<256, qct::RF_BUILD>(a, stream);
 }
 
-// Units (CTAs at 128, 4-CTA clusters at 256) of instance (npad, mode) the
-// card holds at once, the grid of a large batch; for the record in
-// chip_smoke.py, the launches do not need it.
+// Units (CTAs at 128, 3- and 4-CTA clusters at 192 and 256) of instance
+// (npad, mode) the card holds at once, the grid of a large batch; for the
+// record in chip_smoke.py, the launches do not need it.
 extern "C" int qct_ns_refine_units(int npad, int mode, int* units) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -926,7 +1111,9 @@ extern "C" int qct_ns_refine_units(int npad, int mode, int* units) {
     err = qct::refine_config<256, qct::RF_SCALED>(many, nullptr, cfg, attr);
   if (npad == 256 && mode == qct::RF_BUILD)
     err = qct::refine_config<256, qct::RF_BUILD>(many, nullptr, cfg, attr);
-  *units = err == cudaSuccess ? static_cast<int>(cfg.gridDim.x) / (npad == 128 ? 1 : 4) : 0;
+  if (npad == 192 && mode == qct::RF_BUILD)
+    err = qct::refine_config<192, qct::RF_BUILD>(many, nullptr, cfg, attr);
+  *units = err == cudaSuccess ? static_cast<int>(cfg.gridDim.x) / (npad == 128 ? 1 : npad / 64) : 0;
   return static_cast<int>(err);
 }
 

@@ -211,11 +211,18 @@ def ns_inverse_scaled_build(hp, g9, a0: float = 1e-5, n_scaled: int = 9,
                             n_quad: int = 2, n_hi: int = 1):
     """Fused K-build + scaled NS inverse.
 
-    hp (B, npad, npad): hess_n + sigma I, padded with identity on the pad;
+    hp (B, npad, npad): hess_n + sigma I on its leading 3 nblk rows and
+    columns, diagonal beyond them (the callers pad with the identity);
     g9 (B, 9, nblk): the pyramid gram blocks, component-major. Returns
     (inv, ks, d_row) with d_row (B, 1, npad) the Jacobi scale; inv and ks are
     in the scaled space (K^-1 = d inv d). At the 256 tile ks comes back as
-    None, as the JAX kernel's default (`emit_ks`) has it."""
+    None, as the JAX kernel's default (`emit_ks`) has it.
+
+    That hp is diagonal from row and column 3 nblk on is a rule of the
+    caller's, which nothing here checks (it would cost a host sync): at the
+    256 tile a system of at most 192 variables runs on a kernel that reads
+    only hp's diagonal there, while the reference inverts the whole tile, so
+    the two agree only on such an hp."""
     with span("qct.ops.ns_inverse_scaled_build"):
         b = hp.shape[0] if hp.dim() == 3 else None
         npad = hp.shape[-1] if hp.dim() == 3 else None

@@ -250,6 +250,16 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   return r;
 }
 
+inline float __shfl_sync(unsigned, float v, int src) {
+  auto& w = emu::warp();
+  const int l = emu::lane();
+  w.f[l][7] = v;
+  w.bar.arrive_and_wait();
+  const float r = w.f[src & 31][7];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
 inline int __shfl_up_sync(unsigned, int v, int delta) {
   auto& w = emu::warp();
   const int l = emu::lane();

@@ -1,7 +1,7 @@
 // CPU stand-ins for the inline PTX of csrc/mma.cuh (cvt.rna.tf32.f32,
 // mma.sync m16n8k16 bf16 and m16n8k8 tf32, ldmatrix.x4.trans, mapa and
-// ld.shared::cluster, wgmma m64nNk8 tf32 and m64n128k16 bf16 and their
-// fences, cp.async), on the PTX ISA's
+// ld.shared::cluster, wgmma m64nNk8 tf32 and m64n128k16 / m64n96k16 bf16 and
+// their fences, cp.async), on the PTX ISA's
 // fragment layouts: each lane posts its registers to its warp's (wgmma: its
 // warpgroup's) scratch area, and after a barrier every lane reads what the
 // instruction would give it. wgmma runs when it is issued, B read through
@@ -197,6 +197,14 @@ inline void emu_wgmma_bf16(float* d, const uint32_t (&a)[4], uint64_t desc, int 
 __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], const uint32_t (&a)[4],
                                                 uint64_t desc, int scale_d) {
   emu_wgmma_bf16<128>(d, a, desc, scale_d);
+}
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  emu_wgmma<96>(d, a, desc, scale_d);
+}
+__device__ __forceinline__ void wgmma_bf16_n96(float (&d)[48], const uint32_t (&a)[4],
+                                               uint64_t desc, int scale_d) {
+  emu_wgmma_bf16<96>(d, a, desc, scale_d);
 }
 
 // cp.async runs when it is issued, so its wait does nothing here; a

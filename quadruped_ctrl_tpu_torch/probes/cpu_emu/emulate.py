@@ -33,7 +33,9 @@ at each tile on a batch of a tripped, two warm and a NaN start (its cold
 branch K3's kernel of ns_inverse.cu at 128, ns_refine.cu's RF_SCALED at
 256), and K9 at the 128 tile, against their references; `k23_256` K2 and
 K3 at the 256 tile (ns_refine.cu's RF_BUILD and RF_SCALED) on two systems
-against their references, and K3's masked walk on 600 systems. It shows
+against their references, K2's 3-CTA instance (systems of at most 192
+variables) against its 4-CTA one bit for bit, and K3's masked walk on 600
+systems. It shows
 that the indexing, the layouts and the barriers are right; it says nothing
 of speed. A run takes a few minutes.
 """
@@ -66,7 +68,8 @@ OUT = PKG / "_build" / "cpu_emu"
 PTX_FUNCTIONS = ("to_tf32", "mma_bf16", "mma_tf32", "ldsm_x4_trans", "map_rank",
                  "ld_cluster", "wg_fence", "wg_commit", "wg_wait_all", "wg_hold_f", "wg_hold_r",
                  "fence_proxy_async", "wg_bar", "wgmma_n128", "wgmma_n32",
-                 "wgmma_n16", "wgmma_bf16_n128", "cp_async16", "cp_async_wait_all")
+                 "wgmma_n16", "wgmma_bf16_n128", "wgmma_n96", "wgmma_bf16_n96", "cp_async16",
+                 "cp_async_wait_all")
 
 
 def prepare(csrc: Path, out: Path):
@@ -372,6 +375,69 @@ def run_k23_256(lib: ctypes.CDLL, b: int = 2) -> dict:
     return out
 
 
+def k2_widths_operands(nblk: int, b: int = 2, unit_pad: bool = False
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hp, g9) of K2 at the 256 tile on n = 3 nblk variables: hp = 3 x SPD
+    at cond 50, 3 I beyond n (I with unit_pad, as the solver pads), and nblk
+    random g9 blocks."""
+    hp = spd(4, b, 3 * nblk, 50.0, NI.N_BIG) * (1.0 if unit_pad else 3.0)
+    hp[:, :3 * nblk, :3 * nblk] *= 3.0 if unit_pad else 1.0
+    g9 = torch.from_numpy(np.random.default_rng(5).uniform(0, 0.5, (b, 9, nblk))
+                          .astype(np.float32))
+    g9[:, [0, 4, 8]] += 1.0
+    return hp, g9
+
+
+def run_k2_widths(lib: ctypes.CDLL, b: int = 2) -> dict:
+    """K2 at the 256 tile at both widths (qct_ns_inverse_scaled_build_256):
+    systems of at most 192 variables (3 nblk) run on the 3-CTA instance
+    over the tile's leading 192 rows and columns, larger ones on 4-CTA
+    clusters over all 256. `k2_width_192` (nblk 64, the ADMM schedule) and
+    `k2_width_144` (nblk 48, the identity on the pad, one scaled, one bf16x3
+    and one fp32 step, so that the pad's diagonal is not yet 1; hp's pad is
+    3 I in the others) call it on hp and g9 and on the
+    same hp with g9 zero-extended to 80 blocks, which takes the 4-CTA
+    instance on the same K: whether inv and d_row agree bit for bit over
+    the whole tile, and the pad's diagonal entry. `k2_width_240` (nblk 80,
+    the ADMM schedule) against the reference, as run_k23_256's K2: a
+    system the 3-CTA instance took would lose its rows from 192 on. b
+    systems each; prints them."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    s = default_config().solver
+    admm = (s.ns_admm_a0, s.ns_admm_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
+
+    def k2(hp, g9, sched):
+        inv, d = torch.full_like(hp, float("nan")), torch.full((b, 1, NI.N_BIG), float("nan"))
+        rc = lib.qct_ns_inverse_scaled_build_256(ptr(hp), ptr(g9), g9.shape[-1], ptr(inv),
+                                                 ptr(d), b, NI._mus_arg(*sched[:2]),
+                                                 *sched[1:], None)
+        return rc, inv, d
+
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    out = {}
+    for nblk, sched in ((64, admm), (48, (s.ns_admm_a0, 1, 1, 1))):
+        hp, g9 = k2_widths_operands(nblk, b, unit_pad=nblk == 48)
+        wide = torch.zeros((b, 9, 80))
+        wide[..., :nblk] = g9
+        rc, inv, d = k2(hp, g9, sched)
+        rc_w, inv_w, d_w = k2(hp, wide, sched)
+        out[f"k2_width_{3 * nblk}"] = dict(
+            rc=rc, rc_wide=rc_w, finite=bool(inv.isfinite().all() and d.isfinite().all()),
+            inv_equal=bool(torch.equal(bits(inv), bits(inv_w))),
+            d_equal=bool(torch.equal(bits(d), bits(d_w))), pad_diag=float(inv[0, -1, -1]))
+    hp, g9 = k2_widths_operands(80, b)
+    rc, inv, d = k2(hp, g9, admm)
+    inv_r, _, d_r = NI.ns_inverse_scaled_build_reference(hp, g9, *admm)
+    ks_r = NI._build_k(hp, g9) * d_r[:, 0, :, None] * d_r
+    out["k2_width_240"] = dict(rc=rc, residual=resid(ks_r, inv)[0],
+                               reference=resid(ks_r, inv_r)[0], rel=rel(inv, inv_r),
+                               rel_d=rel(d, d_r),
+                               finite=bool(inv.isfinite().all() and d.isfinite().all()))
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
 def run_masked_walk(lib: ctypes.CDLL, b: int = 600) -> dict:
     """The masked K3 at 256 (qct_ns_inverse_scaled_masked_256) with an empty
     schedule, so that each flagged system's result is its start alpha I:
@@ -585,6 +651,7 @@ if __name__ == "__main__":
         run_plain128(compile_ns(OUT))
     if "k23_256" in which:
         run_k23_256(compile_ns(OUT))
+        run_k2_widths(compile_ns(OUT))
         run_masked_walk(compile_ns(OUT))
     if "k5" in which:
         run_k5(compile_fused(OUT))

@@ -1,7 +1,8 @@
 """Where the NS step of csrc/ns_refine.cu spends its time, on the card: the
-warm refinement K6, or the scaled NS K3 at the 256 tile.
+warm refinement K6, the scaled NS K3 at the 256 tile, or its fused build K2
+at the 256 tile at both widths.
 
-    python3 quadruped_ctrl_tpu_torch/probes/refine_phases.py [--systems B] [--kernel k6|k3]
+    python3 quadruped_ctrl_tpu_torch/probes/refine_phases.py [--systems B] [--kernel k6|k3|k2]
 
 Copies csrc/ns_refine.cu into quadruped_ctrl_tpu_torch/_build/refine_phases/
 in several variants (by text substitution: the library's source is not
@@ -9,7 +10,10 @@ changed), builds each with nvcc into a library of its own, all at once, and
 runs K6 (one bf16x3 and one fp32 step) at both tiles on B SPD warm starts
 (n = 120 and 192, cond 1e4; default 2048), or K3 at 256 (`--kernel k3`:
 the ADMM schedule, 8 bf16x3 and one fp32 step, on B SPD n = 192 at cond
-2.1e3):
+2.1e3), or K2 at 256 (`--kernel k2`: the same schedule and systems, g9
+zero, so that K2 builds K3's ks; 64 blocks, which take the 3-CTA instance
+over the tile's leading 192 rows and columns (`K2/192`), and 80, the 4-CTA
+one over all 256 (`K2/256`)):
 
 * `clocks`: clock64() stamps, read for thread 0 of CTA 0: the mean clocks a
   stage of each product type spends in its barrier, the B loads issued, the
@@ -63,7 +67,7 @@ STAGE_STAMPS = (
     ("      wg_wait_all();\n#pragma unroll\n      for (int kg = 0; kg < P::kKG; ++kg)",
      "      long long c4 = clock64();\n"),
 )
-STAGE_END = ("          for (int i = 0; i < 64; ++i) acc[i] += p[i];\n        }\n      }\n")
+STAGE_END = ("          for (int i = 0; i < S::kAcc; ++i) acc[i] += p[i];\n        }\n      }\n")
 STAGE_RECORD = (
     "      long long c6 = clock64();\n"
     "      if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
@@ -91,21 +95,21 @@ STEP_RECORD = (
     "    k[0] += u1 - u0; k[1] += u2 - u1; k[2] += u3 - u2; k[3] += u4 - u3; k[4] += 1;\n"
     "  }}\n")
 CUTS = {
-    "no_copies": (("  cp_async16(tile + (kKsw ? ksw<kN>(r, c) : r * kN + c), src + r * kN + c);",
+    "no_copies": (("  cp_async16(tile + (kKsw ? ksw<kN>(r, c) : r * kN + c), "
+                   "src + r * RefineShape<kN>::kLd + c);",
                    "  (void)src; (void)r; (void)c;"),
-                  ("      *reinterpret_cast<float2*>(out + (S::kRows * q + r) * kN + c) =\n"
+                  ("      *reinterpret_cast<float2*>(out + (S::kRows * q + r) * S::kLd + c) =\n"
                    "          make_float2(mu * acc[i], mu * acc[i + 1]);",
                    "      (void)r; (void)c;")),
     "no_b_loads": (("        v[l] = *reinterpret_cast<const float4*>(b_tile + src(s, l));",
                     "        v[l] = make_float4(0.f, 0.f, 0.f, 0.f);"),
                    ("        v[l] = ld_cluster(map_rank(b_own, owner) + 4 * src(s, l));",
                     "        v[l] = make_float4(0.f, 0.f, 0.f, 0.f);")),
-    "no_staging": (("    float* slot = ring + (s & 1) * RF_SLOT;\n    if constexpr (kBf16) {\n"
-                    "      char* plane",
+    "no_staging": (("    float* slot = ring + (s & 1) * S::kSlot;\n",
                     "    if (v[0].x != 12345.f) return;\n    float* slot = ring + (s & 1) * "
-                    "RF_SLOT;\n    if constexpr (kBf16) {\n      char* plane"),),
+                    "S::kSlot;\n"),),
     "two_peers": (("        v[l] = ld_cluster(map_rank(b_own, owner) + 4 * src(s, l));",
-                   "        v[l] = owner == ((q + 2) & 3) ? make_float4(0.f, 0.f, 0.f, 0.f)\n"
+                   "        v[l] = owner == (q + 2) % S::kCtas ? make_float4(0.f, 0.f, 0.f, 0.f)\n"
                    "                                      : ld_cluster(map_rank(b_own, owner) + "
                    "4 * src(s, l));"),),
     "own_local": (("#pragma unroll\n    for (int l = 0; l < P::kLoads; ++l) {\n"
@@ -133,7 +137,7 @@ def clocked_source(src: str) -> str:
     for anchor, before, after in STEP_STAMPS:
         src = replace_once(src, anchor, before + anchor + after)
     record = STEP_RECORD.format()
-    x_store = ("    return;\n  }\n#pragma unroll\n  for (int i = 0; i < 64; ++i) {\n"
+    x_store = ("    return;\n  }\n#pragma unroll\n  for (int i = 0; i < S::kAcc; ++i) {\n"
                "    int r, c;\n    rf_place<kN>(i, r, c);\n    X[")
     src = replace_once(src, x_store, record + x_store)
     src = replace_once(src, "  rf_sync<kN>();  // X complete in every CTA; every read of T done\n",
@@ -163,7 +167,8 @@ def variants() -> dict:
 
 
 def build() -> dict:
-    """Every variant built at once: {name: its library}."""
+    """Every variant built at once: {name: its library}; a variant nvcc
+    fails on is reported and left out."""
     root = _build.BUILD_DIR / "refine_phases"
     procs = {}
     for name, src in variants().items():
@@ -181,7 +186,10 @@ def build() -> dict:
     for name, (path, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise SystemExit(f"refine_phases: nvcc failed for {name}:\n{log[-4000:]}")
+            if name in ("full", "clocks"):
+                raise SystemExit(f"refine_phases: nvcc failed for {name}:\n{log[-4000:]}")
+            print(f"refine_phases: nvcc failed for {name}, left out:\n{log[-2000:]}")
+            continue
         lib = ctypes.CDLL(str(path))
         for entry, (argtypes, restype) in _build._SIGNATURES.items():
             if hasattr(lib, entry):
@@ -194,7 +202,7 @@ def build() -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--systems", type=int, default=2048)
-    parser.add_argument("--kernel", choices=("k6", "k3"), default="k6")
+    parser.add_argument("--kernel", choices=("k6", "k3", "k2"), default="k6")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("refine_phases: needs a CUDA card")
@@ -208,17 +216,24 @@ def main() -> int:
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     b = args.systems
     admm = CS.schedules(default_config())[0]
-    for npad, n in ((128, 120), (256, 192)) if args.kernel == "k6" else ((256, 192),):
+    cases = {"k6": ((128, 120), (256, 192)), "k3": ((256, 192),), "k2": ((192, 64), (256, 80))}
+    for npad, n in cases[args.kernel]:
         if args.kernel == "k6":
             ks, init, _ = CS.spd_warm(gen, b, n, npad, dev)
         else:
-            ks = CS.spd_batch(gen, b, n, npad, 2.1e3, dev)
+            ks = CS.spd_batch(gen, b, 192, NI.N_BIG, 2.1e3, dev)
         inv = torch.empty_like(ks)
+        g9 = torch.zeros((b, 9, n), device=dev)  # K2: n blocks
+        d_row = torch.empty((b, 1, NI.N_BIG), device=dev)
 
         def run(lib):
             if args.kernel == "k3":
                 rc = lib.qct_ns_inverse_scaled_256(ptr(ks), ptr(inv), b,
                                                    NI._mus_arg(*admm[:2]), *admm[1:], stream)
+            elif args.kernel == "k2":
+                rc = lib.qct_ns_inverse_scaled_build_256(ptr(ks), ptr(g9), n, ptr(inv),
+                                                         ptr(d_row), b, NI._mus_arg(*admm[:2]),
+                                                         *admm[1:], stream)
             else:
                 entry = (lib.qct_ns_inverse_refine if npad == 128
                          else lib.qct_ns_inverse_refine_256)

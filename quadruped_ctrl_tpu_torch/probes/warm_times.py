@@ -28,7 +28,12 @@ their count (chip_smoke.event_ms). Cases, each at 2048 systems:
   h16_full solve's K2 calls 0 (ADMM) and 2 (polish; chip_smoke
   .solve_operands), K3 on the ks K2 builds: residual (max |I - ks X| on the
   ADMM schedule, the largest row sum on the polish one) against the
-  reference's.
+  reference's. K2 at both widths: its systems have 192 variables, so it
+  runs on the 3-CTA instance over the tile's leading 192 (`k2_ms`); with
+  g9 zero-extended to 80 blocks, on the same K, the 4-CTA instance over all
+  256 (`k2_wide_ms`), and whether the two agree bit for bit (`wide_equal`,
+  inv and d_row; a checkout without the 3-CTA instance runs the 4-CTA one
+  on both).
 
 The last line is one JSON object.
 """
@@ -151,15 +156,23 @@ def main() -> int:
             ks = NI._build_k(hp, g9) * d[:, 0, :, None] * d
             inv_r = NI.ns_inverse_scaled_build_reference(hp, g9, *sched)[0]
             k3 = NI.ns_inverse_scaled(ks, *sched)
+            wide = torch.zeros((cs.B16, 9, 80), device=dev)
+            wide[..., :g9.shape[-1]] = g9
+            inv_w, _, d_w = NI.ns_inverse_scaled_build(hp, wide, *sched)
+            bits = lambda t: t.view(torch.int32)  # noqa: E731
             r = dict(k2_residual=cs.residuals(ks, inv)[metric],
                      k3_residual=cs.residuals(ks, k3)[metric],
                      reference=cs.residuals(ks, inv_r)[metric],
                      k2_ms=cs.event_ms(lambda: NI.ns_inverse_scaled_build(hp, g9, *sched), 5),
+                     k2_wide_ms=cs.event_ms(
+                         lambda: NI.ns_inverse_scaled_build(hp, wide, *sched), 5),
+                     wide_equal=bool(torch.equal(bits(inv), bits(inv_w))
+                                     and torch.equal(bits(d), bits(d_w))),
                      k3_ms=cs.event_ms(lambda: NI.ns_inverse_scaled(ks, *sched), 5),
                      inv_ex_ms=cs.event_ms(lambda: torch.linalg.inv_ex(ks), 5))
             out[f"K2/K3 256 {label}, {case}"] = r
             print(f"  K2/K3 256 {label}, {case}: {r}")
-            del inv, ks, inv_r, k3
+            del inv, ks, inv_r, k3, inv_w, wide
     print(json.dumps(out))
     return 0
 
