@@ -5,7 +5,7 @@
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas (_kernel), npad 128 and 256
 // ns_plain_kernel<256, 4, 1> replaces
 //   quadruped_ctrl_tpu/ops/ns_inverse.py: ns_inverse_pallas_blocked (_kernel_blocked), npad 256
-// (K9 at the 128 tile stays on K3's kernel, ns_inverse.cu: qct_ns_inverse_plain.)
+// (K9 at the 128 tile runs on ns_refine.cu's wgmma step: qct_ns_inverse_plain.)
 //
 // What they compute, as the TPU kernels do: alpha = 1 / max_i sum_j |K_ij|,
 // X0 = alpha I, then `iters` steps T = 2I - K X, X <- X T, every product

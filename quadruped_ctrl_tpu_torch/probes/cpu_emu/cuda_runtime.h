@@ -1,8 +1,27 @@
 // CPU stand-in for the part of the CUDA runtime and device language that the
 // kernels in csrc/ use, for emulate.py: a launch runs its clusters one after
 // another (a launch without a cluster dimension: its blocks), the CTAs of a
-// cluster concurrently, each as one std::thread per CUDA thread.
-// __syncthreads is a std::barrier over the block, cluster.sync() one over
+// cluster together, each CUDA thread as a fiber on the thread that called
+// the entry point; no launch starts a thread of its own.
+//
+// The order is fixed: a cluster's fibers start in the order (CTA rank,
+// thread index), and the runnable ones resume first in, first out. A fiber
+// runs until it waits at a barrier or returns. Every arrival at a barrier but
+// the last switches to the scheduler; the last makes the waiters runnable,
+// in the order they arrived, and runs on. So of two threads that exchange
+// data with no barrier between them, the one resumed first reads the
+// other's slot before it is written (the arena's 0x7f fill), on every run.
+// A switch is a _setjmp / _longjmp pair, no system call: a fiber enters its
+// stack once, through makecontext, then runs thread after thread, launch
+// after launch. Its stack is kStack (256 KiB), above a guard page.
+//
+// A deadlock, no fiber runnable while some have not returned (a barrier that
+// not all of its threads reach), abandons the launch: it prints each barrier
+// whose count fell short and records cudaErrorLaunchTimeout, which the next
+// cudaGetLastError() returns and clears, as CUDA does an error that is not
+// sticky.
+//
+// __syncthreads is a barrier over the block, cluster.sync() one over
 // every thread of the cluster (cooperative_groups.h), and the warp-wide
 // operations (shuffles, and mma.sync / ldmatrix in emu_mma.h) exchange values
 // through a per-warp scratch area between two barriers over the warp's 32
@@ -17,19 +36,21 @@
 #pragma once
 
 #include <math.h>
+#include <setjmp.h>
+#include <sys/mman.h>
+#include <ucontext.h>
 
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
 #include <functional>
 #include <memory>
 #include <mutex>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -70,6 +91,7 @@ typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaErrorInvalidConfiguration = 9;
+constexpr int cudaErrorLaunchTimeout = 702;
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize,
   cudaFuncAttributeNonPortableClusterSizeAllowed
@@ -81,7 +103,6 @@ inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute attr, int value) {
              ? cudaSuccess
              : cudaErrorInvalidValue;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 // The cluster launch API: cudaLaunchKernelEx with a cluster dimension (below,
 // after emu::launch).
@@ -123,28 +144,54 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 }
 
 namespace emu {
+struct Fiber;
+
+// A barrier over `count` threads, with std::barrier's arrive_and_wait; its
+// name is for the deadlock report.
+struct Barrier {
+  explicit Barrier(int n) : count(n) {}
+  void arrive_and_wait();
+  int count, arrived = 0;
+  std::vector<Fiber*> waiters;
+  char name[96] = "";
+};
 struct Warp {
-  std::barrier<> bar{32};
+  Barrier bar{32};
   uint32_t u[32][8];
   float f[32][8];
 };
 struct WarpGroup {
-  std::barrier<> bar{128};
+  Barrier bar{128};
   uint32_t a[128][4];
 };
 
-// The calling thread's block: its arena, barrier and warps; its cluster: its
-// block's rank, every block's arena, one barrier over all their threads.
-inline thread_local char* arena = nullptr;
-inline thread_local size_t arena_bytes = 0;
-inline thread_local std::barrier<>* block_bar = nullptr;
-inline thread_local Warp* warps = nullptr;
-inline thread_local WarpGroup* warpgroups = nullptr;
-inline thread_local unsigned cluster_rank = 0;
-inline thread_local unsigned cluster_size = 1;
-inline thread_local char* const* cluster_arenas = nullptr;
-inline thread_local std::barrier<>* cluster_bar = nullptr;
+// A CUDA thread as the kernel and the stand-ins see it: its indices; its
+// block's arena, barrier and warps; its cluster: its block's rank, every
+// block's arena, one barrier over all their threads.
+struct Thread {
+  uint3 thread_idx, block_idx, grid_dim;
+  char* arena;
+  size_t arena_bytes;
+  Barrier* block_bar;
+  Warp* warps;
+  WarpGroup* warpgroups;
+  unsigned cluster_rank, cluster_size;
+  char* const* cluster_arenas;
+  Barrier* cluster_bar;
+};
+// The running fiber's thread, installed by the scheduler at each resume
+// (its indices copied into threadIdx, blockIdx and gridDim).
+inline thread_local Thread* self = nullptr;
+inline thread_local cudaError_t last_error = cudaSuccess;
+}  // namespace emu
 
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t err = emu::last_error;
+  emu::last_error = cudaSuccess;
+  return err;
+}
+
+namespace emu {
 // Static __shared__ variables: kStaticBytes at kStaticBase of each arena.
 constexpr size_t kStaticBase = 232448, kStaticBytes = 16384;
 inline size_t static_alloc(size_t bytes, size_t align) {
@@ -164,49 +211,160 @@ inline size_t static_alloc(size_t bytes, size_t align) {
 template <typename T, int kId>
 inline T& cta_static() {
   static const size_t at = static_alloc(sizeof(T), alignof(T));
-  return *reinterpret_cast<T*>(arena + kStaticBase + at);
+  return *reinterpret_cast<T*>(self->arena + kStaticBase + at);
+}
+
+constexpr size_t kStack = 256 << 10, kGuard = 4096;
+
+struct Fiber {
+  Thread t;
+  jmp_buf ctx;  // where it resumes
+  char* stack = nullptr;
+  bool done = true;
+  const Barrier* waiting = nullptr;
+  ~Fiber() { munmap(stack, kGuard + kStack); }
+};
+
+// The calling OS thread's fibers and the launch it runs.
+struct Scheduler {
+  jmp_buf home;
+  Fiber* running = nullptr;
+  const std::function<void()>* kernel = nullptr;
+  std::deque<Fiber*> ready;
+  std::vector<std::unique_ptr<Fiber>> pool;
+};
+inline Scheduler& scheduler() {
+  static thread_local Scheduler s;
+  return s;
+}
+
+// From the running fiber to the scheduler; returns when it is resumed.
+inline void park() {
+  Scheduler& s = scheduler();
+  if (!_setjmp(s.running->ctx)) _longjmp(s.home, 1);
+}
+
+// Runs f until it parks.
+inline void resume(Scheduler& s, Fiber* f) {
+  s.running = f;
+  self = &f->t;
+  threadIdx = f->t.thread_idx;
+  blockIdx = f->t.block_idx;
+  gridDim = f->t.grid_dim;
+  if (!_setjmp(s.home)) _longjmp(f->ctx, 1);
+}
+
+// A fiber's life: parked until the scheduler gives it a thread to run.
+[[noreturn]] inline void fiber_main() {
+  Scheduler& s = scheduler();
+  for (;;) {
+    park();
+    (*s.kernel)();
+    s.running->done = true;
+  }
+}
+
+inline std::unique_ptr<Fiber> new_fiber(Scheduler& s) {
+  auto f = std::make_unique<Fiber>();
+  void* m = mmap(nullptr, kGuard + kStack, PROT_READ | PROT_WRITE,
+                 MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+  if (m == MAP_FAILED || mprotect(m, kGuard, PROT_NONE) != 0) {
+    std::perror("emu: a fiber stack");
+    std::abort();
+  }
+  f->stack = static_cast<char*>(m);
+  ucontext_t uc;
+  getcontext(&uc);
+  uc.uc_stack.ss_sp = f->stack + kGuard;
+  uc.uc_stack.ss_size = kStack;
+  uc.uc_link = nullptr;
+  makecontext(&uc, fiber_main, 0);
+  s.running = f.get();
+  if (!_setjmp(s.home)) setcontext(&uc);  // it parks at once
+  return f;
+}
+
+inline void Barrier::arrive_and_wait() {
+  Scheduler& s = scheduler();
+  if (++arrived < count) {
+    s.running->waiting = this;
+    waiters.push_back(s.running);
+    park();
+    return;
+  }
+  arrived = 0;
+  for (Fiber* f : waiters) {
+    f->waiting = nullptr;
+    s.ready.push_back(f);
+  }
+  waiters.clear();
 }
 
 inline void launch(int grid, int block, size_t smem, cudaStream_t,
                    const std::function<void()>& kernel, int cluster = 1) {
+  Scheduler& s = scheduler();
+  const size_t n = static_cast<size_t>(cluster) * block;
+  while (s.pool.size() < n) s.pool.push_back(new_fiber(s));
+  s.kernel = &kernel;
   for (int c0 = 0; c0 < grid; c0 += cluster) {
     std::vector<std::vector<char>> bufs;
     std::vector<char*> arenas;
-    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::unique_ptr<Barrier>> bars;
     std::vector<std::unique_ptr<Warp[]>> ws;
     std::vector<std::unique_ptr<WarpGroup[]>> wgs;
     for (int r = 0; r < cluster; ++r) {
       bufs.emplace_back(kStaticBase + kStaticBytes + 256, 0x7f);
       arenas.push_back(reinterpret_cast<char*>(
           (reinterpret_cast<uintptr_t>(bufs.back().data()) + 127) & ~uintptr_t(127)));
-      bars.push_back(std::make_unique<std::barrier<>>(block));
+      bars.push_back(std::make_unique<Barrier>(block));
+      std::snprintf(bars.back()->name, sizeof bars.back()->name, "__syncthreads of block %d",
+                    c0 + r);
       ws.push_back(std::make_unique<Warp[]>(block / 32));
+      for (int w = 0; w < block / 32; ++w)
+        std::snprintf(ws.back()[w].bar.name, sizeof ws.back()[w].bar.name,
+                      "warp %d of block %d (__syncwarp, shuffles, mma.sync, ldmatrix)", w, c0 + r);
       wgs.push_back(std::make_unique<WarpGroup[]>((block + 127) / 128));
+      for (int w = 0; w < (block + 127) / 128; ++w)
+        std::snprintf(wgs.back()[w].bar.name, sizeof wgs.back()[w].bar.name,
+                      "warpgroup %d of block %d (named barrier, wgmma)", w, c0 + r);
     }
-    std::barrier<> cbar(cluster * block);
-    std::vector<std::thread> threads;
+    Barrier cbar(cluster * block);
+    std::snprintf(cbar.name, sizeof cbar.name, "cluster.sync() of blocks %d-%d", c0,
+                  c0 + cluster - 1);
     for (int r = 0; r < cluster; ++r)
-      for (int t = 0; t < block; ++t)
-        threads.emplace_back([&, r, t] {
-          threadIdx.x = t;
-          blockIdx.x = c0 + r;
-          gridDim.x = grid;
-          arena = arenas[r];
-          arena_bytes = smem;
-          block_bar = bars[r].get();
-          warps = ws[r].get();
-          warpgroups = wgs[r].get();
-          cluster_rank = r;
-          cluster_size = cluster;
-          cluster_arenas = arenas.data();
-          cluster_bar = &cbar;
-          kernel();
-        });
-    for (auto& th : threads) th.join();
+      for (int t = 0; t < block; ++t) {
+        Fiber* f = s.pool[static_cast<size_t>(r) * block + t].get();
+        f->t = Thread{uint3{static_cast<unsigned>(t)}, uint3{static_cast<unsigned>(c0 + r)},
+                      uint3{static_cast<unsigned>(grid)}, arenas[r], smem, bars[r].get(),
+                      ws[r].get(), wgs[r].get(), static_cast<unsigned>(r),
+                      static_cast<unsigned>(cluster), arenas.data(), &cbar};
+        f->done = false;
+        s.ready.push_back(f);
+      }
+    while (!s.ready.empty()) {
+      Fiber* f = s.ready.front();
+      s.ready.pop_front();
+      resume(s, f);
+    }
+    self = nullptr;
+    std::vector<const Barrier*> short_of;
+    for (size_t i = 0; i < n; ++i)
+      if (const Barrier* b = s.pool[i]->waiting;
+          !s.pool[i]->done && std::find(short_of.begin(), short_of.end(), b) == short_of.end())
+        short_of.push_back(b);
+    if (!short_of.empty()) {
+      std::fprintf(stderr, "emu::launch: deadlock in the cluster of blocks %d-%d; short:\n", c0,
+                   c0 + cluster - 1);
+      for (const Barrier* b : short_of)
+        std::fprintf(stderr, "  %s: %d of %d threads arrived\n", b->name, b->arrived, b->count);
+      std::erase_if(s.pool, [](const std::unique_ptr<Fiber>& f) { return !f->done; });
+      last_error = cudaErrorLaunchTimeout;
+      return;
+    }
   }
 }
-inline Warp& warp() { return warps[threadIdx.x >> 5]; }
-inline WarpGroup& warpgroup() { return warpgroups[threadIdx.x >> 7]; }
+inline Warp& warp() { return self->warps[threadIdx.x >> 5]; }
+inline WarpGroup& warpgroup() { return self->warpgroups[threadIdx.x >> 7]; }
 inline int lane() { return threadIdx.x & 31; }
 }  // namespace emu
 
@@ -225,7 +383,7 @@ inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern
   return cudaSuccess;
 }
 
-inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+inline void __syncthreads() { emu::self->block_bar->arrive_and_wait(); }
 
 inline int __syncthreads_and(int p) {
   static std::atomic<int> all{1};
@@ -286,7 +444,7 @@ inline uint32_t __float_as_uint(float f) {
   return u;
 }
 inline size_t __cvta_generic_to_shared(const void* p) {
-  return static_cast<size_t>(reinterpret_cast<const char*>(p) - emu::arena);
+  return static_cast<size_t>(reinterpret_cast<const char*>(p) - emu::self->arena);
 }
 inline float __ldg(const float* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }

@@ -81,7 +81,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  if (addr >= (1u << 20) || rank < 0 || static_cast<unsigned>(rank) >= emu::cluster_size) {
+  if (addr >= (1u << 20) || rank < 0 || static_cast<unsigned>(rank) >= emu::self->cluster_size) {
     std::fprintf(stderr, "mapa: address %u or rank %d out of range\n", addr, rank);
     std::abort();
   }
@@ -90,14 +90,14 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
 
 __device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
   const uint32_t rank = (addr >> 20) - 1, off = addr & 0xFFFFFu;
-  if (addr < (1u << 20) || rank >= emu::cluster_size || off % 16 ||
-      off + 16 > emu::arena_bytes) {
+  if (addr < (1u << 20) || rank >= emu::self->cluster_size || off % 16 ||
+      off + 16 > emu::self->arena_bytes) {
     std::fprintf(stderr, "ld.shared::cluster: bad address %u (rank %u, offset %u)\n", addr,
                  rank, off);
     std::abort();
   }
   float4 v;
-  std::memcpy(&v, emu::cluster_arenas[rank] + off, 16);
+  std::memcpy(&v, emu::self->cluster_arenas[rank] + off, 16);
   return v;
 }
 
@@ -124,7 +124,7 @@ inline void emu_wgmma(float* d, const uint32_t (&a)[4], uint64_t desc, int scale
   const uint32_t start = static_cast<uint32_t>(desc & 0x3FFF) << 4;
   const uint32_t lbo = static_cast<uint32_t>((desc >> 16) & 0x3FFF) << 4;
   const uint32_t sbo = static_cast<uint32_t>((desc >> 32) & 0x3FFF) << 4;
-  if (start + (N / 8 - 1) * sbo + lbo + 128 > emu::arena_bytes) {
+  if (start + (N / 8 - 1) * sbo + lbo + 128 > emu::self->arena_bytes) {
     std::fprintf(stderr, "wgmma: B operand outside shared memory (start %u)\n", start);
     std::abort();
   }
@@ -136,7 +136,7 @@ inline void emu_wgmma(float* d, const uint32_t (&a)[4], uint64_t desc, int scale
       for (int k = 0; k < 8; ++k) {
         const int src = 32 * wq + 4 * (r % 8) + k % 4, reg = (r % 16 >= 8) + 2 * (k >= 4);
         uint32_t b;
-        std::memcpy(&b, emu::arena + start + (n / 8) * sbo + (k / 4) * lbo + (n % 8) * 16 +
+        std::memcpy(&b, emu::self->arena + start + (n / 8) * sbo + (k / 4) * lbo + (n % 8) * 16 +
                             (k % 4) * 4, 4);
         s += __uint_as_float(w.a[src][reg] & ~0x1FFFu) * __uint_as_float(b & ~0x1FFFu);
       }
@@ -173,7 +173,7 @@ inline void emu_wgmma_bf16(float* d, const uint32_t (&a)[4], uint64_t desc, int 
   const uint32_t start = static_cast<uint32_t>(desc & 0x3FFF) << 4;
   const uint32_t lbo = static_cast<uint32_t>((desc >> 16) & 0x3FFF) << 4;
   const uint32_t sbo = static_cast<uint32_t>((desc >> 32) & 0x3FFF) << 4;
-  if (start + (N / 8 - 1) * sbo + lbo + 128 > emu::arena_bytes) {
+  if (start + (N / 8 - 1) * sbo + lbo + 128 > emu::self->arena_bytes) {
     std::fprintf(stderr, "wgmma: B operand outside shared memory (start %u)\n", start);
     std::abort();
   }
@@ -185,7 +185,7 @@ inline void emu_wgmma_bf16(float* d, const uint32_t (&a)[4], uint64_t desc, int 
       for (int k = 0; k < 16; ++k) {
         const uint32_t u = w.a[32 * wq + 4 * (r % 8) + (k % 8) / 2][(r % 16 >= 8) + 2 * (k >= 8)];
         uint16_t b;
-        std::memcpy(&b, emu::arena + start + (n / 8) * sbo + (k / 8) * lbo + (n % 8) * 16 +
+        std::memcpy(&b, emu::self->arena + start + (n / 8) * sbo + (k / 8) * lbo + (n % 8) * 16 +
                             (k % 8) * 2, 2);
         s += (k & 1 ? hi16(u) : lo16(u)) * __uint_as_float(static_cast<uint32_t>(b) << 16);
       }
@@ -244,8 +244,8 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
   for (int m = 0; m < 4; ++m) {
     const uint32_t a0 = w.u[8 * m + 2 * (l & 3)][6], a1 = w.u[8 * m + 2 * (l & 3) + 1][6];
     uint16_t v0, v1;
-    std::memcpy(&v0, emu::arena + a0 + 2 * (l >> 2), 2);
-    std::memcpy(&v1, emu::arena + a1 + 2 * (l >> 2), 2);
+    std::memcpy(&v0, emu::self->arena + a0 + 2 * (l >> 2), 2);
+    std::memcpy(&v1, emu::self->arena + a1 + 2 * (l >> 2), 2);
     r[m] = static_cast<uint32_t>(v0) | (static_cast<uint32_t>(v1) << 16);
   }
   w.bar.arrive_and_wait();

@@ -5,12 +5,17 @@
 
 For a machine without nvcc: the CUDA sources are compiled by g++ (C++20)
 against the stand-in headers beside this file (cuda_runtime.h, cuda_bf16.h,
-emu_mma.h for the inline PTX of mma.cuh, cooperative_groups.h), each block
-running as one std::thread per CUDA thread. Every csrc/*.cu is first
-checked to compile that way; then ns_inverse.cu and ns_refine.cu are
-built into one shared library (compile_ns: K7's entry point at 128 launches
-K3's kernel of ns_inverse.cu) and the NS entry points run on
-a few systems against the plain PyTorch references, printing residuals and
+emu_mma.h for the inline PTX of mma.cuh, cooperative_groups.h). A launch
+runs on the thread that called the entry point, each CUDA thread a fiber
+there, resumed in a fixed order (cuda_runtime.h says which), so a run
+gives the same result every time. A barrier that not all of its threads
+reach is a deadlock: the launch is abandoned, the barriers that fell short
+are printed, and the entry point's cudaGetLastError() returns
+cudaErrorLaunchTimeout. Every csrc/*.cu must belong to one of the
+LIBRARIES (check_sources). `k2 k3 k7` build ns_inverse.cu and ns_refine.cu
+into one library (compile_ns: K7's entry point at 128 launches
+K3's kernel of ns_inverse.cu) and run the NS entry points at the 128 tile on
+two systems against the plain PyTorch references, printing residuals and
 how far apart the two are, and the shared-memory wavefronts per ldmatrix
 matrix (1.0 when free of bank conflicts). `k5` builds fused_admm.cu into a
 library of its own and runs the single-launch solve K5 on the first two
@@ -23,21 +28,23 @@ the padded row stride, against form_packed_reference, with the count of
 mma.sync it runs and its ldmatrix wavefronts per matrix. `plain` builds
 ns_plain.cu into a library of its own and runs the plain NS K8 on one
 system at the 128 tile (a cluster of 2 x 4 CTAs) and K9 on two systems at
-the 256 tile (4 x 1 CTAs each), the CTAs of a cluster concurrently, against
+the 256 tile (4 x 1 CTAs each), the CTAs of a cluster together, against
 ns_inverse_reference and ns_inverse_blocked_reference (`plain k8_256` adds
 K8 at the 256 tile, 4 x 4 CTAs). `k6` runs the warm refinement K6 of
 ns_refine.cu on three systems at each tile (the emulated card holds two
 blocks at 128 and two 4-CTA clusters at 256, so one of them walks two
-systems) against ns_inverse_refine_reference; `warm` the guarded warm NS K7
-at each tile on a batch of a tripped, two warm and a NaN start (its cold
-branch K3's kernel of ns_inverse.cu at 128, ns_refine.cu's RF_SCALED at
-256), and K9 at the 128 tile, against their references; `k23_256` K2 and
+systems) against ns_inverse_refine_reference; `k9` K9 at the 128 tile on
+three systems against ns_inverse_blocked_reference; `warm` the guarded warm
+NS K7 at each tile on a batch of a tripped, two warm and a NaN start (its
+cold branch K3's kernel of ns_inverse.cu at 128, ns_refine.cu's RF_SCALED
+at 256) against its reference; `k23_256` K2 and
 K3 at the 256 tile (ns_refine.cu's RF_BUILD and RF_SCALED) on two systems
 against their references, K2's 3-CTA instance (systems of at most 192
 variables) against its 4-CTA one bit for bit, and K3's masked walk on 600
 systems. It shows
 that the indexing, the layouts and the barriers are right; it says nothing
-of speed. A run takes a few minutes.
+of speed. Every target takes about 85 s of one core (~60 s of emulation,
+the rest g++).
 """
 
 from __future__ import annotations
@@ -99,7 +106,7 @@ def prepare(csrc: Path, out: Path):
                 src = src[:start] + src[src.index("\n}\n", start) + 3:]
             src = src.replace("namespace qct {\n", '#include "emu_mma.h"\n\nnamespace qct {\n', 1)
         src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
-                     r"\1* \2 = reinterpret_cast<\1*>(emu::arena);", src)
+                     r"\1* \2 = reinterpret_cast<\1*>(emu::self->arena);", src)
         src = re.sub(r"__shared__ (?:__align__\(\d+\) )?(\w+) (\w+)((?:\[[^\]]*\])*);",
                      lambda m: f"{m[1]} (&{m[2]}){m[3]} = "
                                f"emu::cta_static<{m[1]}{m[3]}, {next(static_ids)}>();", src)
@@ -107,33 +114,39 @@ def prepare(csrc: Path, out: Path):
         (out / path.name).write_text(src)
 
 
-FLAGS = ("g++", "-std=c++20", "-Wno-unknown-pragmas", f"-I{HERE}", "-x", "c++")
+# -U_FORTIFY_SOURCE: fortify's longjmp refuses a jump to another fiber's stack.
+FLAGS = ("g++", "-std=c++20", "-Wno-unknown-pragmas", "-U_FORTIFY_SOURCE", f"-I{HERE}", "-x",
+         "c++")
+
+# The emulated libraries: each stem's sources, compiled as one translation
+# unit (ns: K7's entry point at 128 launches K3's kernel of ns_inverse.cu).
+# fused_admm and formation_pack are apart from the NS kernels' library so
+# that each counts its own ldmatrix wavefronts and mma.sync.
+LIBRARIES = {"ns": ("ns_inverse", "ns_refine"), "fused_admm": ("fused_admm",),
+             "formation_pack": ("formation_pack",), "ns_plain": ("ns_plain",)}
 
 
-def compile_all(out: Path) -> ctypes.CDLL:
-    """Check that every .cu in out compiles; the NS kernels' library
-    (compile_ns)."""
-    for cu in sorted(out.glob("*.cu")):
-        subprocess.run([*FLAGS, "-fsyntax-only", str(cu)], check=True)
-        print(f"compiles: {cu.name}")
-    return compile_ns(out)
+def check_sources(out: Path):
+    """Raise if a .cu in out belongs to no emulated library, so that no
+    kernel source goes unbuilt by the tests."""
+    built = {part for parts in LIBRARIES.values() for part in parts}
+    unbuilt = sorted(cu.name for cu in out.glob("*.cu") if cu.stem not in built)
+    if unbuilt:
+        raise RuntimeError(f"no emulated library builds {unbuilt}: add them to LIBRARIES")
 
 
 def compile_ns(out: Path) -> ctypes.CDLL:
-    """One library of ns_inverse.cu and ns_refine.cu (K2, K3, K6, K7, K9):
-    K7's entry point at 128 launches K3's kernel of ns_inverse.cu. Built
-    once per out."""
-    return _library(out, "ns", ("ns_inverse", "ns_refine"))
+    """ns_inverse.cu's and ns_refine.cu's library (K2, K3, K6, K7, K9)."""
+    return _library(out, "ns")
 
 
 def compile_fused(out: Path) -> ctypes.CDLL:
-    """fused_admm.cu's library (K5), apart from ns_inverse.cu's: each counts
-    its own ldmatrix wavefronts."""
+    """fused_admm.cu's library (K5)."""
     return _library(out, "fused_admm")
 
 
 def compile_formation(out: Path) -> ctypes.CDLL:
-    """formation_pack.cu's library (K1), with its own mma.sync count."""
+    """formation_pack.cu's library (K1)."""
     return _library(out, "formation_pack")
 
 
@@ -142,15 +155,16 @@ def compile_plain(out: Path) -> ctypes.CDLL:
     return _library(out, "ns_plain")
 
 
-def _library(out: Path, stem: str, parts: tuple[str, ...] | None = None) -> ctypes.CDLL:
-    """The library of out/<stem>.cu, or of the sources `parts` compiled as
-    one translation unit; built once per out."""
+def _library(out: Path, stem: str) -> ctypes.CDLL:
+    """The library of LIBRARIES[stem]; built once per out."""
     lib_path = out / f"lib{stem}_emu.so"
-    if parts is not None:
-        (out / f"{stem}.cc").write_text("".join(f'#include "{p}.cu"\n' for p in parts))
+    parts = LIBRARIES[stem]
+    src = out / f"{stem}.cu"
+    if parts != (stem,):
+        src = out / f"{stem}.cc"
+        src.write_text("".join(f'#include "{p}.cu"\n' for p in parts))
     if not lib_path.exists():
-        subprocess.run([*FLAGS, "-O2", "-shared", "-fPIC", "-o", str(lib_path),
-                        str(out / (f"{stem}.cc" if parts else f"{stem}.cu")), "-lpthread"],
+        subprocess.run([*FLAGS, "-O2", "-shared", "-fPIC", "-o", str(lib_path), str(src)],
                        check=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _build._SIGNATURES.items():
@@ -186,8 +200,10 @@ def rel(a: torch.Tensor, ref: torch.Tensor) -> float:
     return float((a - ref).abs().max() / ref.abs().max())
 
 
-def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
-    """The checks, each on b = 2 systems, as {name: numbers}; prints them."""
+def run(lib: ctypes.CDLL, which=("k2", "k3", "k7")) -> dict:
+    """K3 (at the ADMM and the polish schedule), K2 and K7 at the 128 tile,
+    each on b = 2 systems, as {name: numbers}, and the ldmatrix wavefronts a
+    matrix over them all; prints them."""
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     s = default_config().solver
     admm = (s.ns_admm_a0, s.ns_admm_scaled_iters, s.ns_quad_iters, s.ns_hi_iters)
@@ -215,9 +231,6 @@ def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
         inv_r, ks_r, d_r = NI.ns_inverse_scaled_build_reference(hp, g9, *admm)
         out["k2"] = dict(rc=rc, rel_ks=rel(ks, ks_r), rel_d=rel(d, d_r),
                          residual=resid(ks_r, inv)[0], reference=resid(ks_r, inv_r)[0])
-    if "k6" in which:
-        r = run_refine(lib, (NI.N,), b)[f"k6_{NI.N}"]
-        out["k6"] = {k: v for k, v in r.items() if k not in ("finite", "equal")}
     if "k7" in which:
         ks = spd(8, b, 120, 1e3)
         init = torch.linalg.inv(ks.double()).float()
@@ -230,13 +243,6 @@ def run(lib: ctypes.CDLL, which=("k2", "k3", "k6", "k7", "k9")) -> dict:
         ref = NI.ns_inverse_warm_reference(ks, init, *admm, 3, 1, 0.5)
         out["k7"] = dict(rc=rc, rel_warm=rel(inv[0], ref[0]),
                          tripped_is_k3=bool(torch.equal(inv[1], cold[1])))
-    if "k9" in which:
-        ks = spd(9, b, 120, 1e3)
-        inv = torch.empty_like(ks)
-        rc = lib.qct_ns_inverse_plain(ptr(ks), ptr(inv), b, 25, None)
-        ref = NI.ns_inverse_blocked_reference(ks, 25)
-        out["k9"] = dict(rc=rc, residual=resid(ks, inv)[0], reference=resid(ks, ref)[0],
-                         rel=rel(inv, ref))
     out["ldmatrix_wavefronts"] = lib.emu_ldsm_wavefronts_per_matrix()
     for name, numbers in out.items():
         print(name, numbers)
@@ -634,25 +640,24 @@ def run_k1(lib: ctypes.CDLL, cases=K1_CASES) -> dict:
 if __name__ == "__main__":
     which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "plain", "warm",
                              "k23_256")
-    # the checks apart from run()'s (warm: K7 at both tiles and K9/128 on
-    # their own batches)
-    own = {"k1", "k5", "k6", "plain", "k8_256", "warm", "k23_256"}
     prepare(PKG / "csrc", OUT)
-    lib = compile_all(OUT)
-    if set(which) - own:
-        run(lib, [w for w in which if w not in own])
+    check_sources(OUT)
+    lib = compile_ns(OUT)
+    if set(which) & {"k2", "k3", "k7"}:
+        run(lib, [w for w in which if w in ("k2", "k3", "k7")])
+    if "k6" in which:
+        run_refine(lib)
+    if "k9" in which:
+        run_plain128(lib)
+    if "warm" in which:
+        run_warm(lib)
+    if "k23_256" in which:
+        run_k23_256(lib)
+        run_k2_widths(lib)
+        run_masked_walk(lib)
     if "plain" in which:
         run_plain(compile_plain(OUT), ("k8_128", "k9_256") + (("k8_256",) if "k8_256" in which
                                                               else ()))
-    if "k6" in which:
-        run_refine(compile_ns(OUT))
-    if "warm" in which:
-        run_warm(compile_ns(OUT))
-        run_plain128(compile_ns(OUT))
-    if "k23_256" in which:
-        run_k23_256(compile_ns(OUT))
-        run_k2_widths(compile_ns(OUT))
-        run_masked_walk(compile_ns(OUT))
     if "k5" in which:
         run_k5(compile_fused(OUT))
     if "k1" in which:

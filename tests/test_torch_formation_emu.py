@@ -1,7 +1,7 @@
 """K1's CUDA source (csrc/formation_pack.cu on mma.cuh) compiled by g++
 against the emulation headers of quadruped_ctrl_tpu_torch/probes/cpu_emu
-(one std::thread per CUDA thread; mma.sync and ldmatrix on their PTX
-fragment layouts) and run on the CPU against `form_packed_reference` by
+(each CUDA thread a fiber on the calling thread; mma.sync and ldmatrix on
+their PTX fragment layouts) and run on the CPU against `form_packed_reference` by
 `emulate.run_k1`: the four lanes' shapes (h=10 at max_stance 2 and pack 2,
 two scenarios; h=16 at max_stance 4 / pack 1, 2 / pack 2 and 3 / pack 1, one
 system each), h=10 with 2 masked steps, h=5 at max_stance 1 (n_c = 15,

@@ -1,7 +1,7 @@
 """K5's CUDA source (csrc/fused_admm.cu on ns_core.cuh and mma.cuh) compiled
 by g++ against the emulation headers of quadruped_ctrl_tpu_torch/probes/cpu_emu
-(one std::thread per CUDA thread; mma.sync, ldmatrix and the shuffles on
-their PTX fragment layouts) and run on the CPU against
+(each CUDA thread a fiber on the calling thread; mma.sync, ldmatrix and
+the shuffles on their PTX fragment layouts) and run on the CPU against
 `fused_admm_solve_reference` by `emulate.run_k5`, on the first b = 2 systems
 of the operands that `solve_packed_batch(use_fused=True)` builds at h=10 (60
 variables and 100 rows in the 128 x 256 tile).

@@ -173,16 +173,19 @@ def test_tensor_core_plain_schedule_holds_the_gate(order, n):
 
 def test_kernel_sources_run_in_cpu_emulation(tmp_path):
     """The 128-tile kernels' CUDA source (csrc/ns_inverse.cu on ns_core.cuh
-    and mma.cuh; K6, K7's guard and warm branch and K9 in csrc/ns_refine.cu,
-    built into one library with them) compiled by g++
+    and mma.cuh; K7's guard and warm branch in csrc/ns_refine.cu, built into
+    one library with them) compiled by g++
     against the emulation headers of quadruped_ctrl_tpu_torch/probes/cpu_emu
-    (one thread per CUDA thread; mma.sync, ldmatrix and wgmma on their PTX
-    fragment layouts) and run on b = 2 systems against the references: every
-    csrc/*.cu compiles; K3's, K2's, K6's and K9's residuals under the gates
-    above and within 2x of the reference's, their inverses within 1e-3
-    relative (measured <= 7.6e-5); K2's ks and d_row within 1e-6 (measured
-    0); K7's tripped system equal to K3 bit for bit; ldmatrix free of bank
-    conflicts (1 wavefront a matrix)."""
+    (each CUDA thread a fiber on the calling thread; mma.sync, ldmatrix and
+    wgmma on their PTX fragment layouts) and run on b = 2 systems against
+    the references: every csrc/*.cu belongs to an emulated library that a
+    test builds (a new source with none raises); K3's and K2's residuals
+    under the gates above and within 2x of the reference's, their inverses
+    within 1e-3 relative (measured <= 7.6e-5); K2's ks and d_row within 1e-6
+    (measured 0); K7's tripped system equal to K3 bit for bit; ldmatrix free
+    of bank conflicts (1 wavefront a matrix). K6 and K9 at this tile are
+    test_torch_refine_emu.py's and test_torch_warm_plain_emu.py's, under the
+    same gates."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the CPU emulation of the kernels")
     path = Path(NI.__file__).parents[1] / "probes" / "cpu_emu" / "emulate.py"
@@ -190,15 +193,19 @@ def test_kernel_sources_run_in_cpu_emulation(tmp_path):
     emu = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(emu)
     emu.prepare(emu.PKG / "csrc", tmp_path)
-    out = emu.run(emu.compile_all(tmp_path))
+    emu.check_sources(tmp_path)
+    stray = tmp_path / "stray"
+    stray.mkdir()
+    (stray / "new_kernel.cu").touch()
+    with pytest.raises(RuntimeError, match="new_kernel.cu"):
+        emu.check_sources(stray)
+    out = emu.run(emu.compile_ns(tmp_path))
     assert all(v["rc"] == 0 for k, v in out.items() if isinstance(v, dict)), out
-    for name, gate in (("k3_admm", 1e-2), ("k3_polish", 5e-3), ("k2", 1e-2), ("k6", 5e-3),
-                       ("k9", 5e-4)):
+    for name, gate in (("k3_admm", 1e-2), ("k3_polish", 5e-3), ("k2", 1e-2)):
         r = out[name]
         assert r["residual"] < gate and r["residual"] <= 2 * r["reference"] + 1e-5, (name, r)
         assert r.get("rel", 0.0) < 1e-3, (name, r)
     assert out["k2"]["rel_ks"] <= 1e-6 and out["k2"]["rel_d"] <= 1e-6, out["k2"]
-    assert out["k6"]["residual"] < 0.1 * out["k6"]["start"], out["k6"]
     assert out["k7"]["tripped_is_k3"] and out["k7"]["rel_warm"] < 1e-3, out["k7"]
     assert out["ldmatrix_wavefronts"] == 1.0, out
 

@@ -3,7 +3,7 @@ g++ against the emulation headers of quadruped_ctrl_tpu_torch/probes/cpu_emu
 and run on the CPU by `emulate.run_plain`: K8 on one system at the 128 tile
 (a cluster of 2 x 4 CTAs), K9 on two systems at the 256 tile (a cluster of
 4 x 1 CTAs each) and K8 at the 256 tile (4 x 4 CTAs), the CTAs of a cluster
-concurrently (cluster.sync() one barrier over all their threads; DSMEM loads
+together (cluster.sync() one barrier over all their threads; DSMEM loads
 and map_shared_rank reach the peer's shared memory; wgmma on its fragment
 and descriptor layouts), against ns_inverse_reference /
 ns_inverse_blocked_reference at emulate.PLAIN_ITERS steps on SPD systems of

@@ -5,7 +5,7 @@ quadruped_ctrl_tpu_torch/probes/cpu_emu and run on the CPU by
 cond 1e4 (n = 96 at the 128 tile, 192 at 256) from the JAX package's warm
 start (the exact inverse times I + E, ||E||_2 = 0.05), against
 ns_inverse_refine_reference. The emulated card holds two blocks at 128 and
-two 4-CTA clusters at 256 (a cluster's CTAs concurrently; DSMEM loads reach
+two 4-CTA clusters at 256 (a cluster's CTAs together; DSMEM loads reach
 the peer's shared memory; wgmma bf16 and tf32 on their fragment and
 descriptor layouts; cp.async copies at once), so one block (cluster) walks
 two systems: the next system's ks streamed into K during the last product,
