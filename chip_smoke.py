@@ -15,9 +15,9 @@
    wgmma (HGMMA), each with its registers and spill stores; prints each
    cluster kernel's cluster size and how many of its clusters (ns_refine.cu:
    CTAs or clusters) the card holds at once;
-2b. calls every kernel wrapper (K1-K3, K5-K9, both tiles) on inputs that
-   start 4 bytes past a 16-byte boundary and holds the result to the
-   aligned call's, bit for bit;
+2b. calls every kernel wrapper (K1-K3, K5-K9 and the ADMM segment SEG, both
+   tiles) on inputs that start 4 bytes past a 16-byte boundary and holds the
+   result to the aligned call's, bit for bit;
 3. holds each kernel (K1 form_packed, K2 ns_inverse_scaled_build, K3
    ns_inverse_scaled) against its plain PyTorch reference on the card at the
    128 tile, at the h=10 path's shapes, and times both (K1 by the host clock
@@ -54,9 +54,15 @@
 4. drives `solve_packed_batch` at batch 4096, h=10 (2048 packed systems of
    120 variables) through the kernels, counts their launches, checks the
    forces and compares them with the plain branch on the same inputs, then
-   runs the polish_rounds=0, form_only and two-step-build variants;
+   runs the polish_rounds=0, form_only and two-step-build variants; holds
+   the ADMM segment kernel SEG (csrc/admm_segment.cu, two launches a solve)
+   on that solve's own segment operands against admm_segment_reference on
+   the card (60 fp32 iterations within 1e-4 of each system's largest entry,
+   the padding exact; the solver's bf16 segments within three times the
+   CPU reference's distance from the card's), and times both by events
+   beside the segment's bound;
 4b. drives the three h=16 lanes of bench.py (h16_full, h16_trot,
-   h16_midband) at batch 2048 the same way;
+   h16_midband) at batch 2048 the same way, SEG at 192 and 144 variables;
 4c. drives the fused solve (h10_fused: use_fused=True, batch 2048, K5 alone)
    and the Woodbury polish (h10_woodbury: polish_woodbury=True, batch 4096,
    K6 for the polish rounds after the first) the same way, and one h16_full
@@ -96,11 +102,13 @@
 5a. `cli bench` at bench.py's sizes (the bench twin: the eight lanes, 48 / 16
    chained reps timed by CUDA events): every lane measured, `lane_errors`
    null, every phase's share of its bound <= 100%, the launches exactly
-   those of the lanes' chained solves, h10 solves/s printed beside phase 4's;
+   those of the lanes' chained solves and of the iterate's timing apart
+   (h10_iterate: one solve, then its two segments replayed), h10 solves/s
+   printed beside phase 4's;
 5b. `cli latency` (the bench_latency.py twin: 200 host round trips of a
    tick, 200 launch+copy pairs, 40 13-tick macros), no kernel;
 5c. `cli kernels-smoke --full`: every case at production batches, 0 failed,
-   K1, K2, K3, K6 at both tiles, K4 and K5 launched;
+   K1, K2, K3, K6 and SEG at both tiles, K4 and K5 launched;
 5d. `cli scaling` on a one-rank NCCL group, then `sharded_mpc_solve` at world
    size 1 on batch 4096, h=10, bit-equal to `solve_packed_batch` with the
    reduced mean equal to the local one;
@@ -147,6 +155,7 @@ from quadruped_ctrl_tpu_torch.core.types import Command, tree_map, vmap
 from quadruped_ctrl_tpu_torch.models.floating_base import MiniCheetahModel
 from quadruped_ctrl_tpu_torch.mpc import formation, pipeline, sparse
 from quadruped_ctrl_tpu_torch.ops import _build, _launch
+from quadruped_ctrl_tpu_torch.ops import admm_segment as AS
 from quadruped_ctrl_tpu_torch.ops import formation_pack as FP
 from quadruped_ctrl_tpu_torch.ops import fused_admm as FA
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
@@ -167,7 +176,7 @@ B_ALIGN = 256                   # scenarios (systems at 256: a quarter) of phase
 WRAPPERS = {"K1": FP.form_packed, "K2": NI.ns_inverse_scaled_build,
             "K3": NI.ns_inverse_scaled, "K5": FA.fused_admm_solve,
             "K6": NI.ns_inverse_refine, "K7": NI.ns_inverse_warm, "K8": NI.ns_inverse,
-            "K9": NI.ns_inverse_blocked}
+            "K9": NI.ns_inverse_blocked, "SEG": AS.admm_segment}
 TILES = (128, 256)
 KERNEL_INFO = {
     "K1/128": dict(name="form_packed", source="quadruped_ctrl_tpu_torch/csrc/formation_pack.cu",
@@ -217,6 +226,12 @@ KERNEL_INFO = {
     "K9/256": dict(name="ns_inverse_blocked (256 tile)",
                    source="quadruped_ctrl_tpu_torch/csrc/ns_plain.cu",
                    replaces="quadruped_ctrl_tpu/ops/ns_inverse.py:131"),
+    # the batched ADMM segment: no TPU kernel, the JAX package's mk_body scan
+    "SEG/128": dict(name="admm_segment", source="quadruped_ctrl_tpu_torch/csrc/admm_segment.cu",
+                    replaces="quadruped_ctrl_tpu/solver/admm.py:818"),
+    "SEG/256": dict(name="admm_segment (256 tile)",
+                    source="quadruped_ctrl_tpu_torch/csrc/admm_segment.cu",
+                    replaces="quadruped_ctrl_tpu/solver/admm.py:818"),
 }
 # Peak rates of one H100 SXM (data sheet, dense): the bf16 and tf32 tensor
 # cores, the fp32 CUDA cores, device memory.
@@ -696,6 +711,17 @@ def phase_alignment(cfg, dev):
     cases.append(("K2/256", NI.ns_inverse_scaled_build,
                   (spd_batch(gen, b, 240, NI.N_BIG, 1e3, dev) * 2.0,
                    torch.zeros((b, 9, 80), device=dev)), admm_sched, {}))
+    # SEG on the second segment call (warm carry, bf16 then fp32) of a solve
+    # at each tile: 128 systems of 120 variables, 256 of 192
+    def seg(inv, grad, l, u, rho, x, z, y, **k):
+        return AS.admm_segment(inv, grad, l, u, rho, (x, z, y), **k)
+
+    for tile, inputs, kw in ((NI.N, pipeline.random_inputs(seed=0, batch=B_ALIGN, h=H,
+                                                          device=dev), {}),
+                             (NI.N_BIG, lane_inputs(1, B_ALIGN, H16, "trot", dev),
+                              dict(max_stance=4, pack=1))):
+        (*ops, carry), skw = segment_calls(cfg, inputs, **kw)[1]
+        cases.append((f"SEG/{tile}", seg, (*ops, *carry), (), skw))
     for key, fn, ops, args, kw in cases:
         want = fn(*ops, *args, **kw)
         got = fn(*map(offset_view, ops), *args, **kw)
@@ -1400,13 +1426,115 @@ def plain_gate(forces, plain, share_min: float = 0.98):
     return share
 
 
+SEG_SYSTEMS = 256               # systems of each segment held against the CPU reference
+# shared memory of the whole card: 128 bytes a clock an SM, 132 SMs, the 1,980 MHz boost clock
+PEAK_SMEM = 128 * 132 * 1.98e9
+
+
+def segment_bound(b: int, n: int, iters: int) -> tuple[float, str]:
+    """SEG: each iteration reads every system's n x n fp32 inverse from
+    shared memory (n^2 multiply-adds); device memory moves the inverse once
+    and the operands and carry (~15 n floats). The larger of the shared
+    memory's time and bound()'s."""
+    ms, by = bound(0.0, 2.0 * n * n * iters * b, 4.0 * b * (n * n + 15 * n))
+    t_smem = 4.0 * n * n * iters * b / PEAK_SMEM * 1e3
+    return (t_smem, "shared memory") if t_smem >= ms else (ms, by)
+
+
+def segment_calls(cfg, inputs, **kw) -> list:
+    """The (operands, keywords) of each admm_segment call that one
+    solve_packed_batch makes."""
+    with AS.recorded_calls() as calls:
+        pipeline.solve_packed_batch(cfg, inputs, **kw)
+    torch.cuda.synchronize()
+    return calls
+
+
+def segment_systems(args, device=None) -> tuple:
+    """The first SEG_SYSTEMS systems of a segment's operands, on `device`."""
+    take = lambda t: t[:SEG_SYSTEMS].contiguous().to(device or t.device)  # noqa: E731
+    *ops, carry = args
+    return (*map(take, ops), tuple(map(take, carry)))
+
+
+def segment_rel(got, want, n: int) -> torch.Tensor:
+    """Each system's largest |difference| over x, z, y's true entries, over
+    the reference's largest entry in that vector."""
+    out = []
+    for g, w, width in zip(got, want, (n, 5 * n // 3, 5 * n // 3)):
+        g, w = g[:, :width].double().cpu(), w[:, :width].double().cpu()
+        out.append((g - w).abs().amax(1) / w.abs().amax(1).clamp(min=1e-30))
+    return torch.stack(out).amax(0)
+
+
+def check_segment(cfg, label, inputs, results, key, **kw) -> dict:
+    """SEG on one solve's own segment calls against admm_segment_reference on
+    the card (tests/test_torch_admm_segment_card.py's gates): the first
+    call's operands run 60 fp32 iterations within 1e-4 of the reference's
+    largest entry per system, the padding exact; each of the solver's
+    segments (bf16, then bf16 and an fp32 tail) within three times the CPU
+    reference's distance from the card's at the median, 90th percentile and
+    largest system. Times the solver's first segment on the whole batch by
+    the host clock and by events beside the reference and the bound. Records
+    the numbers under results[key]["lanes"][label], and the first lane's at
+    the entry's top."""
+    calls = segment_calls(cfg, inputs, **kw)
+    check(len(calls) == 2 and all(AS.fits(k["n"]) for _, k in calls),
+          f"{label}: two ADMM segments, each n within the kernel's route")
+    args, skw = calls[0]
+    n, m, b = skw["n"], 5 * skw["n"] // 3, args[0].shape[0]
+    sub = segment_systems(args)
+    f32 = {**skw, "n_lo": 0, "n_hi": 60}
+    got, want = AS.admm_segment(*sub, **f32), AS.admm_segment_reference(*sub, **f32)
+    rel32 = float(segment_rel(got, want, n).max())
+    max_abs = max(float((g[:, :w] - r[:, :w]).abs().max())
+                  for g, r, w in zip(got, want, (n, m, m)))
+    pads = all(torch.equal(g[:, w:], r[:, w:]) for g, r, w in zip(got, want, (n, m, m)))
+    check(rel32 <= 1e-4 and pads,
+          f"{label}: SEG, 60 fp32 iterations on {SEG_SYSTEMS} systems of n={n}: within 1e-4 of "
+          f"the reference's largest entry per system ({rel32:.3e}), the padding exact")
+    quantiles = lambda v: [float(torch.quantile(v, q)) for q in (0.5, 0.9, 1.0)]  # noqa: E731
+    bf16 = []
+    for i, (a, k) in enumerate(calls):
+        a = segment_systems(a)
+        ref = AS.admm_segment_reference(*a, **k)
+        kq = quantiles(segment_rel(AS.admm_segment(*a, **k), ref, n))
+        cq = quantiles(segment_rel(AS.admm_segment_reference(
+            *segment_systems(a, torch.device("cpu")), **k), ref, n))
+        check(all(x <= 3.0 * c + 1e-5 for x, c in zip(kq, cq)),
+              f"{label}: SEG, the solver's segment {i} (n_lo {k['n_lo']}, n_hi {k['n_hi']}): "
+              f"from the card's reference {', '.join(f'{x:.3e}' for x in kq)} (median, 90th "
+              f"percentile, largest) within 3x the CPU reference's "
+              f"{', '.join(f'{x:.3e}' for x in cq)} + 1e-5")
+        bf16.append(dict(n_lo=k["n_lo"], n_hi=k["n_hi"], kernel=kq, cpu=cq))
+    iters = skw["n_lo"] + skw["n_hi"]
+    kern = lambda: AS.admm_segment(*args, **skw)  # noqa: E731
+    ref = lambda: AS.admm_segment_reference(*args, **skw)  # noqa: E731
+    numbers = dict(n=n, systems=b, iterations=iters, ms=median_ms(kern, reps=5),
+                   plain_ms=median_ms(ref, reps=5), device_ms=event_ms(kern),
+                   plain_device_ms=event_ms(ref, n=5), fp32_rel=rel32, max_abs_err=max_abs,
+                   bf16_rel=bf16)
+    numbers["bound_ms"], numbers["bound_by"] = segment_bound(b, n, iters)
+    print(f"  {label}: SEG {numbers['device_ms']:.3f} ms a segment by events ({iters} "
+          f"iterations, {b} systems of n={n}; {numbers['ms']:.3f} ms by the host clock), the "
+          f"reference {numbers['plain_device_ms']:.3f} ms; bound {numbers['bound_ms']:.3f} ms "
+          f"({numbers['bound_by']}), share {numbers['bound_ms'] / numbers['device_ms']:.3f}")
+    entry = results[key]
+    if "lanes" not in entry:
+        entry.update({k: numbers[k] for k in ("n", "ms", "plain_ms", "device_ms",
+                                              "plain_device_ms", "bound_ms", "bound_by",
+                                              "max_abs_err", "fp32_rel")}, library_ms=None)
+    entry.setdefault("lanes", {})[label] = numbers
+    return numbers
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """The kernel branch with every kernel replaced by its plain reference:
     the same solve arithmetic without the CUDA kernels."""
     swaps = ((FP, "form_packed"), (NI, "ns_inverse_scaled_build"), (NI, "ns_inverse_scaled"),
              (NI, "ns_inverse_refine"), (NI, "ns_inverse_warm"), (NI, "ns_inverse"),
-             (NI, "ns_inverse_blocked"), (FA, "fused_admm_solve"))
+             (NI, "ns_inverse_blocked"), (FA, "fused_admm_solve"), (AS, "admm_segment"))
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, f"{name}_reference"))
@@ -1425,11 +1553,13 @@ def phase_main_path(cfg, dev, name_power, results):
     torch.cuda.synchronize()
     main_counts = counts()
     print(f"  launches in one solve: {main_counts}")
-    check(main_counts == want(K1_128=1, K2_128=5), "launches K1/128=1, K2/128=5, else 0")
-    for k in ("K1/128", "K2/128"):
+    check(main_counts == want(K1_128=1, K2_128=5, SEG_128=2),
+          "launches K1/128=1, K2/128=5, SEG/128=2, else 0")
+    for k in ("K1/128", "K2/128", "SEG/128"):
         results[k].update(launches=main_counts[k], counted_in="h10 default")
     force_checks(cfg, inputs, forces)
     plain_gate(forces, pipeline.solve_packed_batch(cfg, inputs, use_kernels=False))
+    check_segment(cfg, "h10", inputs, results, "SEG/128")
 
     times = {}
     for label, kw in (("full", {}), ("no_polish", dict(polish_rounds=0)),
@@ -1438,7 +1568,8 @@ def phase_main_path(cfg, dev, name_power, results):
         out = pipeline.solve_packed_batch(cfg, inputs, **kw)
         torch.cuda.synchronize()
         c = counts()
-        expect = {"full": want(K1_128=1, K2_128=5), "no_polish": want(K1_128=1, K2_128=2),
+        expect = {"full": want(K1_128=1, K2_128=5, SEG_128=2),
+                  "no_polish": want(K1_128=1, K2_128=2, SEG_128=2),
                   "form_only": want(K1_128=1)}[label]
         check(c == expect and bool(torch.isfinite(out).all()), f"{label}: launches {c}, finite")
         times[label] = median_ms(lambda: pipeline.solve_packed_batch(cfg, inputs, **kw), reps=5)
@@ -1448,7 +1579,7 @@ def phase_main_path(cfg, dev, name_power, results):
         two = pipeline.solve_packed_batch(cfg, inputs)
         torch.cuda.synchronize()
         c = counts()
-        check(c == want(K1_128=1, K3_128=5), f"two-step build: launches {c}")
+        check(c == want(K1_128=1, K3_128=5, SEG_128=2), f"two-step build: launches {c}")
         results["K3/128"].update(launches=c["K3/128"], counted_in="h10 two_step_build")
         force_checks(cfg, inputs, two)
         d2 = float((two - forces).abs().amax(dim=(1, 2, 3)).le(0.25).float().mean())
@@ -1469,8 +1600,9 @@ def phase_lanes16(cfg, dev, name_power, results):
     counts, forces, the plain branch, and ms per call with its phase split
     (no_polish, form_only), then h16_full on the two-step build (K3/256)."""
     print(f"phase 4b: the h=16 lanes, solve_packed_batch at batch {B16}")
-    expect = {"h16_full": want(K1_256=1, K2_256=5), "h16_trot": want(K1_256=1, K2_256=5),
-              "h16_midband": want(K1_256=1, K3_128=2, K2_256=3)}
+    expect = {"h16_full": want(K1_256=1, K2_256=5, SEG_256=2),
+              "h16_trot": want(K1_256=1, K2_256=5, SEG_256=2),
+              "h16_midband": want(K1_256=1, K3_128=2, K2_256=3, SEG_256=2)}
     times = {}
     for lane, (ms, pack, kind) in LANES16.items():
         n = pack * 3 * ms * H16
@@ -1487,6 +1619,7 @@ def phase_lanes16(cfg, dev, name_power, results):
             # its systems have 192 variables: every K2 launch, which the
             # wrapper counts at the 256 tile, runs the 3-CTA instance
             results["K1/256"].update(launches=c["K1/256"], counted_in="h16_full")
+            results["SEG/256"].update(launches=c["SEG/256"], counted_in="h16_full")
             results["K2/192"].update(launches=c["K2/256"],
                                      counted_in="h16_full (counted at the 256 tile)")
             results["K2/256"].update(launches=0, counted_in="h16_full (192 variables: K2/192)")
@@ -1515,6 +1648,7 @@ def phase_lanes16(cfg, dev, name_power, results):
               f"branch {ref_share:.4f}; the kernels' share within 0.5 N of it {near:.4f}")
         share_min = min(0.98, ref_share - 0.01)
         plain_gate(forces, plain, share_min=share_min)
+        check_segment(cfg, lane, inputs, results, "SEG/256", **kw)
         for label, extra in (("full", {}), ("no_polish", dict(polish_rounds=0)),
                              ("form_only", dict(form_only=True))):
             times[f"{lane}/{label}"] = median_ms(
@@ -1532,7 +1666,8 @@ def phase_lanes16(cfg, dev, name_power, results):
         two = pipeline.solve_packed_batch(cfg, full_inputs, **full_kw)
         torch.cuda.synchronize()
         c = counts()
-        check(c == want(K1_256=1, K3_256=5), f"h16_full two-step build: launches {c}")
+        check(c == want(K1_256=1, K3_256=5, SEG_256=2),
+              f"h16_full two-step build: launches {c}")
         results["K3/256"].update(launches=c["K3/256"], counted_in="h16_full two_step_build")
         force_checks(cfg, full_inputs, two, full_kw["max_stance"], tight_min=full_tight)
         # The two-step build is held to the fused build's gate against the
@@ -1603,7 +1738,8 @@ def phase_fused_woodbury(cfg, dev, name_power, results):
     torch.cuda.synchronize()
     c = counts()
     print(f"  h10_woodbury launches in one solve: {c}")
-    check(c == want(K1_128=1, K2_128=3, K6_128=2), "h10_woodbury: launches K1=1, K2=3, K6=2")
+    check(c == want(K1_128=1, K2_128=3, K6_128=2, SEG_128=2),
+          "h10_woodbury: launches K1=1, K2=3, K6=2, SEG=2")
     results["K6/128"].update(launches=c["K6/128"], counted_in="h10_woodbury")
     check(bool(torch.isfinite(forces).all()), "h10_woodbury: forces finite")
     cold = pipeline.solve_packed_batch(cfg, inputs)
@@ -1642,8 +1778,8 @@ def phase_fused_woodbury(cfg, dev, name_power, results):
     torch.cuda.synchronize()
     c = counts()
     print(f"  h16_full with polish_woodbury, batch {B16}: launches in one solve: {c}")
-    check(c == want(K1_256=1, K3_256=3, K6_256=2), "h16 Woodbury: launches K1=1, K3=3, K6=2 "
-          "at the 256 tile")
+    check(c == want(K1_256=1, K3_256=3, K6_256=2, SEG_256=2),
+          "h16 Woodbury: launches K1=1, K3=3, K6=2, SEG=2 at the 256 tile")
     results["K6/256"].update(launches=c["K6/256"], counted_in="h16_full polish_woodbury")
     check(bool(torch.isfinite(forces).all()), "h16 Woodbury: forces finite")
     # At h=16 the Woodbury rounds cost the polish several N against the
@@ -1688,10 +1824,10 @@ def closed_loop_compare(cfg, label, states, sims, cmds, terr, max_stance):
     torch.cuda.synchronize()
     c = counts()
     print(f"  {label}: launches in one MPC tick: {c}")
-    check(c["K1/128"] == 1 and c["K2/128"] > 0
-          and all(v == 0 for k, v in c.items() if k not in ("K1/128", "K2/128")),
-          f"{label}: the MPC tick launches K1/128 once and K2/128 "
-          f"({c['K2/128']} times), nothing else")
+    check(c["K1/128"] == 1 and c["K2/128"] > 0 and c["SEG/128"] == 2
+          and all(v == 0 for k, v in c.items() if k not in ("K1/128", "K2/128", "SEG/128")),
+          f"{label}: the MPC tick launches K1/128 once, K2/128 ({c['K2/128']} times) and "
+          "SEG/128 twice, nothing else")
     plain, _ = br._mpc_tick_batched(cfg, states, sims, cmds, terr, CL_H, None,
                                     max_stance=max_stance, use_kernels=False)
     st, ctx = ctrl.control_tick_batched(
@@ -1764,9 +1900,10 @@ def phase_closed_loop(cfg, dev, name_power, results):
     for label, c, n in (("stand", c_stand, CL_STAND), ("sweep", c_sweep, CL_SWEEP)):
         print(f"  {label} ({n} MPC ticks): launches {c}; per MPC tick K1/128 "
               f"{c['K1/128'] / n:.2f}, K2/128 {c['K2/128'] / n:.2f}")
-        check(c["K1/128"] == n and c["K2/128"] >= n
-              and all(v == 0 for k, v in c.items() if k not in ("K1/128", "K2/128")),
-              f"{label}: K1/128 once per MPC tick, K2/128 at least once, nothing else")
+        check(c["K1/128"] == n and c["K2/128"] >= n and c["SEG/128"] == 2 * n
+              and all(v == 0 for k, v in c.items() if k not in ("K1/128", "K2/128", "SEG/128")),
+              f"{label}: K1/128 once per MPC tick, K2/128 at least once, SEG/128 twice, "
+              "nothing else")
         out[f"{label}_launches"] = {k: c[k] for k in ("K1/128", "K2/128")}
     for k in ("K1/128", "K2/128"):
         results[k]["closed_loop"] = {
@@ -2106,9 +2243,11 @@ def phase_cli_sweep(cfg, dev, name_power, results) -> dict:
             c = counts()
             mpc_ticks = {"first": 17, "resumed": 1, "uninterrupted": 18}[name]
             check(rc == 0 and c["K1/128"] == mpc_ticks and c["K2/128"] >= mpc_ticks
-                  and all(v == 0 for k, v in c.items() if k not in ("K1/128", "K2/128")),
+                  and c["SEG/128"] == 2 * mpc_ticks
+                  and all(v == 0 for k, v in c.items()
+                          if k not in ("K1/128", "K2/128", "SEG/128")),
                   f"cli sweep ({name}): K1/128 once per MPC tick ({mpc_ticks}), K2/128 "
-                  f"{c['K2/128']} times, nothing else")
+                  f"{c['K2/128']} times, SEG/128 twice a tick, nothing else")
             out[name] = dict(metrics=m, seconds=time.perf_counter() - t0,
                              k1_launches=c["K1/128"], k2_launches=c["K2/128"])
             if name == "resumed":
@@ -2140,14 +2279,20 @@ def phase_cli_sweep(cfg, dev, name_power, results) -> dict:
 BENCH_REPS, BENCH_REPS16 = 48, 16   # bench.py's chained reps (h=10, h=16 lanes)
 # bench.py's lanes: (the bench twin's JSON key that carries the lane, its
 # launches per solve on the card)
-BENCH_LANES = {"h10_full": ("value", dict(K1_128=1, K2_128=5)),
-               "h10_nopolish": ("phases", dict(K1_128=1, K2_128=2)),
-               "h10_form_fact": ("phases", dict(K1_128=1, K2_128=2)),
+BENCH_LANES = {"h10_full": ("value", dict(K1_128=1, K2_128=5, SEG_128=2)),
+               "h10_nopolish": ("phases", dict(K1_128=1, K2_128=2, SEG_128=2)),
+               "h10_form_fact": ("phases", dict(K1_128=1, K2_128=2, SEG_128=2)),
                "h10_form_only": ("phases", dict(K1_128=1)),
-               "h10_two_step_build": ("two_step_build_solves_per_s", dict(K1_128=1, K3_128=5)),
-               "h16_full": ("h16_solves_per_s", dict(K1_256=1, K2_256=5)),
-               "h16_trot": ("h16_trot_solves_per_s", dict(K1_256=1, K2_256=5)),
-               "h16_midband": ("h16_midband_solves_per_s", dict(K1_256=1, K3_128=2, K2_256=3))}
+               "h10_two_step_build": ("two_step_build_solves_per_s",
+                                      dict(K1_128=1, K3_128=5, SEG_128=2)),
+               "h16_full": ("h16_solves_per_s", dict(K1_256=1, K2_256=5, SEG_256=2)),
+               "h16_trot": ("h16_trot_solves_per_s", dict(K1_256=1, K2_256=5, SEG_256=2)),
+               "h16_midband": ("h16_midband_solves_per_s",
+                               dict(K1_256=1, K3_128=2, K2_256=3, SEG_256=2)),
+               # the iterate timed apart: h10's two segments replayed
+               "h10_iterate": ("phases", dict(SEG_128=2))}
+# the one h10 solve (polish_rounds=0) whose segment calls h10_iterate records
+BENCH_ITERATE_SOLVE = dict(K1_128=1, K2_128=2, SEG_128=2)
 FFI_STAND, FFI_EQUAL = 300, 20          # phase 5e: stand ticks, ticks held bit-equal
 
 
@@ -2160,7 +2305,8 @@ def path_launches(results, path: str, c: dict):
 def phase_bench(cfg, dev, name_power, results, h10_ms: float) -> dict:
     """Phase 5a: `cli bench` at bench.py's sizes through the port's CLI: all
     eight lanes, no lane error, every phase within its bound, the launches
-    each lane's chained reps make (a warm-up chain and three timed ones)."""
+    each lane's chained reps make (a warm-up chain and three timed ones), and
+    those of the iterate's timing apart."""
     print(f"phase 5a: cli bench (bench.py's lanes, sizes and reps; {name_power})")
     dev_args = [] if dev == torch.device("cuda", 0) else ["--device", str(dev)]
     reset_counts()
@@ -2169,13 +2315,13 @@ def phase_bench(cfg, dev, name_power, results, h10_ms: float) -> dict:
     seconds = time.perf_counter() - t0
     c = counts()
     print(f"  launches: {c} ({seconds:.1f} s)")
-    expect = dict.fromkeys(c, 0)
+    expect = {k: want(**BENCH_ITERATE_SOLVE)[k] for k in c}
     for lane, (_, per_solve) in BENCH_LANES.items():
         calls = 4 * (BENCH_REPS if lane.startswith("h10") else BENCH_REPS16)
         for k, n in per_solve.items():
             expect[k.replace("_", "/")] += calls * n
-    check(c == expect, "the eight lanes' chained reps launched K1/K2/K3 as routed, "
-                       "nothing else")
+    check(c == expect, "the eight lanes' chained reps and the iterate's replayed segments "
+                       "launched K1/K2/K3/SEG as routed, nothing else")
     path_launches(results, "bench", c)
     lanes_ok = all(rep[key] is not None for key, _ in BENCH_LANES.values())
     check(rc == 0 and lanes_ok and rep["lane_errors"] is None,
@@ -2227,10 +2373,10 @@ def phase_kernels_smoke(cfg, dev, name_power, results) -> dict:
     check(rc == 0 and tail.endswith(" 0 failed") and "FAIL" not in text
           and "BAD-VALUES" not in text, f"kernels-smoke --full: {tail}")
     ran = ("K1/128", "K1/256", "K2/128", "K2/256", "K3/128", "K3/256", "K5/128", "K6/128",
-           "K6/256")
+           "K6/256", "SEG/128", "SEG/256")
     check(all(c[k] > 0 for k in ran) and all(c[k] == 0 for k in c if k not in ran),
-          "kernels-smoke launched K1, K2, K3, K6 at both tiles, K4 (K3/128 inside) and K5; "
-          "no K7, K8, K9")
+          "kernels-smoke launched K1, K2, K3, K6 and SEG at both tiles, K4 (K3/128 inside) "
+          "and K5; no K7, K8, K9")
     return dict(summary=tail, seconds=seconds, launches=c)
 
 
@@ -2266,10 +2412,10 @@ def phase_scaling(cfg, dev, name_power, results) -> dict:
     local_mean = local.abs().sum() / local.numel()
     gap = float((forces - local).abs().max())
     check(torch.equal(forces, local) and bool(mean_abs == local_mean)
-          and c == want(K1_128=1, K2_128=5),
+          and c == want(K1_128=1, K2_128=5, SEG_128=2),
           f"sharded_mpc_solve at world size 1, batch {BATCH}: bit-equal to solve_packed_batch "
           f"(largest difference {gap:.3e}), reduced mean {float(mean_abs):.6f} equal to the "
-          f"local one, launches K1/128=1, K2/128=5")
+          f"local one, launches K1/128=1, K2/128=5, SEG/128=2")
     return dict(report=rep, sharded_max_abs_diff=gap, mean_abs=float(mean_abs))
 
 
@@ -2365,9 +2511,9 @@ def phase_graft(cfg, dev, name_power, results) -> dict:
     torch.cuda.synchronize()
     c = counts()
     path_launches(results, "graft_dryrun", c)
-    check(math.isfinite(mean_tau) and c == want(K1_128=1, K2_128=5),
+    check(math.isfinite(mean_tau) and c == want(K1_128=1, K2_128=5, SEG_128=2),
           f"dryrun_multichip(1): mean |tau| {mean_tau:.6f}, finite; launches K1/128=1, "
-          "K2/128=5")
+          "K2/128=5, SEG/128=2")
     return dict(mean_tau=mean_tau, launches=c)
 
 
@@ -2523,6 +2669,8 @@ def main() -> int:
            if k in ("K6/256", "K7/256", "K2/256", "K2/192", "K3/256") else ())
         + (("phases_ms",) if k.startswith("K5") else ())
         + (("device_ms", "plain_device_ms", "mma_count", "mma_full") if k.startswith("K1")
+           else ())
+        + (("device_ms", "plain_device_ms", "n", "fp32_rel", "lanes") if k.startswith("SEG")
            else ())
         + (("closed_loop", "cli_sweep") if k in ("K1/128", "K2/128") else ())
         + ("launches_phase5",)}

@@ -23,12 +23,18 @@ K1/128 and K2/128 (n = 96), and `h16_midband` K1/256, the Schur split K4
 and K2/256 for its polish.
 
 Phase accounting: the pipeline is timed at four nested configurations and
-differenced into formation / factorize / iterate / polish phases, each
-against `bench.py`'s analytic FLOP/byte model and the bound it names: the
-"mxu-f32" phases over the bf16 tensor-core peak / 3 (the port's fp32
-products run as bf16x3, three bf16 passes), the "hbm" phases over the
-device-memory rate (NVIDIA H100 SXM data sheet, dense). On the CPU no
-share of a device bound is computed.
+differenced into formation / factorize / polish phases, each against
+`bench.py`'s analytic FLOP/byte model and the bound it names: the "mxu-f32"
+phases over the bf16 tensor-core peak / 3 (the port's fp32 products run as
+bf16x3, three bf16 passes), the "hbm" phases over the device-memory rate
+(NVIDIA H100 SXM data sheet, dense). The iterate is timed apart (`_iterate`):
+its segments run as one kernel each (`ops/admm_segment.py`), whose device
+time overlaps the host's dispatch of the other phases, so the difference of
+two lanes no longer isolates it; its bytes are that kernel's (each system's
+inverse read once a segment), in place of `bench.py`'s stream of the inverse
+every iteration. Its timing runs as the lane `h10_iterate`; on the plain
+branch (the CPU's), which has no segment to replay, the iterate is
+differenced as the other phases are. On the CPU no share of a device bound is computed.
 
 Timing: the repetitions are chained (each rep's v_world moves by 1e-9 x the
 mean of the previous rep's forces, so no rep can be skipped), timed on the
@@ -48,6 +54,7 @@ import torch
 from quadruped_ctrl_tpu_torch import device as _device
 from quadruped_ctrl_tpu_torch.config import default_config
 from quadruped_ctrl_tpu_torch.mpc import pipeline
+from quadruped_ctrl_tpu_torch.ops import admm_segment as AS
 
 # One H100 SXM's peaks (NVIDIA data sheet, dense); used only for
 # %-of-bound reporting
@@ -71,22 +78,54 @@ def timed(fn, inputs, n_reps):
             inp = inp.replace(v_world=inp.v_world + 1e-9 * forces.mean(dim=(1, 2)))
         return inp.v_world.sum()
 
-    float(chained(inputs))  # warm up
+    return _seconds(lambda: chained(inputs), dev) / n_reps
+
+
+def _seconds(run, dev) -> float:
+    """Seconds of run() (which returns a tensor): least of 3 runs after one
+    warm-up, by CUDA events around it on the card (by the host clock on the
+    CPU)."""
+    float(run())  # warm up
     times = []
     for _ in range(3):
         if dev.type == "cuda":
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            chained(inputs)
+            run()
             e1.record()
             e1.synchronize()
             times.append(e0.elapsed_time(e1) / 1e3)
         else:
             t0 = time.perf_counter()
-            float(chained(inputs))
+            float(run())
             times.append(time.perf_counter() - t0)
-    return min(times) / n_reps
+    return min(times)
+
+
+def _iterate(cfg, inputs, n_reps) -> tuple[float, float] | None:
+    """The ADMM iterate of one call, timed apart: (seconds, bytes). The
+    segment calls that one `solve_packed_batch(polish_rounds=0)` makes are
+    recorded and replayed n_reps times in a chain. Bytes: each system's
+    n x n inverse read once a segment (twice in the one that switches from
+    bf16 to fp32 products), its vectors in and the carry out. None where the
+    solve makes no segment call (the plain branch, the CPU's)."""
+    with AS.recorded_calls() as calls:
+        pipeline.solve_packed_batch(cfg, inputs, polish_rounds=0)
+    if not calls:
+        return None
+
+    def chain():
+        for _ in range(n_reps):
+            x = [AS.admm_segment(*args, **kw)[0] for args, kw in calls]
+        return x[-1].sum()
+
+    nbytes = 0
+    for (inv, grad, l, *_), kw in calls:
+        loads = 1 + (kw["n_lo"] > 0 and kw["n_hi"] > 0)
+        nbytes += 4 * grad.shape[0] * (loads * kw["n"] ** 2 + 3 * grad.shape[1]
+                                       + 7 * l.shape[1])
+    return _seconds(chain, inputs.v_world.device) / n_reps, nbytes
 
 
 def _phase_models(cfg, batch: int, h: int) -> dict:
@@ -182,6 +221,7 @@ def main(batch: int = 4096, batch16: int = 2048, n_reps: int = 48, n_reps16: int
         inputs, n_reps))
     t_form_meas = lane("h10_form_only", lambda: timed(
         lambda i: pipeline.solve_packed_batch(cfg, i, form_only=True), inputs, n_reps))
+    iterate = lane("h10_iterate", lambda: _iterate(cfg, inputs, n_reps))
 
     # A/B: the fused K-build+NS factorization kernel (K2) vs the two-step
     # (plain-torch assemble -> NS kernel K3) path, via the _FUSED_BUILD hatch
@@ -215,7 +255,11 @@ def main(batch: int = 4096, batch16: int = 2048, n_reps: int = 48, n_reps16: int
     phases = None
     if None not in (t_full, t_nopol, t_form_fact, t_form_meas):
         models = _phase_models(cfg, batch, h)
-        t_iter = max(t_nopol - t_form_fact, 1e-9)
+        if iterate is None:
+            t_iter = max(t_nopol - t_form_fact, 1e-9)
+        else:
+            t_iter, bytes_iter = iterate
+            models["iterate(ADMM)"] = (models["iterate(ADMM)"][0], bytes_iter)
         # formation is measured directly (form_only); factorize is the
         # remainder of the measured formation+factorize bucket
         t_form = t_form_meas

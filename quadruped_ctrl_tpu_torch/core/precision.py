@@ -1,4 +1,5 @@
-"""Matmul precision for the small-matrix control path.
+"""Matmul precision for the small-matrix control path, and the solver's
+bf16 rounding.
 
 The counterpart of `jax.default_matmul_precision("highest")`: the estimator,
 kinematics and SRB-simulation matrices are 3x3..28x28, where a reduced
@@ -30,3 +31,14 @@ def exact_matmuls(fn):
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
     return wrapped
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """Values rounded to bf16, kept in fp32: a product of two such tensors in
+    fp32 is the JAX package's bf16 x bf16 product with fp32 output."""
+    return t.to(torch.bfloat16).float()
+
+
+def bmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matvec (B,i,j) x (B,j) -> (B,i) in fp32."""
+    return torch.bmm(a, v[:, :, None])[:, :, 0]

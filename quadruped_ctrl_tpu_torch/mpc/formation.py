@@ -41,6 +41,20 @@ def pyramid_bounds(cfg_mpc: MPCConfig, gait_table):
     return l, u
 
 
+def pyramid_dense(mu: float, n_blk: int) -> np.ndarray:
+    """The friction pyramid of `n_blk` foot-steps as a dense float32
+    (5 n_blk, 3 n_blk) matrix: block diagonal in the one 5 x 3 block whose
+    product `pyramid_apply` computes."""
+    mu_inv = 1.0 / mu
+    block = np.array(
+        [[mu_inv, 0, 1], [-mu_inv, 0, 1], [0, mu_inv, 1], [0, -mu_inv, 1],
+         [0, 0, 1]], dtype=np.float32)
+    a = np.zeros((5 * n_blk, 3 * n_blk), dtype=np.float32)
+    for i in range(n_blk):
+        a[5 * i:5 * i + 5, 3 * i:3 * i + 3] = block
+    return a
+
+
 def pyramid_apply(cfg_mpc: MPCConfig, x):
     """A @ x for the friction pyramid. x (..., 3) forces -> (..., 5)."""
     mu_inv = 1.0 / cfg_mpc.mu

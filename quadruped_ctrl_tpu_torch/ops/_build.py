@@ -54,6 +54,8 @@ _SIGNATURES = {
     "qct_fused_admm_solve": (
         (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P), _I),
     "qct_ns_refine_units": ((_I, _I, _P), _I),
+    "qct_admm_segment": ((_P,) * 11 + (_I,) * 4 + (_F,) * 4 + (_I, _I, _P), _I),
+    "qct_admm_segment_threads": ((_I,), _I),
 }
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from quadruped_ctrl_tpu_torch.core.precision import bmv
 from quadruped_ctrl_tpu_torch.ops import _build, _launch
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
 from quadruped_ctrl_tpu_torch.utils.timer import span
@@ -44,10 +45,6 @@ def _inverse_of(k: torch.Tensor, mus, n_quad: int, n_hi: int) -> torch.Tensor:
     ks = k * d[:, None, :] * d[:, :, None]
     x = NI._ns_schedule(ks, mus, n_quad, n_hi)
     return x * d[:, None, :] * d[:, :, None]
-
-
-def _bmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return torch.bmm(a, v[:, :, None])[:, :, 0]
 
 
 def fused_admm_solve_reference(a_dense, hess, grad, l, u, rho, *,
@@ -82,7 +79,7 @@ def fused_admm_solve_reference(a_dense, hess, grad, l, u, rho, *,
     y = torch.zeros_like(l)
     for _ in range(n_iter):
         rhs = sigma * x - grad + apply_at(rho * z - y)
-        x_t = _bmv(inv0, rhs)
+        x_t = bmv(inv0, rhs)
         z_t = apply_a(x_t)
         x = alpha_rx * x_t + (1.0 - alpha_rx) * x
         z_relax = alpha_rx * z_t + (1.0 - alpha_rx) * z
@@ -109,9 +106,9 @@ def fused_admm_solve_reference(a_dense, hess, grad, l, u, rho, *,
         invp = _inverse_of(kp, mus, n_quad, n_hi)
         y_act = torch.where(act, y_al, 0.0)
         b = -grad + apply_at(w * bound - y_act)
-        x_p = _bmv(invp, b)
+        x_p = bmv(invp, b)
         for _r in range(2):                          # iterative refinement
-            x_p = x_p + _bmv(invp, b - _bmv(kp, x_p))
+            x_p = x_p + bmv(invp, b - bmv(kp, x_p))
         ax = apply_a(x_p)
         y_new = y_act + w * (ax - bound)
         finite_p = torch.isfinite(x_p).all(-1)

@@ -60,6 +60,7 @@
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __cluster_dims__(...)
+#define __grid_constant__
 
 struct uint3 {
   unsigned x = 0, y = 0, z = 0;
@@ -446,6 +447,12 @@ inline uint32_t __float_as_uint(float f) {
 inline size_t __cvta_generic_to_shared(const void* p) {
   return static_cast<size_t>(reinterpret_cast<const char*>(p) - emu::self->arena);
 }
+// The rounded arithmetic intrinsics: one IEEE operation each, never contracted.
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __ldg(const float* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }
 using std::max;

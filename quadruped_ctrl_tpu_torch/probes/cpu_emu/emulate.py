@@ -1,7 +1,7 @@
 """Run the kernels of csrc/ on the CPU, clusters included.
 
     python3 quadruped_ctrl_tpu_torch/probes/cpu_emu/emulate.py [k1 k2 k3 k5 k6 k7 k9 plain warm
-                                                                 k23_256]
+                                                                 k23_256 segment]
 
 For a machine without nvcc: the CUDA sources are compiled by g++ (C++20)
 against the stand-in headers beside this file (cuda_runtime.h, cuda_bf16.h,
@@ -41,7 +41,10 @@ at 256) against its reference; `k23_256` K2 and
 K3 at the 256 tile (ns_refine.cu's RF_BUILD and RF_SCALED) on two systems
 against their references, K2's 3-CTA instance (systems of at most 192
 variables) against its 4-CTA one bit for bit, and K3's masked walk on 600
-systems. It shows
+systems. `segment` builds admm_segment.cu into a library of its own and runs
+the batched ADMM segment on the solver's operands at n = 120, 144 and 192
+(both precisions, the switch between them, the zero and a warm carry) and on
+random ones at n = 234, against admm_segment_reference. It shows
 that the indexing, the layouts and the barriers are right; it says nothing
 of speed. Every target takes about 85 s of one core (~60 s of emulation,
 the rest g++).
@@ -65,7 +68,9 @@ PKG = HERE.parents[1]
 sys.path.insert(0, str(PKG.parent))
 
 from quadruped_ctrl_tpu_torch import default_config  # noqa: E402
+from quadruped_ctrl_tpu_torch.solver import admm  # noqa: E402
 from quadruped_ctrl_tpu_torch.mpc import formation, pipeline  # noqa: E402
+from quadruped_ctrl_tpu_torch.ops import admm_segment as AS  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import _build  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import formation_pack as FP  # noqa: E402
 from quadruped_ctrl_tpu_torch.ops import fused_admm as FA  # noqa: E402
@@ -123,7 +128,8 @@ FLAGS = ("g++", "-std=c++20", "-Wno-unknown-pragmas", "-U_FORTIFY_SOURCE", f"-I{
 # fused_admm and formation_pack are apart from the NS kernels' library so
 # that each counts its own ldmatrix wavefronts and mma.sync.
 LIBRARIES = {"ns": ("ns_inverse", "ns_refine"), "fused_admm": ("fused_admm",),
-             "formation_pack": ("formation_pack",), "ns_plain": ("ns_plain",)}
+             "formation_pack": ("formation_pack",), "ns_plain": ("ns_plain",),
+             "admm_segment": ("admm_segment",)}
 
 
 def check_sources(out: Path):
@@ -155,6 +161,11 @@ def compile_plain(out: Path) -> ctypes.CDLL:
     return _library(out, "ns_plain")
 
 
+def compile_segment(out: Path) -> ctypes.CDLL:
+    """admm_segment.cu's library (the batched ADMM segment)."""
+    return _library(out, "admm_segment")
+
+
 def _library(out: Path, stem: str) -> ctypes.CDLL:
     """The library of LIBRARIES[stem]; built once per out."""
     lib_path = out / f"lib{stem}_emu.so"
@@ -171,9 +182,10 @@ def _library(out: Path, stem: str) -> ctypes.CDLL:
         if hasattr(lib, name):
             getattr(lib, name).argtypes = list(argtypes)
             getattr(lib, name).restype = restype
-    lib.emu_ldsm_wavefronts_per_matrix.restype = ctypes.c_double
-    lib.emu_mma_bf16_count.restype = ctypes.c_long
-    lib.emu_reset_counts.restype = None
+    if hasattr(lib, "emu_reset_counts"):   # the counters of emu_mma.h, where included
+        lib.emu_ldsm_wavefronts_per_matrix.restype = ctypes.c_double
+        lib.emu_mma_bf16_count.restype = ctypes.c_long
+        lib.emu_reset_counts.restype = None
     return lib
 
 
@@ -586,6 +598,117 @@ def run_k5(lib: ctypes.CDLL) -> dict:
     return out
 
 
+def segment_operands(h: int, ms: int, pack: int, scenarios: int, seed: int = 3) -> dict:
+    """What solve_packed_batch (no polish) hands the solver and the ADMM
+    segment at horizon h, max_stance ms, `pack` scenarios a system, on the
+    CPU: {"qp": (hess, grad, gait_table) of admm_mpc_batched, "calls": each
+    admm_segment call's (operands, keywords)}; the second call's carry is
+    the first one's result, warm."""
+    qp, real_batched = [], admm.admm_mpc_batched
+
+    def record_batched(cfg, cfg_mpc, hess, grad, gait, *args, **kw):
+        qp.append((hess, grad, gait))
+        return real_batched(cfg, cfg_mpc, hess, grad, gait, *args, **kw)
+
+    admm.admm_mpc_batched = record_batched
+    try:
+        with AS.recorded_calls() as calls:
+            pipeline.solve_packed_batch(default_config(), pipeline.random_inputs(
+                seed, scenarios, h, device="cpu"), max_stance=ms, pack=pack,
+                use_kernels=True, polish_rounds=0)
+    finally:
+        admm.admm_mpc_batched = real_batched
+    return dict(qp=qp[0], calls=calls)
+
+
+def segment(lib: ctypes.CDLL, args, kw) -> tuple:
+    """The carry after the emulated segment kernel on admm_segment's
+    operands `args` and keywords `kw`."""
+    inv, grad, l, u, rho, (x0, z0, y0) = args
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    out = tuple(torch.full_like(t, float("nan")) for t in (x0, z0, y0))
+    rc = lib.qct_admm_segment(*map(ptr, (inv, grad, l, u, rho, x0, z0, y0) + out),
+                              grad.shape[0], kw["n"], grad.shape[1], l.shape[1],
+                              kw["sigma"], kw["alpha"], 1.0 - kw["alpha"], 1.0 / kw["mu"],
+                              kw["n_lo"], kw["n_hi"], None)
+    if rc != 0:
+        raise RuntimeError(f"emulated admm_segment returned {rc}")
+    return out
+
+
+def ragged_operands(n: int = 234, b: int = 2, seed: int = 5) -> tuple:
+    """admm_segment's operands for b systems of n variables that no solver
+    forms (by default the largest n that fits, whose rows end in a part
+    float4, on a 256 x 512 tile): the inverse of H + sigma I + A' diag(rho)
+    A for a random SPD H, the pyramid's l, u and rho, a random warm carry."""
+    cfg = default_config()
+    gen = torch.Generator().manual_seed(seed)
+    m, np_, mp_ = 5 * n // 3, NI.pad_sizes(n), -(-5 * n // 3 // 128) * 128
+    a = torch.from_numpy(formation.pyramid_dense(cfg.mpc.mu, n // 3))
+    u = torch.full((b, m), cfg.mpc.big_number)
+    u[:, 4::5] = 1.0
+    rho = admm.constraint_rho(cfg.solver, torch.zeros((b, m)), u)
+    q = torch.randn(b, n, n, generator=gen, dtype=torch.float64)
+    k = q @ q.transpose(1, 2) / n + cfg.solver.sigma * torch.eye(n, dtype=torch.float64)
+    k = k + a.double().T @ (rho.double()[:, :, None] * a.double())
+    inv = torch.zeros((b, np_, np_))
+    inv[:, :n, :n] = torch.linalg.inv(k).float()
+    inv[:, n:, n:] = torch.eye(np_ - n)
+
+    def padded(v, width, fill=0.0):
+        out = torch.full((b, width), fill)
+        out[:, :v.shape[1]] = v
+        return out
+
+    z = torch.rand(b, m, generator=gen)
+    carry = (padded(torch.randn(b, n, generator=gen), np_), padded(z, mp_),
+             padded(torch.randn(b, m, generator=gen), mp_))
+    return (inv, padded(torch.randn(b, n, generator=gen), np_), torch.zeros((b, mp_)),
+            padded(u, mp_), padded(rho, mp_, 1.0), carry)
+
+
+# The segment's cases: (name, h, max_stance, pack, scenarios, call, n_lo, n_hi): n = 120
+# (two scenarios a system), 144 and 192 variables, two systems each; the first
+# call's zero carry or the second's warm one. h None: ragged_operands().
+SEGMENT_CASES = (("n120_bf16", 10, 2, 2, 4, 0, 4, 0), ("n144_switch", 16, 3, 1, 2, 1, 3, 3),
+                 ("n192_fp32", 16, 4, 1, 2, 1, 0, 4), ("n234_ragged", None, 0, 0, 0, 0, 2, 2))
+
+
+def run_admm_segment(lib: ctypes.CDLL, cases=SEGMENT_CASES) -> dict:
+    """The segment kernel against admm_segment_reference on each case's
+    operands: x, z, y's largest difference over the reference's largest
+    entry (`rel`), that against the reference at the other precision (all
+    fp32 products for a segment with bf16 ones, all bf16 for one without:
+    `rel_other`), the padding exactly the reference's, finiteness, and the
+    library's threads a block. Prints them."""
+    out = {}
+    for name, h, ms, pack, scenarios, call, n_lo, n_hi in cases:
+        if h is None:
+            s = default_config().solver
+            args, kw = ragged_operands(), dict(n=234, mu=default_config().mpc.mu,
+                                               sigma=s.sigma, alpha=s.over_relax_alpha)
+        else:
+            args, kw = segment_operands(h, ms, pack, scenarios)["calls"][call]
+        kw = {**kw, "n_lo": n_lo, "n_hi": n_hi}
+        n, m = kw["n"], 5 * kw["n"] // 3
+        got = segment(lib, args, kw)
+        want = AS.admm_segment_reference(*args, **kw)
+        total = n_lo + n_hi
+        other = {**kw, "n_lo": 0, "n_hi": total} if n_lo else {**kw, "n_lo": total, "n_hi": 0}
+        alt = AS.admm_segment_reference(*args, **other)
+        parts = (slice(0, n), slice(0, m), slice(0, m))
+        out[name] = dict(
+            n=n, rel=max(rel(g[:, p], w[:, p]) for g, w, p in zip(got, want, parts)),
+            rel_other=min(rel(g[:, p], w[:, p]) for g, w, p in zip(got, alt, parts)),
+            pad_exact=all(bool(torch.equal(g[:, p.stop:], w[:, p.stop:]))
+                          for g, w, p in zip(got, want, parts)),
+            finite=all(bool(g.isfinite().all()) for g in got),
+            threads=lib.qct_admm_segment_threads(n))
+    for name, numbers in out.items():
+        print(name, numbers)
+    return out
+
+
 # K1's cases: (name, h, max_stance, pack, scenarios, masked trailing steps)
 K1_CASES = (("h10", 10, 2, 2, 2, 0), ("h16_full", 16, 4, 1, 1, 0), ("h16_trot", 16, 2, 2, 2, 0),
             ("h16_midband", 16, 3, 1, 1, 0), ("h10_masked", 10, 2, 2, 2, 2),
@@ -639,7 +762,7 @@ def run_k1(lib: ctypes.CDLL, cases=K1_CASES) -> dict:
 
 if __name__ == "__main__":
     which = sys.argv[1:] or ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "plain", "warm",
-                             "k23_256")
+                             "k23_256", "segment")
     prepare(PKG / "csrc", OUT)
     check_sources(OUT)
     lib = compile_ns(OUT)
@@ -662,3 +785,5 @@ if __name__ == "__main__":
         run_k5(compile_fused(OUT))
     if "k1" in which:
         run_k1(compile_formation(OUT))
+    if "segment" in which:
+        run_admm_segment(compile_segment(OUT))

@@ -27,7 +27,10 @@ carried explicitly). Both branches of the JAX function are here:
   systems take the Schur split K4 (`ops/ns_inverse.ns_inverse_schur_scaled`)
   when `ns_schur_split` is on. The ADMM iterate runs in tile-padded spaces
   with the inverse quantized to bf16 for all but the last `f32_tail_iters`
-  iterations;
+  iterations, each segment (the iterations between two factorizations) one
+  launch of the segment kernel (`ops/admm_segment.admm_segment`) where the
+  system's inverse fits in a block's shared memory (n <= 234), else the
+  same iterate as plain ops;
 * the plain branch: plain 25-step fp32 NS and the structural pyramid.
 
 With `polish_woodbury`, every polish round after the first updates the
@@ -66,21 +69,12 @@ import torch
 
 from quadruped_ctrl_tpu_torch.config import MPCConfig, SolverConfig
 from quadruped_ctrl_tpu_torch import device
+from quadruped_ctrl_tpu_torch.core.precision import bf16_round, bmv
 from quadruped_ctrl_tpu_torch.mpc import formation
+from quadruped_ctrl_tpu_torch.ops import admm_segment as AS
 from quadruped_ctrl_tpu_torch.ops import fused_admm as FA
 from quadruped_ctrl_tpu_torch.ops import ns_inverse as NI
 from quadruped_ctrl_tpu_torch.utils.timer import span
-
-
-def _bmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Batched matvec (B,i,j) x (B,j) -> (B,i) in fp32."""
-    return torch.bmm(a, v[:, :, None])[:, :, 0]
-
-
-def _bf16_round(t: torch.Tensor) -> torch.Tensor:
-    """Values rounded to bf16, kept in fp32: a product of two such tensors in
-    fp32 is the JAX package's bf16 x bf16 product with fp32 output."""
-    return t.to(torch.bfloat16).float()
 
 
 def constraint_rho(cfg: SolverConfig, l, u):
@@ -186,15 +180,7 @@ def _adapt_rho_factor(cfg: SolverConfig, ax, z, hx, grad_n, aty):
 
 def _pyramid_dense(mu: float, h: int, nf: int):
     """Dense (5 h nf, 3 h nf) friction-pyramid matrix, as a numpy constant."""
-    mu_inv = 1.0 / mu
-    block = np.array(
-        [[mu_inv, 0, 1], [-mu_inv, 0, 1], [0, mu_inv, 1], [0, -mu_inv, 1],
-         [0, 0, 1]], dtype=np.float32)
-    n_blk = h * nf
-    a = np.zeros((5 * n_blk, 3 * n_blk), dtype=np.float32)
-    for i in range(n_blk):
-        a[5 * i:5 * i + 5, 3 * i:3 * i + 3] = block
-    return a
+    return formation.pyramid_dense(mu, h * nf)
 
 
 def _gj_inverse(c: torch.Tensor, pivot: bool = True) -> torch.Tensor:
@@ -480,7 +466,7 @@ class _Solver:
 
     @functools.cached_property
     def inv16(self) -> torch.Tensor:
-        return _bf16_round(self.inv)
+        return bf16_round(self.inv)
 
     def __call__(self, b_vec, refine: int = 2, lowp: bool = False):
         d = self.scale
@@ -488,11 +474,11 @@ class _Solver:
         if lowp:
             # bf16 inverse matvec: only for the bulk ADMM iterations, never
             # where the result is read out
-            return d * _bmv(self.inv16, _bf16_round(bs))
-        x = _bmv(self.inv, bs)
+            return d * bmv(self.inv16, bf16_round(bs))
+        x = bmv(self.inv, bs)
         for _ in range(refine):
-            ksx = _bmv(self.ks, x) if self.ks is not None else self.k_scaled_mv(x)
-            x = x + _bmv(self.inv, bs - ksx)
+            ksx = bmv(self.ks, x) if self.ks is not None else self.k_scaled_mv(x)
+            x = x + bmv(self.inv, bs - ksx)
         return d * x
 
 
@@ -578,7 +564,7 @@ def _batched_solver_fused(hp_g, g9, n: int, bsz: int, cfg: SolverConfig,
 
         def k_scaled_mv(x):
             xu = d * x
-            ku = _bmv(hp_n, xu)
+            ku = bmv(hp_n, xu)
             ku = ku + torch.einsum("bdij,bdj->bdi", g4,
                                    xu.reshape(bsz, nblk, 3)).reshape(bsz, n)
             return d * ku
@@ -692,9 +678,11 @@ def admm_mpc_batched(
     seg = n_iter // segs
 
     if use_kernels:
-        # Tile-padded iterate: one dense shared-A product per apply and the
-        # Jacobi scale folded into the inverse. Padding is inert: zero A
-        # rows/cols with l=u=0, rho=1 pin the padded z/y/x entries to ~0.
+        # Tile-padded iterate: the Jacobi scale folded into the inverse, A
+        # the pyramid. Padding is inert: zero A rows/cols
+        # with l=u=0, rho=1 pin the padded z/y/x entries to 0. Each segment
+        # runs the segment kernel where the system's inverse fits on chip,
+        # else its reference, the same iterate as ops.
         m = 5 * nf * h
         np_ = NI.pad_sizes(n)          # every kernel-branch inverse's tile
         mp_ = -(-m // 128) * 128
@@ -702,8 +690,7 @@ def admm_mpc_batched(
         def padded_inverse(solver):
             dp = torch.ones((bsz, np_), dtype=dtype, device=dev)
             dp[:, :n] = solver.scale
-            invf = solver.inv_padded * (dp[:, :, None] * dp[:, None, :])
-            return invf, _bf16_round(invf)
+            return solver.inv_padded * (dp[:, :, None] * dp[:, None, :])
 
         def pad_rows(v, width, fill=0.0):
             out = torch.full((bsz, width), fill, dtype=dtype, device=dev)
@@ -711,33 +698,13 @@ def admm_mpc_batched(
             return out
 
         with span("qct.factorize"):
-            inv_fullp, inv16p = padded_inverse(build_solver(rho, schedule=admm_schedule))
+            inv_fullp = padded_inverse(build_solver(rho, schedule=admm_schedule))
         gradp = pad_rows(grad_n, np_)
         lP = pad_rows(l, mp_)
         uP = pad_rows(u, mp_)
         rhoP = pad_rows(rho, mp_, 1.0)
-        a_pad = torch.zeros((mp_, np_), dtype=dtype, device=dev)
-        a_pad[:m, :n] = torch.as_tensor(_pyramid_dense(cfg_mpc.mu, h, nf),
-                                        dtype=dtype, device=dev)
+        a_pad = AS.pyramid_padded(cfg_mpc.mu, n, mp_, np_, dev)
         at_pad = a_pad.T
-
-        def run(carry, inv_fullp, inv16p, rhoP, n_lo, n_hi):
-            inv_rhoP = 1.0 / rhoP
-            x, z, y = carry                          # (B,128), (B,256) x2
-            with span("qct.admm.iterate"):
-                for i in range(n_lo + n_hi):
-                    rhs = sigma * x - gradp + (rhoP * z - y) @ a_pad
-                    if i < n_lo:
-                        x_t = _bmv(inv16p, _bf16_round(rhs))
-                    else:
-                        x_t = _bmv(inv_fullp, rhs)
-                    z_t = x_t @ at_pad
-                    x = alpha * x_t + (1.0 - alpha) * x
-                    z_relax = alpha * z_t + (1.0 - alpha) * z
-                    z_new = torch.clamp(z_relax + inv_rhoP * y, min=lP, max=uP)
-                    y = y + rhoP * (z_relax - z_new)
-                    z = z_new
-            return x, z, y
 
         if warm is None:
             carry = (torch.zeros((bsz, np_), dtype=dtype, device=dev),
@@ -750,21 +717,24 @@ def admm_mpc_batched(
             last = s_i == segs - 1
             n_seg = n_iter - seg * (segs - 1) if last else seg
             tail = min(cfg.f32_tail_iters, n_seg) if last else 0
-            carry = run(carry, inv_fullp, inv16p, rhoP, n_seg - tail, tail)
+            with span("qct.admm.iterate"):
+                carry = AS.admm_segment(inv_fullp, gradp, lP, uP, rhoP, carry, n=n,
+                                        mu=cfg_mpc.mu, sigma=sigma, alpha=alpha,
+                                        n_lo=n_seg - tail, n_hi=tail)
             if not last:
                 # per-scenario OSQP adaptive rho + one cold ADMM-grade
                 # refactorization
                 with span("qct.admm.rho_adapt"):
                     xs, zs, ys = carry
                     ax = (xs @ at_pad)[:, :m]
-                    hx = _bmv(hess_n, xs[:, :n].contiguous())
+                    hx = bmv(hess_n, xs[:, :n].contiguous())
                     aty = (ys @ a_pad)[:, :n]
                     fac = _adapt_rho_factor(
                         cfg, per_scn(ax), per_scn(zs[:, :m]), per_scn(hx),
                         per_scn(grad_n), per_scn(aty))
                     rhoP = pad_rows(rho * scn_fac_rows(fac, m // pack), mp_, 1.0)
                     with span("qct.factorize"):
-                        inv_fullp, inv16p = padded_inverse(
+                        inv_fullp = padded_inverse(
                             build_solver(rhoP[:, :m], schedule=admm_schedule))
         xp, zp, yp = carry
         x = xp[:, :n]
@@ -805,7 +775,7 @@ def admm_mpc_batched(
             if not last:
                 with span("qct.admm.rho_adapt"):
                     xs, zs, ys = carry
-                    hx = _bmv(hess_n, xs)
+                    hx = bmv(hess_n, xs)
                     fac = _adapt_rho_factor(
                         cfg, per_scn(apply_a(xs)), per_scn(zs), per_scn(hx),
                         per_scn(grad_n), per_scn(apply_at(ys)))

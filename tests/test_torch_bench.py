@@ -1,8 +1,9 @@
 """The port's twins of the repo root's `bench.py` and `bench_latency.py` on
 the CPU: the bench twin's `main` at a few scenarios and one rep, with
 exactly `bench.py`'s output keys (read from its source) and every lane
-run; `timed`'s chain; the per-phase FLOP and byte models at batch 4096
-equal to `bench.py`'s formulas evaluated on the JAX config; the midband
+run; `timed`'s chain; the iterate timed apart on the kernel branch; the
+per-phase FLOP and byte models at batch 4096 equal to `bench.py`'s
+formulas evaluated on the JAX config; the midband
 gait table as `bench.py` builds it; and the latency twin's `main` for a
 few ticks, with `bench_latency.py`'s keys, writing nothing unless given
 `out` (never LATENCY.json)."""
@@ -16,7 +17,9 @@ import torch
 
 from quadruped_ctrl_tpu.config import default_config as jax_default_config
 from quadruped_ctrl_tpu_torch import bench, bench_latency, default_config
+from quadruped_ctrl_tpu_torch import device as _device
 from quadruped_ctrl_tpu_torch.mpc import pipeline as TP
+from quadruped_ctrl_tpu_torch.ops import admm_segment as AS
 from tests.test_torch_package import REPO, _one_thread  # noqa: F401 (autouse)
 
 LANES = ("h10_full", "h10_nopolish", "h10_form_fact", "h10_form_only", "h10_two_step_build",
@@ -70,6 +73,28 @@ def test_bench_main_has_bench_py_keys(tmp_path, capsys):
         assert list(p) == phase_keys + ["peak"]
         assert p["attained_pct"] is None and p["peak"].startswith("not measured")
         assert p["ms"] > 0
+
+
+def test_iterate_timed_apart_replays_the_segments(monkeypatch):
+    """On the kernel branch (forced here; the references run on the CPU)
+    `_iterate` records one solve's two segment calls and replays them in a
+    chain, a warm-up chain and three timed ones; its bytes are each system's
+    inverse once a segment (twice in the one that switches to fp32
+    products) and its vectors."""
+    monkeypatch.setattr(_device, "use_kernels",
+                        lambda t, use_kernels=None: True if use_kernels is None else use_kernels)
+    seen, real = [], AS.admm_segment
+
+    def counted(*args, **kw):
+        seen.append((kw["n"], kw["n_lo"], kw["n_hi"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(AS, "admm_segment", counted)
+    t, nbytes = bench._iterate(default_config(), TP.random_inputs(0, 4, 10, device="cpu"), 2)
+    assert t > 0 and len(seen) == 2 + 2 * 2 * 4
+    assert set(seen) == {(120, 60, 0), (120, 10, 50)}
+    vectors = 3 * 128 + 7 * 256                      # 2 systems, np 128, mp 256
+    assert nbytes == 4 * 2 * ((120 ** 2 + vectors) + (2 * 120 ** 2 + vectors))
 
 
 def test_timed_chains_the_reps():

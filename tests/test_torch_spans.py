@@ -82,7 +82,11 @@ def test_one_solve_records_its_phases(inputs, path):
     if path == "packed_kernels":
         assert _count(spans, "qct.ops.form_packed") == 1
         assert _count(spans, "qct.ops.ns_inverse_scaled_build") == segs + rounds
-        assert ops == {"qct.ops.form_packed", "qct.ops.ns_inverse_scaled_build"}
+        segments = [s for s in spans if s[0] == "qct.ops.admm_segment"]
+        assert len(segments) == segs
+        assert all(_inside(s, spans, {"qct.admm.iterate"}) for s in segments)
+        assert ops == {"qct.ops.form_packed", "qct.ops.ns_inverse_scaled_build",
+                       "qct.ops.admm_segment"}
     else:
         assert not ops
 
