@@ -96,6 +96,14 @@
    and safety equal, K1/128 and K2/128 launched on every MPC tick, and the
    largest difference of the two final states (and whether they are
    bit-equal);
+4h. drives `solve_routed_batch` on one batch of the benchmark cell
+   h14_gait_mix_solve (9,216 scenarios at h=14, drawn as benchmark/run.py
+   draws them; groups of 72, 84, 120 and 168 variables): the launches (one
+   K1, five K2 and two SEG a group, at its width's tile), the forces under
+   the cell's own check and zero on every swing foot, a second solve bit for
+   bit the first, and each group's own K1, K2 (and K3 on its systems) and
+   SEG calls against their references under phases 3, 3b and 4's gates,
+   and ms a call;
 5. drives the port's other entry points, each with the launch counts set to
    0 just before it and read just after (the kernels line keeps them per
    path under `launches_phase5`):
@@ -123,7 +131,8 @@
 7. prints a JSON line with the kernels (one entry per kernel and tile, with
    its bound on this card and the time of torch.linalg.inv beside K2/K3;
    K1/128's and K2/128's also carry their closed-loop and `cli sweep`
-   launches per MPC tick), then the result line.
+   launches per MPC tick, K1's, K2's and SEG's their launches in the routed
+   solve), then the result line.
 
 Exits non-zero when no CUDA device is present, when a kernel fails to build
 or launch, or when any check fails. Needs no JAX.
@@ -395,7 +404,7 @@ def gram_mma(h: int, ms: int) -> tuple[int, int]:
     fragments over every 16-row chunk), both over bf16x3's three passes."""
     n_c = 3 * ms * h
     full = -(-n_c // 16) * -(-n_c // 8) * -(-13 * h // 16) * 3
-    return _build.load().qct_form_packed_mma_count(h, ms), full
+    return FP.mma_count(_build.load(), h, FP.per_step_slots(h, ms, "cpu")), full
 
 
 def rel(a, b) -> float:
@@ -425,24 +434,38 @@ def residuals(ks, inv):
     return float(gap.max()), float(gap.sum(-1).max())
 
 
+@contextlib.contextmanager
+def recorded(mod, name: str):
+    """Each call of mod.<name> made inside the block, as (args, keywords)
+    with its tensors cloned, into the list it yields; the calls run as they
+    would."""
+    calls, real = [], getattr(mod, name)
+    clone = lambda a: a.clone() if isinstance(a, torch.Tensor) else a  # noqa: E731
+
+    def record(*args, **kw):
+        calls.append((tuple(map(clone, args)), {k: clone(v) for k, v in kw.items()}))
+        return real(*args, **kw)
+
+    setattr(mod, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, real)
+
+
+def as_operands(args) -> tuple:
+    """A recorded NS call's positional arguments as (tensors..., schedule)."""
+    return (*(a for a in args if isinstance(a, torch.Tensor)),
+            tuple(a for a in args if not isinstance(a, torch.Tensor)))
+
+
 def solve_operands(cfg, inputs, name="ns_inverse_scaled_build", **solve_kw):
     """The arguments of every call one real solve makes to NI.<name>, as
     (tensors..., schedule): K2's are the cold ADMM factorization, the
     adaptive-rho refactorization and the polish rounds."""
-    calls = []
-    fn = getattr(NI, name)
-
-    def record(*args):
-        calls.append((*(a.clone() for a in args if isinstance(a, torch.Tensor)),
-                      tuple(a for a in args if not isinstance(a, torch.Tensor))))
-        return fn(*args)
-
-    setattr(NI, name, record)
-    try:
+    with recorded(NI, name) as calls:
         pipeline.solve_packed_batch(cfg, inputs, **solve_kw)
-    finally:
-        setattr(NI, name, fn)
-    return calls
+    return [as_operands(args) for args, _ in calls]
 
 
 def ns_times(hp, g9, ks, sched) -> list[float]:
@@ -596,6 +619,47 @@ def check_k1(cfg, dev, batch, h, ms, pack, masked, kind, results=None, timed=Fal
             library_ms=None, mma_count=count, mma_full=full, **t)
 
 
+def check_k1_slots(cfg, dev, batch, h=14, gaits=(7, 8, 9), n_slot=28):
+    """K1 on stance slot lists (mpc/formation.stance_slots), as a routed
+    solve forms one group: `batch` scenarios at horizon h, each on a gait of
+    the reference's library (by default galloping, pacing and trotting, 84
+    variables at h=14) at a segment of its own, each with its own slots'
+    steps; against its reference and the fp32 plain formation, timed."""
+    from quadruped_ctrl_tpu_torch.gait import gait
+
+    inp = pipeline.random_inputs(seed=3, batch=batch, h=h, device=dev)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(14)
+    nums = torch.tensor(gaits)[torch.randint(0, len(gaits), (batch,), generator=gen)]
+    segs = torch.randint(0, h, (batch,), generator=gen, dtype=torch.int32)
+    tables = torch.stack([gait.mpc_table(s, gait.params_for_gait(g), h)
+                          for g, s in zip(nums, segs)]).to(dev)
+    adt, bdt = formation.srb_discrete(cfg.mpc, inp.r_feet, inp.rpy[:, 2], inp.x_drag,
+                                      cfg.dt_mpc)
+    x0 = formation.build_x0(inp.rpy, inp.position, inp.omega_world, inp.v_world,
+                            cfg.mpc.gravity)
+    _, _, sel, steps = formation.stance_slots(tables, n_slot)
+    mask = torch.ones((batch, h), device=dev)
+    ops = formation.packed_qp_operands(cfg.mpc, adt, bdt, x0, inp.traj, mask, sel)
+    args = (*ops, h, None, 1, float(cfg.mpc.alpha))
+    hk, gk = FP.form_packed(*args, slot_step=steps)
+    hr, gr = FP.form_packed_reference(*args, slot_step=steps)
+    hx, gx = formation.qp_cost_packed(cfg.mpc, adt, bdt, x0, inp.traj, mask, sel, 1,
+                                      use_kernels=False, slot_step=steps)
+    torch.cuda.synchronize()
+    tag = f"K1 h={h} slot lists of {3 * n_slot} variables (gaits {list(gaits)}) batch {batch}"
+    print(f"  {tag}: rel_H {rel(hk, hr):.3e} rel_g {rel(gk, gr):.3e} vs reference; "
+          f"rel_H {rel(hk, hx):.3e} rel_g {rel(gk, gx):.3e} vs the fp32 plain formation")
+    check(hk.shape == (batch, 3 * n_slot, 3 * n_slot) and bool(torch.isfinite(hk).all()),
+          f"{tag}: shape and finite")
+    check(rel(hk, hr) < 5e-5 and rel(gk, gr) < 1e-5, f"{tag} vs reference")
+    check(rel(hk, hx) < 5e-5 and rel(gk, gx) < 1e-5, f"{tag} vs fp32 plain")
+    t = dict(ms=median_ms(lambda: FP.form_packed(*args, slot_step=steps)),
+             device_ms=event_ms(lambda: FP.form_packed(*args, slot_step=steps)))
+    print("  %s: kernel %.4f ms host (median of 10), %.4f ms device (20 chained calls)"
+          % (tag, t["ms"], t["device_ms"]))
+
+
 def check_ns(cases, results, npad, n_sys):
     """K2 and K3 against their references on (label, hp, g9, schedule,
     residual metric (0 elementwise, 1 row sum), gate) cases. The kernel's
@@ -656,8 +720,10 @@ def solve_cases(calls, polish_sched, polish_gate=0.5):
     (CPU, batch 1024) and 0.34 on the card, which the polish solves' two
     refinement passes contract as r^3; its gate is 0.5. At h=16 (the 256
     tile) the reference itself reads 0.51 on the card, so the gate there is
-    1.0, the row-sum bound under which the refinement still contracts; the
-    2x rule of check_ns holds the kernel to the reference either way."""
+    1.0, the row-sum bound under which the refinement still contracts, and
+    so at h=14 (the routed groups, phase 4h), where the reference reads 0.70
+    at n = 120 on the card; the 2x rule of check_ns holds the kernel to the
+    reference either way."""
     cases = []
     for i, (hp, g9, sched) in enumerate(calls):
         polish = sched == polish_sched
@@ -739,6 +805,7 @@ def phase_kernels(cfg, dev, results):
     # K1 at the main path's shape and at an odd system count with 2 masked steps
     check_k1(cfg, dev, BATCH, H, MS, PACK, 0, "trot", results, timed=True)
     check_k1(cfg, dev, BATCH - 2, H, MS, PACK, 2, "trot")
+    check_k1_slots(cfg, dev, B16)
 
     admm_sched, polish_sched = schedules(cfg)
     g9_zero = torch.zeros((N_SYS, 9, N_VARS // 3), device=dev)
@@ -1467,18 +1534,22 @@ def segment_rel(got, want, n: int) -> torch.Tensor:
     return torch.stack(out).amax(0)
 
 
-def check_segment(cfg, label, inputs, results, key, **kw) -> dict:
-    """SEG on one solve's own segment calls against admm_segment_reference on
-    the card (tests/test_torch_admm_segment_card.py's gates): the first
-    call's operands run 60 fp32 iterations within 1e-4 of the reference's
-    largest entry per system, the padding exact; each of the solver's
-    segments (bf16, then bf16 and an fp32 tail) within three times the CPU
+def check_segment(label, calls, results, key) -> dict:
+    """SEG on one solve's own segment calls (segment_calls, or a routed
+    group's two) against admm_segment_reference on the card
+    (tests/test_torch_admm_segment_card.py's gates): the first call's
+    operands run 60 fp32 iterations within 1e-4 of the reference's largest
+    entry per system, the padding exact; each of the solver's segments
+    (bf16, then bf16 and an fp32 tail) within three times the CPU
     reference's distance from the card's at the median, 90th percentile and
-    largest system. Times the solver's first segment on the whole batch by
+    largest system. The 1e-4 is the CPU reference's distance from the
+    card's in fp32: where the CPU's own distance comes near it (the routed
+    widths 72 and 84, whose worst systems amplify rounding over the 60
+    iterations; the kernel there is the CPU's loop bit for bit in
+    emulation), the fp32 run is held to the solver segments' rule instead. Times the solver's first segment on the whole batch by
     the host clock and by events beside the reference and the bound. Records
     the numbers under results[key]["lanes"][label], and the first lane's at
     the entry's top."""
-    calls = segment_calls(cfg, inputs, **kw)
     check(len(calls) == 2 and all(AS.fits(k["n"]) for _, k in calls),
           f"{label}: two ADMM segments, each n within the kernel's route")
     args, skw = calls[0]
@@ -1486,14 +1557,21 @@ def check_segment(cfg, label, inputs, results, key, **kw) -> dict:
     sub = segment_systems(args)
     f32 = {**skw, "n_lo": 0, "n_hi": 60}
     got, want = AS.admm_segment(*sub, **f32), AS.admm_segment_reference(*sub, **f32)
-    rel32 = float(segment_rel(got, want, n).max())
+    quantiles = lambda v: [float(torch.quantile(v, q)) for q in (0.5, 0.9, 1.0)]  # noqa: E731
+    kq32 = quantiles(segment_rel(got, want, n))
+    cq32 = quantiles(segment_rel(AS.admm_segment_reference(
+        *segment_systems(sub, torch.device("cpu")), **f32), want, n))
+    rel32 = kq32[-1]
     max_abs = max(float((g[:, :w] - r[:, :w]).abs().max())
                   for g, r, w in zip(got, want, (n, m, m)))
     pads = all(torch.equal(g[:, w:], r[:, w:]) for g, r, w in zip(got, want, (n, m, m)))
-    check(rel32 <= 1e-4 and pads,
+    near = rel32 <= 1e-4 or all(x <= 3.0 * c + 1e-5 for x, c in zip(kq32, cq32))
+    check(near and pads,
           f"{label}: SEG, 60 fp32 iterations on {SEG_SYSTEMS} systems of n={n}: within 1e-4 of "
-          f"the reference's largest entry per system ({rel32:.3e}), the padding exact")
-    quantiles = lambda v: [float(torch.quantile(v, q)) for q in (0.5, 0.9, 1.0)]  # noqa: E731
+          f"the reference's largest entry per system ({rel32:.3e}; the CPU reference "
+          f"{cq32[-1]:.3e}), or within 3x the CPU reference's distance at the median, 90th "
+          f"percentile and largest ({', '.join(f'{x:.3e}' for x in kq32)} against "
+          f"{', '.join(f'{x:.3e}' for x in cq32)}), the padding exact")
     bf16 = []
     for i, (a, k) in enumerate(calls):
         a = segment_systems(a)
@@ -1512,7 +1590,8 @@ def check_segment(cfg, label, inputs, results, key, **kw) -> dict:
     ref = lambda: AS.admm_segment_reference(*args, **skw)  # noqa: E731
     numbers = dict(n=n, systems=b, iterations=iters, ms=median_ms(kern, reps=5),
                    plain_ms=median_ms(ref, reps=5), device_ms=event_ms(kern),
-                   plain_device_ms=event_ms(ref, n=5), fp32_rel=rel32, max_abs_err=max_abs,
+                   plain_device_ms=event_ms(ref, n=5), fp32_rel=rel32, fp32_rel_cpu=cq32[-1],
+                   max_abs_err=max_abs,
                    bf16_rel=bf16)
     numbers["bound_ms"], numbers["bound_by"] = segment_bound(b, n, iters)
     print(f"  {label}: SEG {numbers['device_ms']:.3f} ms a segment by events ({iters} "
@@ -1559,7 +1638,7 @@ def phase_main_path(cfg, dev, name_power, results):
         results[k].update(launches=main_counts[k], counted_in="h10 default")
     force_checks(cfg, inputs, forces)
     plain_gate(forces, pipeline.solve_packed_batch(cfg, inputs, use_kernels=False))
-    check_segment(cfg, "h10", inputs, results, "SEG/128")
+    check_segment("h10", segment_calls(cfg, inputs), results, "SEG/128")
 
     times = {}
     for label, kw in (("full", {}), ("no_polish", dict(polish_rounds=0)),
@@ -1648,7 +1727,7 @@ def phase_lanes16(cfg, dev, name_power, results):
               f"branch {ref_share:.4f}; the kernels' share within 0.5 N of it {near:.4f}")
         share_min = min(0.98, ref_share - 0.01)
         plain_gate(forces, plain, share_min=share_min)
-        check_segment(cfg, lane, inputs, results, "SEG/256", **kw)
+        check_segment(lane, segment_calls(cfg, inputs, **kw), results, "SEG/256")
         for label, extra in (("full", {}), ("no_polish", dict(polish_rounds=0)),
                              ("form_only", dict(form_only=True))):
             times[f"{lane}/{label}"] = median_ms(
@@ -2276,6 +2355,93 @@ def phase_cli_sweep(cfg, dev, name_power, results) -> dict:
     return out
 
 
+# the routed solve (phase 4h): one batch of the benchmark cell's traffic,
+# drawn as benchmark/run.py draws it
+ROUTED_CELL, ROUTED_SEED = "h14_gait_mix_solve", 25_000_000_014
+ROUTED_KEYS = ("K1/128", "K1/256", "K2/128", "K2/256", "SEG/128", "SEG/256")
+
+
+def routed_want(widths) -> dict:
+    """The launches of one routed solve whose groups have these widths (in
+    variables): each group one K1, five K2 (the cold factorization, the
+    adaptive-rho refactorization, three polish rounds) and two SEG, at its
+    width's tile."""
+    out = want()
+    for n in widths:
+        for k, launches in (("K1", 1), ("K2", 5), ("SEG", 2)):
+            out[f"{k}/{NI.pad_sizes(n)}"] += launches
+    return out
+
+
+def phase_routed(dev, name_power, results) -> dict:
+    """Phase 4h: solve_routed_batch on one batch of the h14_gait_mix_solve
+    cell: launches by group, the forces under the cell's own check, and each
+    group's own K1, K2 and SEG calls against their references."""
+    from benchmark.harness import check as cell_check
+    from benchmark.harness import spec
+
+    cell = spec.load_cell(ROUTED_CELL)
+    cfg = spec.program_config(cell.config)
+    pool = cell.generator().make_pool(dict(cell.traffic, pool=1), int(cell.config["horizon"]),
+                                      ROUTED_SEED, dev)
+    inputs = pipeline.MPCInputs(**pool[0])
+    b, h = inputs.gait_table.shape[:2]
+    width = (-(-3 * inputs.gait_table.sum((1, 2)).long() // 12) * 12).tolist()
+    sizes = {n: width.count(n) for n in sorted(set(width))}
+    print(f"phase 4h: the routed solve, solve_routed_batch on one {ROUTED_CELL} batch ({b} "
+          f"scenarios at h={h}; scenarios by variables {sizes})")
+    check(list(sizes) == [72, 84, 120, 168], "the batch's groups: 72, 84, 120 and 168 variables")
+    reset_counts()
+    forces = pipeline.solve_routed_batch(cfg, inputs)
+    torch.cuda.synchronize()
+    c = counts()
+    print(f"  launches in one solve: {c}")
+    check(c == routed_want(sizes), "launches: one K1, five K2 and two SEG a group at its "
+          "width's tile, else 0")
+    for k in ROUTED_KEYS:
+        results[k]["launches_routed"] = c[k]
+    results["K2/192"]["launches_routed"] = "counted as K2/256"
+    pairs = cell_check.sample(ROUTED_SEED, 1, b, int(cell.workload["check"]["scenarios"]))
+    sample, f = cell_check.gather(pairs, [{k: getattr(inputs, k) for k in cell_check.FIELDS}],
+                                  [forces], forces.device)
+    numbers = cell_check.judge(cell.config["mpc"], sample, f)
+    nonfinite = int((~torch.isfinite(forces)).flatten(1).any(1).sum())
+    correct, _ = cell_check.verdict(numbers, cell.workload["check"]["limits"], nonfinite)
+    print(f"  the cell's check: {numbers}; nonfinite {nonfinite}; correct {correct}")
+    check(correct and nonfinite == 0, f"{ROUTED_CELL}: correct under the cell's limits")
+    check(float(forces[inputs.gait_table < 0.5].abs().max()) == 0.0,
+          "forces of every swing foot exactly 0")
+
+    with recorded(FP, "form_packed") as k1, recorded(NI, "ns_inverse_scaled_build") as k2, \
+            AS.recorded_calls() as seg:
+        again = pipeline.solve_routed_batch(cfg, inputs)
+    torch.cuda.synchronize()
+    check(torch.equal(again, forces), "a second routed solve gives the same forces bit for bit")
+    _, polish_sched = schedules(cfg)
+    for n in sizes:
+        tag, tile = f"h14 n={n}", NI.pad_sizes(n)
+        (args, kw), = [call for call in k1 if call[0][1].shape[-1] == n]
+        hk, gk = FP.form_packed(*args, **kw)
+        hr, gr = FP.form_packed_reference(*args, **kw)
+        torch.cuda.synchronize()
+        print(f"  K1/{tile} {tag} (each scenario's slot list, {args[0].shape[0]} scenarios): "
+              f"rel_H {rel(hk, hr):.3e} rel_g {rel(gk, gr):.3e} vs reference")
+        check(rel(hk, hr) < 5e-5 and rel(gk, gr) < 1e-5, f"K1/{tile} {tag} vs reference")
+        group = [as_operands(args) for args, _ in k2 if 3 * args[1].shape[-1] == n]
+        check(len(group) == 5, f"{tag}: five K2 calls")
+        # labelled apart from "solve call ...": held, neither timed nor kept
+        cases = [(f"{tag} {label}", *rest) for label, *rest in
+                 solve_cases(group, polish_sched, polish_gate=1.0)]
+        check_ns(cases, results, tile, len(group[0][0]))
+        check_segment(tag, [call for call in seg if call[1]["n"] == n], results, f"SEG/{tile}")
+        del group, cases
+    del k1, k2, seg
+    ms_call = median_ms(lambda: pipeline.solve_routed_batch(cfg, inputs), reps=3)
+    print(f"  routed: {ms_call:.2f} ms per call (median of 3), {b / ms_call * 1e3:.0f} solves/s "
+          f"at batch {b} ({name_power})")
+    return {"h14_gait_mix/routed": ms_call}
+
+
 BENCH_REPS, BENCH_REPS16 = 48, 16   # bench.py's chained reps (h=10, h=16 lanes)
 # bench.py's lanes: (the bench twin's JSON key that carries the lane, its
 # launches per solve on the card)
@@ -2618,6 +2784,8 @@ def main() -> int:
     t2f = time.perf_counter()
     cli_sweep = phase_cli_sweep(cfg, dev, name_power, results)
     t2g = time.perf_counter()
+    times.update(phase_routed(dev, name_power, results))
+    t2h = time.perf_counter()
     entry_points = dict(bench=phase_bench(cfg, dev, name_power, results, times["full"]),
                         latency=phase_latency(cfg, dev, name_power, results),
                         kernels_smoke=phase_kernels_smoke(cfg, dev, name_power, results),
@@ -2642,7 +2810,7 @@ def main() -> int:
         seed=0, batch=B_SCN, h=H, device=dev), solve=pipeline.solve_batch)
     print(f"phase seconds: kernels {t1 - t0:.1f}, 3d {t1d - t1:.1f}, paths {t2 - t1d:.1f}, "
           f"4d {t2d - t2:.1f}, 4e {t2e - t2d:.1f}, 4f {t2f - t2e:.1f}, 4g {t2g - t2f:.1f}, "
-          f"5 {t5 - t2g:.1f}, profiles {time.perf_counter() - t5:.1f}")
+          f"4h {t2h - t2g:.1f}, 5 {t5 - t2h:.1f}, profiles {time.perf_counter() - t5:.1f}")
     print(name_power)       # again, near the end: the output's head may be cut
     print(json.dumps({"phase_ms": times, "batch": BATCH, "phase_ms_h16": times16,
                       "batch_h16": B16, "batch_h10_fused": B_FUSED, "profile": profile,
@@ -2673,6 +2841,7 @@ def main() -> int:
         + (("device_ms", "plain_device_ms", "n", "fp32_rel", "lanes") if k.startswith("SEG")
            else ())
         + (("closed_loop", "cli_sweep") if k in ("K1/128", "K2/128") else ())
+        + (("launches_routed",) if k in ROUTED_KEYS or k == "K2/192" else ())
         + ("launches_phase5",)}
         for k in KERNEL_INFO]
     print(json.dumps({"kernels": kernels}))

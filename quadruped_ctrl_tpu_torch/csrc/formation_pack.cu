@@ -6,6 +6,13 @@
 // i = s % pack:
 //   u_m   = bfam_s[m] @ smat                      (13, n_c), m = 0..2, fp32
 //   bq    rows x*13+q: sqrt(mask_x) * sum_m phi_m(x - step(col)) u_m[q]
+// with n_c = 3 n_slot columns, three a foot slot, and step(col) the step
+// of column col's slot, read from the scenario's slot-step list (sstep:
+// n_slot ints a scenario, or one list for every scenario at a batch stride
+// of 0). The TPU kernel's per-step layout, max_stance slots a step, is the
+// list [0 x ms, 1 x ms, ...]; a stance slot list (mpc/formation.stance_slots)
+// holds each scenario's own (step, foot) pairs in stance. The steps of a
+// list never decrease.
 //   H_p[i*n_c:(i+1)*n_c, i*n_c:(i+1)*n_c] = 2 bq'bq (bf16x3) + 2 alpha I
 //   g_p[i*n_c:(i+1)*n_c]                  = 2 bq' r (fp32)
 // and zeros in the rest of the scenario's n_c rows of H_p: the packed H is
@@ -66,11 +73,10 @@ constexpr int64_t FP_SMEM_MAX = 227 * 1024;  // shared memory one H100 block may
 __host__ __device__ constexpr int fp_warps(bool big) { return big ? 8 : 4; }
 
 // The 16-row chunk holding the first row that is not zero in columns 32 j
-// on: row 13 step(32 j), step(col) = col / (3 ms). The kernel's Gram and
-// qct_form_packed_mma_count both start tile column j there.
-__host__ __device__ constexpr int fp_first_chunk(int j, int ms) {
-  return 13 * ((32 * j) / (3 * ms)) / 16;
-}
+// on: row 13 step(32 j), the least step of those columns since the slot
+// steps never decrease. The kernel's Gram and qct_form_packed_mma_count both
+// start tile column j there.
+__host__ __device__ constexpr int fp_first_chunk(int step) { return 13 * step / 16; }
 
 // The shared memory of one scenario's block, in bytes from its start. The
 // plane rows are ld = cols + 8 bf16 apart where that fits in FP_SMEM_MAX,
@@ -82,9 +88,9 @@ __host__ __device__ constexpr int fp_first_chunk(int j, int ms) {
 struct FpLayout {
   int n_c, rows, rows_pad, cols, ld, warps, rg;
   int64_t lo, scratch, part, bfam, r, mask, total;
-  __host__ __device__ FpLayout(int h, int ms)
-      : n_c(3 * ms * h), rows(13 * h), rows_pad((13 * h + 15) / 16 * 16),
-        cols((3 * ms * h + 15) / 16 * 16), warps(fp_warps(3 * ms * h > 128)),
+  __host__ __device__ FpLayout(int h, int n_slot)
+      : n_c(3 * n_slot), rows(13 * h), rows_pad((13 * h + 15) / 16 * 16),
+        cols((3 * n_slot + 15) / 16 * 16), warps(fp_warps(3 * n_slot > 128)),
         rg(32 * warps / (cols / 2)) {
     place(h, cols + 8);
     if (total > FP_SMEM_MAX) place(h, cols);
@@ -207,11 +213,12 @@ __device__ __forceinline__ void fp_store_tile(const float (&acc)[2][4][4], float
 template <bool kBig>
 __global__ void __launch_bounds__(32 * fp_warps(kBig), kBig ? 1 : 4)
 form_packed_kernel(const float* __restrict__ bfam, const float* __restrict__ smat,
+                   const int* __restrict__ sstep, int sstep_stride,
                    const float* __restrict__ r, const float* __restrict__ smask,
-                   float* __restrict__ hess, float* __restrict__ grad, int h, int ms,
+                   float* __restrict__ hess, float* __restrict__ grad, int h, int n_slot,
                    int pack, float alpha) {
   constexpr int kWarps = fp_warps(kBig), kThreads = 32 * kWarps;
-  const FpLayout L(h, ms);
+  const FpLayout L(h, n_slot);
   const int n_c = L.n_c, n_pair = pack * n_c, rows = L.rows, ld = L.ld;
   const int s = blockIdx.x;
   const int pair = s / pack, slot = s % pack, lo_col = slot * n_c;
@@ -230,13 +237,16 @@ form_packed_kernel(const float* __restrict__ bfam, const float* __restrict__ sma
 
   // Every global load first, into registers, so that their latencies
   // overlap: bfam_s as float4s (468 floats, 16-byte aligned a scenario), the
-  // step mask (h < 128), and the two smat columns of a thread of the build
-  // below (zero past n_c).
+  // step mask (h < 128), and the two smat columns and their slots' steps of
+  // a thread of the build below (zero past n_c).
   const int npc = L.cols / 2;
   const int p = tid % npc, rg = tid / npc, c = 2 * p;
   const bool builds = rg < L.rg;
   float s0[12], s1[12];
   const float* sms = smat + static_cast<size_t>(s) * 12 * n_c;
+  const int* ss = sstep + static_cast<size_t>(s) * sstep_stride;
+  const int c_step0 = builds && c < n_c ? ss[c / 3] : 0;
+  const int c_step1 = builds && c + 1 < n_c ? ss[(c + 1) / 3] : 0;
 #pragma unroll
   for (int f = 0; f < 12; ++f) {
     s0[f] = builds && c < n_c ? __ldg(sms + f * n_c + c) : 0.f;
@@ -292,9 +302,9 @@ form_packed_kernel(const float* __restrict__ bfam, const float* __restrict__ sma
   // bq into the planes and 2 bq' r: thread (p, rg) owns columns 2p, 2p+1
   // (s0, s1) and rows q = rg, rg + L.rg, ... of every step x.
   // Toeplitz expansion: phi_0 = tri, phi_1 = k tri, phi_2 = k(k-1)/2 tri with
-  // k = x - step(col), step(col) = col / (3 ms) for the (step, slot, xyz) order
+  // k = x - step(col), the step of the column's slot
   if (builds) {
-    const float st0 = static_cast<float>(c / (3 * ms)), st1 = static_cast<float>((c + 1) / (3 * ms));
+    const float st0 = static_cast<float>(c_step0), st1 = static_cast<float>(c_step1);
     float g0 = 0.f, g1 = 0.f;
     for (int q = rg; q < 13; q += L.rg) {
       float u0[3], u1[3];
@@ -343,7 +353,7 @@ form_packed_kernel(const float* __restrict__ bfam, const float* __restrict__ sma
   float* st = scratch + warp * 8 * FP_SS;
   int tau = 0;
   for (int j = 0; j < L.tile_cols(); ++j) {
-    const int kc0 = fp_first_chunk(j, ms);
+    const int kc0 = fp_first_chunk(ss[32 * j / 3]);  // 32 j < n_c (FpLayout)
     for (int i = 0; i <= j; ++i, ++tau) {
       const int pos = tau % (2 * kWarps);
       if ((pos < kWarps ? pos : 2 * kWarps - 1 - pos) != warp) continue;
@@ -362,37 +372,43 @@ form_packed_kernel(const float* __restrict__ bfam, const float* __restrict__ sma
 
 }  // namespace qct
 
-// Shared memory one scenario needs, in bytes.
-extern "C" int64_t qct_form_packed_smem_bytes(int h, int ms) { return qct::FpLayout(h, ms).total; }
+// Shared memory one scenario of n_slot foot slots needs, in bytes.
+extern "C" int64_t qct_form_packed_smem_bytes(int h, int n_slot) {
+  return qct::FpLayout(h, n_slot).total;
+}
 
-// mma.sync m16n8k16 one scenario's Gram runs, over the three bf16 passes:
-// per 16-row chunk a 32 x 32 tile takes 2 x 4 fragments; tile column j has
-// j + 1 tiles on or above the diagonal, each from fp_first_chunk(j, ms).
-extern "C" int64_t qct_form_packed_mma_count(int h, int ms) {
-  const qct::FpLayout L(h, ms);
+// mma.sync m16n8k16 one scenario's Gram runs, over the three bf16 passes,
+// for its slot steps (host memory, n_slot ints): per 16-row chunk a 32 x 32
+// tile takes 2 x 4 fragments; tile column j has j + 1 tiles on or above the
+// diagonal, each from fp_first_chunk of its first column's step.
+extern "C" int64_t qct_form_packed_mma_count(const int* steps, int h, int n_slot) {
+  const qct::FpLayout L(h, n_slot);
   int64_t tile_chunks = 0;
   for (int j = 0; j < L.tile_cols(); ++j)
-    tile_chunks += int64_t(j + 1) * (L.rows_pad / 16 - qct::fp_first_chunk(j, ms));
+    tile_chunks += int64_t(j + 1) * (L.rows_pad / 16 - qct::fp_first_chunk(steps[32 * j / 3]));
   return tile_chunks * 2 * 4 * 3;
 }
 
-// bfam (B,3,13,12), smat (B,12,n_c), r (B,13h), smask (B,h) ->
-// hess (B/pack, n_pair, n_pair), grad (B/pack, n_pair). Returns the launch's
-// cudaError_t; the caller checks shapes, types, n_pair <= 256 and the shared
-// memory one scenario needs.
-extern "C" int qct_form_packed(const float* bfam, const float* smat, const float* r,
-                               const float* smask, float* hess, float* grad, int b, int h,
-                               int ms, int pack, float alpha, void* stream) {
-  if (pack * 3 * ms * h > qct::FP_MAX_NPAIR) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t smem = qct_form_packed_smem_bytes(h, ms);
-  const bool big = 3 * ms * h > 128;
+// bfam (B,3,13,12), smat (B,12,n_c), sstep (B,n_slot) int32 at a batch
+// stride of sstep_stride (0: one list for all), r (B,13h), smask (B,h) ->
+// hess (B/pack, n_pair, n_pair), grad (B/pack, n_pair), n_c = 3 n_slot.
+// Returns the launch's cudaError_t; the caller checks shapes, types, n_pair
+// <= 256, the shared memory one scenario needs and that no list's steps
+// decrease.
+extern "C" int qct_form_packed(const float* bfam, const float* smat, const int* sstep,
+                               int sstep_stride, const float* r, const float* smask,
+                               float* hess, float* grad, int b, int h, int n_slot, int pack,
+                               float alpha, void* stream) {
+  if (pack * 3 * n_slot > qct::FP_MAX_NPAIR) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t smem = qct_form_packed_smem_bytes(h, n_slot);
+  const bool big = 3 * n_slot > 128;
   auto kernel = big ? qct::form_packed_kernel<true> : qct::form_packed_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0) return 0;
   kernel<<<b, 32 * qct::fp_warps(big), static_cast<size_t>(smem),
-           static_cast<cudaStream_t>(stream)>>>(bfam, smat, r, smask, hess, grad, h, ms, pack,
-                                                alpha);
+           static_cast<cudaStream_t>(stream)>>>(bfam, smat, sstep, sstep_stride, r, smask,
+                                                hess, grad, h, n_slot, pack, alpha);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,12 @@ layouts):
   pyramid applied structurally, the closed-form SRB discretization, the
   sortless stance selection, the stance-compressed QP cost and its packed
   form;
+* a port-only generalization of the stance compression: a scenario's
+  variables as a list of foot slots, each slot a (step, foot) pair with
+  the step it lies on (`stance_slots`, `slot_step=`). The JAX layout of
+  `max_stance` slots a step is the list [0 x ms, 1 x ms, ...] with the
+  selection of each step's slots in turn, and gives the same numbers bit
+  for bit;
 * per scenario, for `pipeline.solve` and `solve_compressed` (and batched by
   `torch.func.vmap` there): the continuous SRB dynamics, their exact
   discretization, the prediction stacking and the condensed QP costs, full
@@ -177,6 +183,40 @@ def stance_selectors(gait_table, max_stance: int):
     return foot_idx, gait_red, sel
 
 
+def stance_slots(gait_table, n_slot: int):
+    """Each scenario's stance slot list, batched over leading dims: its
+    (step, foot) pairs in stance, by step and then foot (the reference's
+    swing-variable elimination, SolverMPC.cpp:441-525, at the scenario's own
+    size), in `n_slot` slots, at least as many as any scenario's stance
+    pairs. A slot past a scenario's own count selects no foot, lies on the
+    last step (so no list's steps decrease) and has gait 0, so its bounds
+    pin it to zero. gait_table (..., h, 4) -> (flat int64 (..., n_slot):
+    4 step + foot of each slot, 4 h past the count; gait_red (..., n_slot);
+    sel (..., n_slot, 4); slot_step int32 (..., n_slot))."""
+    h = gait_table.shape[-2]
+    stance = gait_table.flatten(-2) > 0.5                     # (...,4h)
+    pos = torch.arange(4 * h, device=gait_table.device)
+    order = torch.argsort(torch.where(stance, pos, pos + 4 * h), dim=-1)[..., :n_slot]
+    valid = torch.take_along_dim(stance, order, dim=-1)
+    flat = torch.where(valid, order, 4 * h)
+    slot_step = torch.where(valid, order // 4, h - 1).to(torch.int32)
+    gait_red = valid.to(gait_table.dtype)
+    sel = F.one_hot(order % 4, 4).to(gait_table.dtype) * gait_red[..., None]
+    return flat, gait_red, sel, slot_step
+
+
+def _slot_list(sel, slot_step):
+    """(sel (..., n_slot, 4), slot_step int32 (n_slot,) or (..., n_slot)):
+    a slot list as given, or the per-step layout's (sel (..., h, ms, 4),
+    slot_step None) as one."""
+    if slot_step is not None:
+        return sel, slot_step
+    h, ms = sel.shape[-3], sel.shape[-2]
+    steps = torch.arange(h, dtype=torch.int32, device=sel.device)
+    return (sel.reshape(sel.shape[:-3] + (h * ms, 4)),
+            torch.repeat_interleave(steps, ms))
+
+
 def _phi_polys(h: int, dtype=torch.float32, device=None):
     """Toeplitz weights Phi_m[x, c] = phi_m(x - c) (x >= c) of the power
     family Adt^k = I + k N + C(k,2) N^2, (3, h, h)."""
@@ -209,25 +249,28 @@ def _weighted_residual(n1, n2, x0, x_d, sqrt_mask, sqrt_w):
 
 
 def qp_cost_compressed_nil_sel(cfg_mpc: MPCConfig, adt, bdt, x0, x_d,
-                               step_mask, sel):
+                               step_mask, sel, slot_step=None):
     """Stance-compressed condensed QP cost with the selection passed
-    directly, batched over leading dims. Returns (hess (..., n_c, n_c),
-    grad (..., n_c)), n_c = 3 ms h."""
+    directly, batched over leading dims: sel (..., h, ms, 4), ms slots a
+    step, or (port-only) a slot list sel (..., n_slot, 4) with the steps of
+    its slots `slot_step` (n_slot,) or (..., n_slot). Returns
+    (hess (..., n_c, n_c), grad (..., n_c)), n_c = 3 n_slot (3 ms h)."""
+    sel, slot_step = _slot_list(sel, slot_step)
     dtype, dev = adt.dtype, adt.device
     lead = x_d.shape[:-2]
     h = x_d.shape[-2]
-    ms = sel.shape[-2]
-    n_c = h * ms * 3
+    n_c = 3 * sel.shape[-2]
     n1, n2, bfam = _nil_family(adt, bdt)
     sqrt_w = torch.sqrt(_weights(cfg_mpc, adt))
     sqrt_mask = torch.sqrt(step_mask)                         # (...,h)
     bfam_s = bfam * sqrt_w[:, None]                           # scale p rows
-    u = torch.einsum("...mpfz,...cjf->...mpcjz",
+    u = torch.einsum("...mpfz,...sf->...mpsz",
                      bfam_s.reshape(lead + (3, 13, 4, 3)), sel
                      ).reshape(lead + (3, 13, n_c))
-    phi = _phi_polys(h, dtype, dev)                           # (3,h,h)
-    phiexp = torch.repeat_interleave(phi, ms * 3, dim=-1)     # (3,h,n_c)
-    bq = (phiexp[:, :, None, :] * u[..., :, None, :, :]).sum(-4)
+    phi = _phi_polys(h, dtype, dev)[:, :, slot_step.long()]   # (3,h,...,n_slot)
+    phi = torch.movedim(phi, (0, 1), (-3, -2))                # (...,3,h,n_slot)
+    phiexp = torch.repeat_interleave(phi, 3, dim=-1)          # (...,3,h,n_c)
+    bq = (phiexp[..., :, :, None, :] * u[..., :, None, :, :]).sum(-4)
     bq = (bq * sqrt_mask[..., :, None, None]).reshape(lead + (h * 13, n_c))
     hess = 2.0 * (torch.einsum("...kc,...kd->...cd", bq, bq)
                   + cfg_mpc.alpha * torch.eye(n_c, dtype=dtype, device=dev))
@@ -240,19 +283,20 @@ def qp_cost_compressed_nil_sel(cfg_mpc: MPCConfig, adt, bdt, x0, x_d,
 def packed_qp_operands(cfg_mpc: MPCConfig, adt, bdt, x0, x_d, step_mask, sel):
     """Per-scenario operands of the packed formation kernel
     (ops/formation_pack.py): bfam_s (B,3,13,12), smat (B,12,n_c),
-    r (B,13h), smask (B,h)."""
+    r (B,13h), smask (B,h). sel is the per-step layout's (B,h,ms,4) or a
+    slot list's (B,n_slot,4) (the slots' steps go to the kernel apart)."""
     dtype, dev = adt.dtype, adt.device
     b = x_d.shape[0]
     h = x_d.shape[-2]
-    ms = sel.shape[-2]
-    n_c = h * ms * 3
+    sel = sel.reshape(b, -1, 4)                               # (B,n_slot,4)
+    n_c = 3 * sel.shape[1]
     n1, n2, bfam = _nil_family(adt, bdt)
     sqrt_w = torch.sqrt(_weights(cfg_mpc, adt))
     bfam_s = bfam * sqrt_w[:, None]
-    # smat[(f,z),(c,j,z')] = sel[c,j,f] * (z==z'): (B,4,h,ms) x I3
-    sel_t = torch.movedim(sel, -1, -3)                        # (B,4,h,ms)
+    # smat[(f,z),(s,z')] = sel[s,f] * (z==z'): (B,4,n_slot) x I3
+    sel_t = torch.movedim(sel, -1, -2)                        # (B,4,n_slot)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    smat = (sel_t[:, :, None, :, :, None] * eye3[None, :, None, None, :]
+    smat = (sel_t[:, :, None, :, None] * eye3[None, :, None, :]
             ).reshape(b, 12, n_c)
     smask = torch.sqrt(step_mask)
     r = _weighted_residual(n1, n2, x0, x_d, smask, sqrt_w).reshape(b, h * 13)
@@ -261,17 +305,18 @@ def packed_qp_operands(cfg_mpc: MPCConfig, adt, bdt, x0, x_d, step_mask, sel):
 
 
 def qp_cost_packed(cfg_mpc: MPCConfig, adt, bdt, x0, x_d, step_mask, sel,
-                   pack: int, use_kernels: bool | None = None):
+                   pack: int, use_kernels: bool | None = None, slot_step=None):
     """Block-diagonally packed QP cost, `pack` scenarios per system. Returns
     (hess (B/pack, pack n_c, pack n_c), grad (B/pack, pack n_c)), the layout
-    `admm.admm_mpc_batched(..., pack=pack)` consumes. The kernel branch runs
-    kernel K1 (ops/formation_pack.form_packed); the plain branch is
+    `admm.admm_mpc_batched(..., pack=pack)` consumes. sel and `slot_step`
+    as in `qp_cost_compressed_nil_sel`. The kernel branch runs kernel K1
+    (ops/formation_pack.form_packed); the plain branch is
     `qp_cost_compressed_nil_sel` plus the block-diagonal embedding."""
     use_kernels = device.use_kernels(adt, use_kernels)
     b = x_d.shape[0]
     h = x_d.shape[-2]
-    ms = sel.shape[-2]
-    n_c = h * ms * 3
+    ms = None if slot_step is not None else sel.shape[-2]
+    n_c = 3 * (sel.shape[-2] if slot_step is not None else h * ms)
     if b % pack:
         raise ValueError(f"batch {b} is not a multiple of pack={pack}")
     if pack * n_c > 256:
@@ -284,9 +329,9 @@ def qp_cost_packed(cfg_mpc: MPCConfig, adt, bdt, x0, x_d, step_mask, sel,
         bfam_s, smat, r, smask = packed_qp_operands(
             cfg_mpc, adt, bdt, x0, x_d, step_mask, sel)
         return FP.form_packed(bfam_s, smat, r, smask, h, ms, pack,
-                              float(cfg_mpc.alpha))
+                              float(cfg_mpc.alpha), slot_step=slot_step)
     hess, grad = qp_cost_compressed_nil_sel(cfg_mpc, adt, bdt, x0, x_d,
-                                            step_mask, sel)
+                                            step_mask, sel, slot_step)
     hp = hess.reshape(b // pack, pack, n_c, n_c)
     kp = torch.zeros((b // pack, pack * n_c, pack * n_c), dtype=hess.dtype,
                      device=hess.device)

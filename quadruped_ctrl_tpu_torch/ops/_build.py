@@ -31,9 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "qct_form_packed": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
+    "qct_form_packed": ((_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
     "qct_form_packed_smem_bytes": ((_I, _I), ctypes.c_int64),
-    "qct_form_packed_mma_count": ((_I, _I), ctypes.c_int64),
+    "qct_form_packed_mma_count": ((_P, _I, _I), ctypes.c_int64),
     "qct_ns_inverse_scaled": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
     "qct_ns_inverse_scaled_build": (
         (_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P), _I),

@@ -24,8 +24,12 @@ fused_admm_solve_reference. `k1` builds formation_pack.cu into a library of
 its own and runs the packed formation K1 at the four lanes' shapes (h=10 and
 h=16 at max_stance 4, 2 and 3), with masked steps, at an n_c that is no
 multiple of 4, and at the two largest shapes whose planes leave no room for
-the padded row stride, against form_packed_reference, with the count of
-mma.sync it runs and its ldmatrix wavefronts per matrix. `plain` builds
+the padded row stride, and on stance slot lists of the reference's gaits at
+h=14 (each scenario's own slot steps, at each width a routed solve takes
+and with slots past a scenario's count), against form_packed_reference,
+with the count of mma.sync it runs and its ldmatrix wavefronts per matrix;
+two per-step cases again with their one slot list given a scenario, which
+must give the same bits. `plain` builds
 ns_plain.cu into a library of its own and runs the plain NS K8 on one
 system at the 128 tile (a cluster of 2 x 4 CTAs) and K9 on two systems at
 the 256 tile (4 x 1 CTAs each), the CTAs of a cluster together, against
@@ -668,10 +672,14 @@ def ragged_operands(n: int = 234, b: int = 2, seed: int = 5) -> tuple:
 
 
 # The segment's cases: (name, h, max_stance, pack, scenarios, call, n_lo, n_hi): n = 120
-# (two scenarios a system), 144 and 192 variables, two systems each; the first
-# call's zero carry or the second's warm one. h None: ragged_operands().
+# (two scenarios a system), 144 and 192 variables, and the widths a routed
+# solve of the reference's gait library adds (72, 84, 168: the kernel sees
+# only n), two systems each; the first call's zero carry or the second's warm
+# one. h None: ragged_operands().
 SEGMENT_CASES = (("n120_bf16", 10, 2, 2, 4, 0, 4, 0), ("n144_switch", 16, 3, 1, 2, 1, 3, 3),
-                 ("n192_fp32", 16, 4, 1, 2, 1, 0, 4), ("n234_ragged", None, 0, 0, 0, 0, 2, 2))
+                 ("n192_fp32", 16, 4, 1, 2, 1, 0, 4), ("n234_ragged", None, 0, 0, 0, 0, 2, 2),
+                 ("n72_bf16", 12, 2, 1, 2, 0, 4, 0), ("n84_fp32", 14, 2, 1, 2, 1, 0, 4),
+                 ("n168_switch", 14, 4, 1, 2, 1, 3, 3))
 
 
 def run_admm_segment(lib: ctypes.CDLL, cases=SEGMENT_CASES) -> dict:
@@ -710,20 +718,37 @@ def run_admm_segment(lib: ctypes.CDLL, cases=SEGMENT_CASES) -> dict:
 
 
 # K1's cases: (name, h, max_stance, pack, scenarios, masked trailing steps)
+# in the per-step layout (one slot list for every scenario, max_stance slots
+# a step); the slot-list cases: (name, h, [(gait number, segment)] a
+# scenario, slots a scenario) on each scenario's own stance slots, at h=14
+# the widths a routed solve of the reference's gait library takes (72, 84,
+# 120 and 168 variables) and one with slots past the scenarios' counts
 K1_CASES = (("h10", 10, 2, 2, 2, 0), ("h16_full", 16, 4, 1, 1, 0), ("h16_trot", 16, 2, 2, 2, 0),
             ("h16_midband", 16, 3, 1, 1, 0), ("h10_masked", 10, 2, 2, 2, 2),
             ("h5_ms1", 5, 1, 2, 2, 1), ("h36_ms1", 36, 1, 2, 2, 0), ("h25_ms2", 25, 2, 1, 1, 0))
+K1_SLOT_CASES = (("h14_slots72", 14, ((1, 3), (2, 9), (5, 0)), 24),
+                 ("h14_slots84", 14, ((7, 5), (8, 0), (9, 11)), 28),
+                 ("h14_slots120", 14, ((10, 2), (11, 13)), 40),
+                 ("h14_slots168", 14, ((4, 6),), 56),
+                 ("h14_slots_past", 14, ((1, 0), (9, 4)), 32))
+# per-step cases run again with their slot list given a scenario (stride n_slot)
+K1_PER_SCENARIO = ("h10", "h16_full")
+
+
+def _k1_dynamics(h: int, b: int, seed: int):
+    cfg = default_config()
+    inp = pipeline.random_inputs(seed, b, h, device="cpu")
+    adt, bdt = formation.srb_discrete(cfg.mpc, inp.r_feet, inp.rpy[:, 2], inp.x_drag, cfg.dt_mpc)
+    x0 = formation.build_x0(inp.rpy, inp.position, inp.omega_world, inp.v_world,
+                            cfg.mpc.gravity)
+    return cfg, inp, adt, bdt, x0
 
 
 def k1_operands(h: int, ms: int, b: int, masked: int, seed: int = 1) -> tuple:
     """form_packed's operands (bfam_s, smat, r, smask) for b scenarios of
     random_inputs at horizon h, max_stance ms, the last `masked` steps
     masked out, on the CPU (chip_smoke.check_k1's construction)."""
-    cfg = default_config()
-    inp = pipeline.random_inputs(seed, b, h, device="cpu")
-    adt, bdt = formation.srb_discrete(cfg.mpc, inp.r_feet, inp.rpy[:, 2], inp.x_drag, cfg.dt_mpc)
-    x0 = formation.build_x0(inp.rpy, inp.position, inp.omega_world, inp.v_world,
-                            cfg.mpc.gravity)
+    cfg, inp, adt, bdt, x0 = _k1_dynamics(h, b, seed)
     _, _, sel = formation.stance_selectors(inp.gait_table, ms)
     mask = torch.ones((b, h))
     if masked:
@@ -731,30 +756,76 @@ def k1_operands(h: int, ms: int, b: int, masked: int, seed: int = 1) -> tuple:
     return formation.packed_qp_operands(cfg.mpc, adt, bdt, x0, inp.traj, mask, sel)
 
 
-def run_k1(lib: ctypes.CDLL, cases=K1_CASES) -> dict:
+def gait_tables(h: int, gaits) -> torch.Tensor:
+    """(len(gaits), h, 4): the reference's table of each (gait number,
+    segment), rolled as Gait.cpp:142-166 (gait/gait.mpc_table)."""
+    from quadruped_ctrl_tpu_torch.gait import gait
+
+    return torch.stack([gait.mpc_table(torch.tensor(seg, dtype=torch.int32),
+                                       gait.params_for_gait(torch.tensor(g)), h)
+                        for g, seg in gaits])
+
+
+def k1_slot_operands(h: int, gaits, n_slot: int, seed: int = 1) -> tuple:
+    """(form_packed's operands, slot_step (b, n_slot) int32) for one
+    scenario of random_inputs a (gait number, segment) of `gaits`, on its
+    stance slot list of n_slot slots (formation.stance_slots)."""
+    cfg, inp, adt, bdt, x0 = _k1_dynamics(h, len(gaits), seed)
+    _, _, sel, slot_step = formation.stance_slots(gait_tables(h, gaits), n_slot)
+    ops = formation.packed_qp_operands(cfg.mpc, adt, bdt, x0, inp.traj,
+                                       torch.ones((len(gaits), h)), sel)
+    return ops, slot_step
+
+
+def run_k1(lib: ctypes.CDLL, cases=K1_CASES, slot_cases=K1_SLOT_CASES) -> dict:
     """K1 against form_packed_reference on each case: rel_H and rel_g (max
     difference over max |reference|), H finite and exactly 0 off the
     scenario blocks, the mma.sync the launch ran against the library's
     qct_form_packed_mma_count, ldmatrix's wavefronts per matrix, and the
-    shared memory of a block. Prints them."""
+    shared memory of a block; for K1_PER_SCENARIO, whether the launch with
+    the slot list given a scenario gives the same bits. Prints them."""
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     alpha, out = float(default_config().mpc.alpha), {}
-    for name, h, ms, pack, b, masked in cases:
-        ops = k1_operands(h, ms, b, masked)
-        n_c = 3 * ms * h
+
+    def launch(ops, steps, b, h, pack):
+        n_slot = steps.shape[-1]
+        n_c = 3 * n_slot
         hess = torch.full((b // pack, pack * n_c, pack * n_c), float("nan"))
         grad = torch.full((b // pack, pack * n_c), float("nan"))
+        bfam_s, smat, r, smask = ops
+        rc = lib.qct_form_packed(ptr(bfam_s), ptr(smat), ptr(steps),
+                                 n_slot if steps.dim() == 2 else 0, ptr(r), ptr(smask),
+                                 ptr(hess), ptr(grad), b, h, n_slot, pack, alpha, None)
+        return rc, hess, grad
+
+    def numbers(ops, steps, b, h, ms, pack):
         lib.emu_reset_counts()
-        rc = lib.qct_form_packed(*map(ptr, ops), ptr(hess), ptr(grad), b, h, ms, pack, alpha, None)
-        h_ref, g_ref = FP.form_packed_reference(*ops, h, ms, pack, alpha)
+        rc, hess, grad = launch(ops, steps, b, h, pack)
+        n_c = 3 * steps.shape[-1]
+        h_ref, g_ref = FP.form_packed_reference(*ops, h, ms, pack, alpha,
+                                                slot_step=None if ms else steps)
+        per = steps.expand(b, steps.shape[-1])
         block = torch.block_diag(*[torch.ones(n_c, n_c)] * pack).bool()
-        out[name] = dict(rc=rc, rel_H=rel(hess, h_ref), rel_g=rel(grad, g_ref),
-                         finite=bool(hess.isfinite().all() and grad.isfinite().all()),
-                         zeros_exact=bool((hess[:, ~block] == 0).all()),
-                         mma_count=lib.emu_mma_bf16_count(),
-                         mma_expected=b * lib.qct_form_packed_mma_count(h, ms),
-                         ldmatrix_wavefronts=lib.emu_ldsm_wavefronts_per_matrix(),
-                         smem=lib.qct_form_packed_smem_bytes(h, ms))
+        return hess, grad, dict(
+            rc=rc, rel_H=rel(hess, h_ref), rel_g=rel(grad, g_ref),
+            finite=bool(hess.isfinite().all() and grad.isfinite().all()),
+            zeros_exact=bool((hess[:, ~block] == 0).all()),
+            mma_count=lib.emu_mma_bf16_count(),
+            mma_expected=sum(FP.mma_count(lib, h, per[i]) for i in range(b)),
+            ldmatrix_wavefronts=lib.emu_ldsm_wavefronts_per_matrix(),
+            smem=lib.qct_form_packed_smem_bytes(h, steps.shape[-1]))
+
+    for name, h, ms, pack, b, masked in cases:
+        ops = k1_operands(h, ms, b, masked)
+        steps = FP.per_step_slots(h, ms, "cpu")
+        hess, grad, out[name] = numbers(ops, steps, b, h, ms, pack)
+        if name in K1_PER_SCENARIO:
+            _, hess_s, grad_s = launch(ops, steps.expand(b, -1).contiguous(), b, h, pack)
+            out[name]["per_scenario_equal"] = bool(torch.equal(hess, hess_s)
+                                                   and torch.equal(grad, grad_s))
+    for name, h, gaits, n_slot in slot_cases:
+        ops, steps = k1_slot_operands(h, gaits, n_slot)
+        _, _, out[name] = numbers(ops, steps, len(gaits), h, None, 1)
     for name, numbers in out.items():
         print(name, numbers)
     return out

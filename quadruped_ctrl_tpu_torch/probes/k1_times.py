@@ -70,9 +70,8 @@ def cut_libraries(build) -> dict:
         if proc.returncode:
             raise SystemExit(f"k1_times: nvcc failed for {cut}:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(build.BUILD_DIR / f"k1_{cut}.so"))
-        lib.qct_form_packed.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-        lib.qct_form_packed.restype = ctypes.c_int
+        lib.qct_form_packed.argtypes, lib.qct_form_packed.restype = \
+            build._SIGNATURES["qct_form_packed"]
         libs[cut] = lib
     return libs
 
@@ -122,9 +121,11 @@ def main() -> int:
         torch.cuda.synchronize()
         rel_h, rel_g = cs.rel(hk, hr), cs.rel(gk, gr)
         hess, grad = torch.empty_like(hk), torch.empty_like(gk)
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*ops, hess, grad)]
+        steps = FP.per_step_slots(h, ms, dev)
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*ops[:2], steps)] + [0] + [
+            ctypes.c_void_p(t.data_ptr()) for t in (*ops[2:], hess, grad)]
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        raw = lambda: lib.qct_form_packed(*ptrs, b, h, ms, pack, alpha, stream)  # noqa: E731
+        raw = lambda: lib.qct_form_packed(*ptrs, b, h, ms * h, pack, alpha, stream)  # noqa: E731
         row = dict(rel_H=rel_h, rel_g=rel_g,
                    kernel_host_ms=cs.median_ms(lambda: FP.form_packed(*a)),
                    kernel_device_ms=cs.event_ms(lambda: FP.form_packed(*a)),
@@ -140,7 +141,7 @@ def main() -> int:
             row["zero_fill_ms"] = cs.event_ms(lambda: hess.zero_())
             for cut, cut_lib in cuts.items():
                 row[f"{cut}_ms"] = cs.event_ms(
-                    lambda: cut_lib.qct_form_packed(*ptrs, b, h, ms, pack, alpha, stream))
+                    lambda: cut_lib.qct_form_packed(*ptrs, b, h, ms * h, pack, alpha, stream))
             print("    phases (device ms): " + ", ".join(
                 f"{k[:-3]} {row[k]:.4f}" for k in ("zero_fill_ms", *(f"{c}_ms" for c in cuts))))
         del inp, ops, hk, gk, hr, gr, hess, grad

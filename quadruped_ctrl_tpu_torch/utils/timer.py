@@ -13,9 +13,15 @@ traced stretch, `cli ... --profile DIR`, an operator's own profile); with
 none it does nothing. The port's spans, all under the prefix `qct.`:
 
 * `qct.solve`, around `mpc/pipeline.solve`, `solve_compressed`,
-  `solve_packed_batch` and `mpc/sparse.solve_sparse`, and inside it
-  `qct.formation` (dynamics, discretization, stance selection, the QP up to
-  its Hessian and gradient; the stage-wise QP's constraints too);
+  `solve_packed_batch`, `solve_routed_batch` and `mpc/sparse.solve_sparse`,
+  and inside it `qct.formation` (dynamics, discretization, stance selection,
+  the QP up to its Hessian and gradient; the stage-wise QP's constraints
+  too);
+* in `solve_routed_batch`: `qct.route`, the router's own work (grouping
+  the scenarios by width, its one host sync, the groups' gathers and slot
+  lists, inside `qct.formation`; the forces' scatter back, after the
+  groups' solves), and `qct.route.bucket n=<variables> b=<scenarios>`
+  around each group's ADMM solve;
 * in `solver/admm.py`: `qct.factorize` (one K build and NS inverse),
   `qct.admm.iterate` (one ADMM segment), `qct.admm.rho_adapt` (the
   adaptive-rho step, its refactorization nested) and `qct.admm.polish` (one

@@ -5,16 +5,18 @@ and run on the CPU by `emulate.run_admm_segment` against
 operands that `solve_packed_batch` hands the segment: n = 120 (two scenarios
 a system, the zero carry, bf16 products only), 144 (a warm carry, bf16
 iterations and then fp32 ones, the inverse loaded twice) and 192 (a warm
-carry, n_lo = 0), two systems each, and on random operands at n = 234, the
-largest n that fits, whose rows end in a part float4.
+carry, n_lo = 0), and at the widths a routed solve adds, 72 (the zero carry,
+bf16), 84 (warm, fp32) and 168 (warm, both), two systems each, and on random
+operands at n = 234, the largest n that fits, whose rows end in a part
+float4.
 
 Gates. x, z and y within 1e-4 of the reference's largest entry: the same
 arithmetic but for the two matrix products' order of summation (measured
-0 at n = 120, whose bf16 products the kernel holds bit for bit; 1.1e-6 and
-1.5e-6 at 192 and 144; 8.2e-6 at n = 234, the duals', where rho = 30 scales
-the rounding of z). At least 1e-3 from the reference at the other precision
+0 at n = 120, 72 and 84, whose products the kernel holds bit for bit;
+1.1e-6, 1.5e-6 and 1.2e-6 at 192, 144 and 168; 8.2e-6 at n = 234, the
+duals', where rho = 30 scales the rounding of z). At least 1e-3 from the reference at the other precision
 (all fp32 products where the segment has bf16 ones, all bf16 where it has
-none; measured 6.9e-3 to 9.9e-3), so a kernel that rounds the wrong
+none; measured 4.9e-3 to 9.9e-3), so a kernel that rounds the wrong
 iterations fails. The padding of x, z and y exactly the reference's, and the
 threads of a block as the library shapes it for each n. The route by n is
 the library's own rule (`admm_segment.fits` asks it).
@@ -63,7 +65,9 @@ def emulated(emu):
 
 
 @pytest.mark.parametrize("case,threads", [("n120_bf16", 256), ("n144_switch", 320),
-                                          ("n192_fp32", 768), ("n234_ragged", 768)])
+                                          ("n192_fp32", 768), ("n234_ragged", 768),
+                                          ("n72_bf16", 96), ("n84_fp32", 96),
+                                          ("n168_switch", 768)])
 def test_segment_source_runs_in_cpu_emulation(emulated, case, threads):
     r = emulated[case]
     assert r["finite"] and r["pad_exact"], r
@@ -75,7 +79,7 @@ def test_route_follows_n(emu, monkeypatch):
     """`fits`, asking the (emulated) library: every n the solver forms today
     fits; 237 variables and more do not; n must be a multiple of 3."""
     monkeypatch.setattr(AS._build, "load", lambda: emu[1])
-    assert all(AS.fits(n) for n in (120, 144, 192, 234))
+    assert all(AS.fits(n) for n in (72, 84, 120, 144, 168, 192, 234))
     assert not AS.fits(237) and not AS.fits(256) and not AS.fits(121)
 
 

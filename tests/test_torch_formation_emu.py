@@ -6,7 +6,12 @@ their PTX fragment layouts) and run on the CPU against `form_packed_reference` b
 two scenarios; h=16 at max_stance 4 / pack 1, 2 / pack 2 and 3 / pack 1, one
 system each), h=10 with 2 masked steps, h=5 at max_stance 1 (n_c = 15,
 no multiple of 4: the scalar stores), and h=36 at max_stance 1, h=25 at 2,
-whose planes leave no room in 227 KB for the padded row stride.
+whose planes leave no room in 227 KB for the padded row stride, all in the
+per-step layout (one slot list for every scenario); and at h=14 on stance
+slot lists of the reference's gaits, each scenario's own steps, at the
+four widths a routed solve of the gait library takes (72, 84, 120, 168
+variables) and with slots past the scenarios' counts. The per-step layout
+given as one list a scenario gives the same bits as one list for all.
 
 Tolerances: K1's own gates on the card (chip_smoke.check_k1), rel_H < 5e-5
 (the bf16x3 Gram in another order of summation; measured <= 4e-7) and rel_g
@@ -61,7 +66,8 @@ _UNPADDED_WAVEFRONTS = {"h36_ms1": 2.0, "h25_ms2": 4.0}
 
 
 @pytest.mark.parametrize("case", ["h10", "h16_full", "h16_trot", "h16_midband", "h10_masked",
-                                  "h5_ms1", "h36_ms1", "h25_ms2"])
+                                  "h5_ms1", "h36_ms1", "h25_ms2", "h14_slots72", "h14_slots84",
+                                  "h14_slots120", "h14_slots168", "h14_slots_past"])
 def test_k1_source_runs_in_cpu_emulation(k1_emulated, case):
     r = k1_emulated[case]
     assert r["rc"] == 0 and r["finite"] and r["zeros_exact"], r
@@ -69,6 +75,11 @@ def test_k1_source_runs_in_cpu_emulation(k1_emulated, case):
     assert r["mma_count"] == r["mma_expected"], r
     assert r["ldmatrix_wavefronts"] == _UNPADDED_WAVEFRONTS.get(case, 1.0), r
     assert r["smem"] <= 227 * 1024, r
+
+
+@pytest.mark.parametrize("case", ["h10", "h16_full"])
+def test_k1_per_scenario_slot_lists_give_the_per_step_bits(k1_emulated, case):
+    assert k1_emulated[case]["per_scenario_equal"], k1_emulated[case]
 
 
 def test_k1_shared_memory_sets_the_blocks_per_sm(k1_emulated):
@@ -82,8 +93,8 @@ def test_gram_mma_counts_skip_zeros_and_the_mirror(k1_lib):
     # h16_full: 21 of the 36 warp tiles, 135 (tile, chunk) pairs of their
     # 21 x 13; h10: 1 tile from chunk 0 (9 chunks), 2 from chunk 4 (5 each)
     lib = k1_lib[1]
-    assert lib.qct_form_packed_mma_count(16, 4) == 135 * 24
-    assert lib.qct_form_packed_mma_count(10, 2) == (9 + 2 * 5) * 24
+    assert FP.mma_count(lib, 16, FP.per_step_slots(16, 4, "cpu")) == 135 * 24
+    assert FP.mma_count(lib, 10, FP.per_step_slots(10, 2, "cpu")) == (9 + 2 * 5) * 24
 
 
 def test_k1_takes_every_shape_the_first_design_took(k1_lib):
@@ -94,6 +105,6 @@ def test_k1_takes_every_shape_the_first_design_took(k1_lib):
     took = [(h, ms) for ms in range(1, 5) for h in range(1, 86) if 3 * ms * h <= 256
             and 4 * (468 + 51 * 3 * ms * h + 13 * h * 3 * ms * h + 13 * h + h) <= 227 * 1024]
     assert max(h for h, ms in took if ms == 1) == 36 and (25, 2) in took
-    over = {(h, ms): lib.qct_form_packed_smem_bytes(h, ms) for h, ms in took
-            if lib.qct_form_packed_smem_bytes(h, ms) > 227 * 1024}
+    over = {(h, ms): lib.qct_form_packed_smem_bytes(h, ms * h) for h, ms in took
+            if lib.qct_form_packed_smem_bytes(h, ms * h) > 227 * 1024}
     assert not over, over
